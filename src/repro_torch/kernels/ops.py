@@ -1,0 +1,72 @@
+"""Dispatch for the kernel layer. The port of `repro/kernels/ops.py`.
+
+The device of the tensors decides: the CUDA kernels run on CUDA tensors,
+their plain PyTorch versions on CPU tensors (inside each wrapper). A
+`force` string overrides the default as in the reference:
+
+  * "ref" / "fused_ref"  the plain version, on whatever device;
+  * "kernel" / "pallas" / "fused"  the kernel wrapper (which still runs
+    the plain version for CPU tensors);
+  * "per-op"  (fused path only) the per-op gather composition in
+    core/tensorf.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import bitmap_decode, coo_gather as coo_mod
+from repro_torch.kernels import fused_sample
+
+_REF = ("ref", "fused_ref")
+_KERNEL = ("kernel", "pallas", "fused")
+
+
+def bitmap_gather(words, rowptr, values, queries, *, cols: int,
+                  rank: Optional[torch.Tensor] = None,
+                  force: Optional[str] = None) -> torch.Tensor:
+    if force in _REF:
+        return bitmap_decode.bitmap_gather_ref(words, rowptr, values,
+                                               queries, cols, rank=rank)
+    return bitmap_decode.bitmap_gather(words, rowptr, values, queries,
+                                       cols=cols, rank=rank)
+
+
+def coo_gather(coords, values, queries, *,
+               force: Optional[str] = None) -> torch.Tensor:
+    if force in _REF:
+        return coo_mod.coo_gather_ref(coords, values, queries)
+    return coo_mod.coo_gather(coords, values, queries)
+
+
+def fused_mode(force: Optional[str] = None,
+               device: Optional[torch.device] = None) -> str:
+    """Dispatch mode of the fused decode-sample-accumulate path: "fused"
+    (the kernel: CUDA by default), "fused_ref" (the plain version: CPU by
+    default), or what `force` names ("per-op" makes core/tensorf use the
+    per-op gather composition)."""
+    if force in _KERNEL:
+        return "fused"
+    if force in _REF:
+        return "fused_ref"
+    if force:
+        return force
+    dev = torch.device(device) if device is not None else None
+    return "fused" if dev is not None and dev.type == "cuda" else "fused_ref"
+
+
+fused_supported = fused_sample.fused_supported
+
+
+def fused_sigma_app(spec, streams, basis, pts, cube_base, cube_id, *,
+                    grid_res: int, scene_bound: float, window: int,
+                    app_dim: int, force: Optional[str] = None):
+    """(sigma_raw, feat) straight from the encoded factor streams."""
+    kw = dict(grid_res=grid_res, scene_bound=scene_bound, window=window,
+              app_dim=app_dim)
+    if fused_mode(force, pts.device) == "fused_ref":
+        return fused_sample.fused_sigma_app_ref(spec, streams, basis, pts,
+                                                cube_base, cube_id, **kw)
+    return fused_sample.fused_sigma_app(spec, streams, basis, pts,
+                                        cube_base, cube_id, **kw)

@@ -96,6 +96,9 @@ def pytest_configure(config):
         "markers",
         "fleet: multi-process fleet-tier test (skipped unless --fleet, "
         "REPRO_FLEET=1, or test_fleet.py is invoked directly)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels); skips without one")
 
 
 def _fleet_enabled(config) -> bool:

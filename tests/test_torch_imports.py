@@ -1,0 +1,87 @@
+"""The port stands alone: nothing under src/repro_torch/, and not
+chip_smoke.py, imports jax or the reference package; and an entry point
+asked to run with no device and no card raises instead of falling back
+to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import device as tdevice
+from repro_torch.configs.rtnerf import demo_config
+from repro_torch.core import field as tfield
+from repro_torch.core import rendering as trender
+from repro_torch.core import tensorf as ttensorf
+from repro_torch.serving import RenderEngine
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10 and all(f.exists() for f in files)
+    return files
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+def test_no_port_file_imports_jax_or_the_reference():
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in _port_files() for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_importing_the_port_loads_no_jax_or_reference_module():
+    mods = sorted(".".join(p.relative_to(PORT.parent).with_suffix("").parts)
+                  .replace(".__init__", "") for p in PORT.rglob("*.py"))
+    code = (
+        "import sys, importlib\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=str(REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_entry_points_without_device_and_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = demo_config(tiny=True)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.resolve_device(None)
+    with pytest.raises(RuntimeError):
+        ttensorf.init_field(cfg, gen)
+    with pytest.raises(RuntimeError):
+        trender.look_at_camera([4.0, 0, 0], [0, 0, 0], 10.0, 8, 8)
+    with pytest.raises(RuntimeError):
+        tfield.field_from_state({"kind": "dense"}, {}, cfg)
+    params = ttensorf.init_field(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError):
+        RenderEngine(cfg, params)
+    with pytest.raises(RuntimeError):
+        tdevice.resolve_device("cuda")
+    assert tdevice.resolve_device("cpu") == torch.device("cpu")
