@@ -23,9 +23,9 @@ line each:
            device's busy share and the kernels taking the most time;
   kernels  {"kernels": [...]}: per kernel its launches while serving, the
            largest error against its plain version, its device time and
-           the plain version's (torch.profiler; `wall_ms` by CUDA events
-           includes the wrapper's host time) and the least time the card
-           could take.
+           the plain version's (CUDA events over a CUDA graph of repeated
+           calls; `wall_ms`, over eager calls, includes the wrapper's host
+           time) and the least time the card could take.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -177,31 +177,38 @@ class Capture:
 
 
 def time_ms(torch, fn, iters: int) -> tuple:
-    """(device ms, wall ms) per call over `iters` back-to-back calls after
-    a warm-up. Device ms sums the kernels' own time from torch.profiler;
-    wall ms is by CUDA events and includes any host time of the wrapper
-    that the device waits on. The inputs stay warm in L2, as on the
-    serving path, which re-reads the same streams every step."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    wall = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    """(device ms, wall ms) per call of `fn`, both by CUDA events after a
+    warm-up. Device ms replays `iters` calls captured into one CUDA graph,
+    so the device runs them back to back with no host time between them;
+    wall ms runs `iters` eager calls and includes any host time of the
+    wrapper that the device waits on. The inputs stay warm in L2, as on
+    the serving path, which re-reads the same streams every step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # warm-up before capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type.name == "CUDA")
-    check(us > 0, "the profiler recorded no device time")
-    return us * 1e-3 / iters, wall
+    graph.replay()
+    torch.cuda.synchronize()
+
+    def per_call(run) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    wall = per_call(lambda: [fn() for _ in range(iters)])
+    device = per_call(graph.replay)
+    del graph
+    return device, wall
 
 
 def timing_keys(torch, kernel_fn, plain_fn) -> dict:
