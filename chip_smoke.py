@@ -21,11 +21,20 @@ line each:
            rendered on the CPU through the plain versions;
   profile  one 64 x 64 view (one ray chunk) under torch.profiler: the
            device's busy share and the kernels taking the most time;
-  kernels  {"kernels": [...]}: per kernel its launches while serving, the
-           largest error against its plain version, its device time and
-           the plain version's (CUDA events over a CUDA graph of repeated
-           calls; `wall_ms`, over eager calls, includes the wrapper's host
-           time) and the least time the card could take.
+  kernel_ops  the kernel entry points `repro_torch.kernels.ops` offers
+           beside the serve path, driven at full width: bitmap_matmul on
+           Fig. 14's operand (app_planes slice 0 of the field, times x
+           (25,600, 8)), volume_render on the field's uniform samples of
+           4096 rays x NeRFConfig().max_samples_per_ray, flash_attention
+           at Llama 3.2 1B's widths (32 heads, head dim 64, 8 kv heads
+           repeated) over 4096 tokens, causal;
+  kernels  {"kernels": [...]}: per kernel its launches on its path (serve
+           or kernel_ops), the largest error against its plain version,
+           its device time and the plain version's (CUDA events over a
+           CUDA graph of repeated calls; `wall_ms`, over eager calls,
+           includes the wrapper's host time), the time of one PyTorch call
+           computing the same function where there is one, and the least
+           time the card could take.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -50,9 +59,23 @@ SRC = ROOT / "src"
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+PEAK_16BIT_S = 989e12         # bf16 and fp16 tensor cores, dense
 
 FUSED_TOL = 1e-4      # summation order differs (per-channel vs one matmul)
 PARITY_TOL = 1e-3     # image: atomics order + kernel sums over 1024 steps
+# kernel_ops: the kernels sum in another order than their plain versions
+# (per-thread partial sums, warp scans, online softmax); the low-precision
+# cases round their inputs or outputs
+BITMAP_TOL = {"float32": 1e-5, "float16": 2e-2}   # of 1 + |W| @ |x|
+VR_TOL = 1e-5         # color and t_final, absolute
+NPROC_REL_TOL = 1e-4  # nproc: exact, or this close with the odd samples
+                      # sitting at term_eps
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+BITMAP_N = 8          # x columns (benchmarks/speedup_fig14.py)
+VR_RAYS = 4096        # the engine's ray chunk
+# Llama 3.2 1B (src/repro/configs/llama3_2_1b.py) at train_4k's length
+FLASH_SHAPE = {"B": 1, "H": 32, "kv_heads": 8, "S": 4096, "D": 64}
 
 
 def emit(obj) -> None:
@@ -211,16 +234,17 @@ def time_ms(torch, fn, iters: int) -> tuple:
     return device, wall
 
 
-def timing_keys(torch, kernel_fn, plain_fn) -> dict:
+def timing_keys(torch, kernel_fn, plain_fn, plain_iters: int = 10) -> dict:
     ms, wall = time_ms(torch, kernel_fn, 50)
-    plain_ms, plain_wall = time_ms(torch, plain_fn, 10)
+    plain_ms, plain_wall = time_ms(torch, plain_fn, plain_iters)
     return {"ms": ms, "plain_ms": plain_ms, "wall_ms": wall,
             "plain_wall_ms": plain_wall}
 
 
-def bound(nbytes: float, nops: float) -> tuple:
+def bound(nbytes: float, nops: float, peak_ops_s: float = PEAK_FP32_S
+          ) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = nops / PEAK_FP32_S * 1e3
+    t_ops = nops / peak_ops_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -236,6 +260,193 @@ def errors(torch, got, want) -> tuple:
     rel_err = max(float(((g - w).abs() / w.abs().clamp(min=1e-6)).max())
                   if g.numel() else 0.0 for g, w in zip(got, want))
     return abs_err, rel_err
+
+
+def uniform_samples(torch, field, cfg, rendering, origins, dirs):
+    """sigma (R, N) and rgb (R, N, 3) of the field at render_uniform's
+    samples near + (k + 0.5) * step along each ray, 256 rays at a time."""
+    n = cfg.max_samples_per_ray
+    delta = rendering.step_world(cfg)
+    t = cfg.near + (torch.arange(n, dtype=torch.float32,
+                                 device=dirs.device) + 0.5) * delta
+    sig, rgb = [], []
+    for i in range(0, dirs.shape[0], 256):
+        o, d = origins[i:i + 256], dirs[i:i + 256]
+        pts = o[:, None] + d[:, None] * t[None, :, None]
+        flat = pts.reshape(-1, 3)
+        view = d[:, None].expand(pts.shape).reshape(-1, 3)
+        sig.append(field.sigma(flat).reshape(-1, n))
+        rgb.append(field.color(field.app_features(flat), view)
+                   .reshape(-1, n, 3))
+    return torch.cat(sig).contiguous(), torch.cat(rgb).contiguous()
+
+
+def nproc_ok(torch, got, want, sigma, delta, term_eps) -> tuple:
+    """nproc exact, or within NPROC_REL_TOL with no more differing samples
+    than sit at term_eps (transmittance within 1e-4 relative of it), where
+    the two summation orders may decide `alive` either way."""
+    diff = abs(float(got) - float(want))
+    tau = sigma * delta
+    t_before = torch.exp(-(torch.cumsum(tau, dim=-1) - tau))
+    at_eps = int(((t_before - term_eps).abs() <= 1e-4 * term_eps).sum())
+    ok = diff == 0 or (diff <= NPROC_REL_TOL * float(want) and diff <= at_eps)
+    return ok, diff, at_eps
+
+
+def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
+    """The kernel_ops phase's inputs, made before its launch counts are
+    reset: the bitmap operand per dtype, the volume samples of the first
+    VR_RAYS rays of `cam`, and q, k, v per dtype."""
+    rng = np.random.default_rng(seed + 12)
+    w = field.factors["app_planes"][0].decode().cpu().numpy()
+    x = rng.standard_normal((w.shape[1], BITMAP_N), dtype=np.float32)
+    bitmap = {}
+    for dt in (np.float32, np.float16):
+        enc = sparse.encode_bitmap(w.astype(dt), device=dev)
+        bitmap[np.dtype(dt).name] = (
+            enc, torch.from_numpy(x.astype(dt)).to(dev),
+            torch.from_numpy(w.astype(dt)).to(dev))
+    origins, dirs = rendering.camera_rays(cam)
+    volume = uniform_samples(torch, field, cfg, rendering,
+                             origins[:VR_RAYS], dirs[:VR_RAYS])
+    B, H, Hkv, S, D = (FLASH_SHAPE[k] for k in ("B", "H", "kv_heads", "S",
+                                                 "D"))
+
+    def heads(n):
+        a = rng.standard_normal((B, n, S, D), dtype=np.float32)
+        return torch.from_numpy(a).to(dev)
+    q = heads(H)
+    k, v = (heads(Hkv).repeat_interleave(H // Hkv, dim=1).contiguous()
+            for _ in range(2))
+    flash = {"float32": (q, k, v),
+             "bfloat16": tuple(t.to(torch.bfloat16) for t in (q, k, v))}
+    return bitmap, volume, flash
+
+
+def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches):
+    """One {"kernels"} row per kernel of the kernel_ops phase: the first
+    dtype in the row, the other under "cases"."""
+    bitmap_decode, volume_render, flash_attention = mods
+    bitmap, volume, flash = inputs
+    rows = []
+
+    cases = []
+    for dt, (enc, x, w_dense) in bitmap.items():
+        cols = enc.shape[1]
+        args = (enc.words, enc.rowptr, enc.values, x)
+        want = bitmap_decode.bitmap_matmul_ref(*args, cols)
+        # a row sums up to 25,600 products in another order than the plain
+        # version's GEMM: the error is held against the summed magnitudes
+        # |W| @ |x|, not against the result, which may cancel
+        scale = 1.0 + bitmap_decode.bitmap_matmul_ref(
+            enc.words, enc.rowptr, enc.values.abs(), x.abs(), cols).float()
+        errs = []
+        for rank in (enc.rank, None):
+            got = bitmap_decode.bitmap_matmul(*args, cols=cols, rank=rank)
+            torch.cuda.synchronize()
+            ea, er = errors(torch, got, want)
+            es = float(((got.float() - want.float()).abs() / scale).max())
+            check(es <= BITMAP_TOL[dt],
+                  f"bitmap_matmul {dt} (rank {rank is not None}) vs plain: "
+                  f"abs {ea} rel {er}, over |W|@|x| {es}")
+            errs.append((ea, er, es))
+        esz = x.element_size()
+        b_bytes = (nbytes(enc.words, enc.rowptr) + enc.nnz * esz
+                   + nbytes(x) + enc.shape[0] * x.shape[1] * esz)
+        b_ops = 2 * enc.nnz * x.shape[1]
+        b_ms, b_by = bound(b_bytes, b_ops,
+                           PEAK_FP32_S if dt == "float32" else PEAK_16BIT_S)
+        cases.append({
+            "dtype": dt, "max_abs_err": max(e[0] for e in errs),
+            "max_rel_err": max(e[1] for e in errs),
+            "max_err_over_abs_product": max(e[2] for e in errs),
+            "tol": BITMAP_TOL[dt],
+            **timing_keys(torch, lambda: bitmap_decode.bitmap_matmul(
+                *args, cols=cols, rank=enc.rank),
+                lambda: bitmap_decode.bitmap_matmul_ref(*args, cols,
+                                                         rank=enc.rank)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "dense_ms": time_ms(torch, lambda: torch.matmul(w_dense, x),
+                                50)[0],
+            "shape": {"rows": enc.shape[0], "cols": cols, "n": x.shape[1],
+                      "nnz": enc.nnz, "density": enc.nnz / (enc.shape[0]
+                                                             * cols)},
+            "bytes": b_bytes, "ops": b_ops})
+    rows.append({"name": "bitmap_matmul", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/bitmap_matmul.cu",
+                 "replaces": "src/repro/kernels/bitmap_decode.py:96",
+                 "launches": launches["bitmap_matmul"], **cases[0],
+                 "cases": cases[1:]})
+
+    delta, eps = rendering.step_world(cfg), cfg.term_eps
+    sigma, rgb = volume
+    got = volume_render.volume_render(sigma, rgb, delta=delta, term_eps=eps)
+    want = volume_render.volume_render_ref(sigma, rgb, delta, eps)
+    torch.cuda.synchronize()
+    ea, er = errors(torch, got[:2], want[:2])
+    check(all(torch.allclose(g, w, rtol=0.0, atol=VR_TOL)
+              for g, w in zip(got[:2], want[:2])),
+          f"volume_render vs plain: abs {ea} rel {er}")
+    ok, n_diff, at_eps = nproc_ok(torch, got[2], want[2], sigma, delta, eps)
+    check(ok, f"volume_render nproc {float(got[2])} vs {float(want[2])}, "
+          f"{at_eps} samples at term_eps")
+    R, N = sigma.shape
+    nproc = int(got[2])
+    v_bytes = nproc * 16 + R * 16
+    v_ops = nproc * 20
+    b_ms, b_by = bound(v_bytes, v_ops)
+    rows.append({
+        "name": "volume_render", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/volume_render.cu",
+        "replaces": "src/repro/kernels/volume_render.py:56",
+        "launches": launches["volume_render"], "max_abs_err": ea,
+        "max_rel_err": er, "tol": VR_TOL, "nproc": nproc,
+        "nproc_plain": float(want[2]), "nproc_diff": n_diff,
+        "samples_at_term_eps": at_eps,
+        **timing_keys(torch, lambda: volume_render.volume_render(
+            sigma, rgb, delta=delta, term_eps=eps),
+            lambda: volume_render.volume_render_ref(sigma, rgb, delta, eps)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "full_read_bytes": R * N * 16 + R * 16,
+        "shape": {"R": R, "N": N, "delta": delta, "term_eps": eps,
+                  "terminated_rays": int((got[1] <= eps).sum())},
+        "bytes": v_bytes, "ops": v_ops})
+
+    cases = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dt, (q, k, v) in flash.items():
+        got = flash_attention.flash_attention(q, k, v, causal=True)
+        want = flash_attention.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ea, er = errors(torch, got, want)
+        check(torch.allclose(got.float(), want.float(), rtol=FLASH_TOL[dt],
+                             atol=FLASH_TOL[dt]),
+              f"flash_attention {dt} vs plain: abs {ea} rel {er}")
+        B, H, S, D = q.shape
+        f_ops = 4 * B * H * S * S * D // 2
+        f_bytes = 4 * nbytes(q)
+        peak = PEAK_FP32_S if dt == "float32" else PEAK_16BIT_S
+        b_ms, b_by = bound(f_bytes, f_ops, peak)
+        cases.append({
+            "dtype": dt, "max_abs_err": ea, "max_rel_err": er,
+            "tol": FLASH_TOL[dt],
+            **timing_keys(torch, lambda: flash_attention.flash_attention(
+                q, k, v, causal=True),
+                lambda: flash_attention.flash_attention_ref(q, k, v,
+                                                            causal=True),
+                plain_iters=3),
+            "bound_ms": b_ms, "bound_by": b_by, "peak_ops_s": peak,
+            "library_ms": time_ms(torch, lambda: sdpa(q, k, v,
+                                                      is_causal=True), 50)[0],
+            "shape": {"B": B, "H": H, "S": S, "D": D,
+                      "kv_heads": FLASH_SHAPE["kv_heads"], "causal": True},
+            "bytes": f_bytes, "ops": f_ops})
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:64",
+                 "launches": launches["flash_attention"], **cases[0],
+                 "cases": cases[1:]})
+    return rows
 
 
 def profile_chunk(torch, engine, rendering, dev) -> dict:
@@ -287,9 +498,10 @@ def main() -> int:
     from repro_torch.configs.rtnerf import NeRFConfig
     from repro_torch.core import field as field_lib
     from repro_torch.core import occupancy as occ_lib
-    from repro_torch.core import pipeline, rendering, tensorf
+    from repro_torch.core import pipeline, rendering, sparse, tensorf
     from repro_torch.kernels import (_build, bitmap_decode, coo_gather,
-                                     fused_sample, ops)
+                                     flash_attention, fused_sample, ops,
+                                     volume_render)
     from repro_torch.serving import RenderEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -418,6 +630,42 @@ def main() -> int:
     # -- profile: where one 4096-ray chunk's 1024 scan steps spend time ---
     emit(profile_chunk(torch, engine, rendering, dev))
 
+    # -- kernel_ops: the ops entry points beside the serve path -----------
+    t0 = time.perf_counter()
+    op_inputs = kernel_ops_inputs(torch, field, cfg, cams[0], rendering,
+                                  sparse, args.seed, dev)
+    bitmap_in, volume_in, flash_in = op_inputs
+    all_kernels = {**kernels,
+                   "bitmap_matmul": bitmap_decode.bitmap_matmul,
+                   "volume_render": volume_render.volume_render,
+                   "flash_attention": flash_attention.flash_attention}
+    torch.cuda.synchronize()
+    for k in all_kernels.values():
+        k.launches = 0
+    for enc, x, _w in bitmap_in.values():
+        ops.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                          cols=enc.shape[1], rank=enc.rank)
+    ops.volume_render(*volume_in, delta=rendering.step_world(cfg),
+                      term_eps=cfg.term_eps)
+    for q, k, v in flash_in.values():
+        ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    ops_launches = {name: k.launches for name, k in all_kernels.items()}
+    emit({"phase": "kernel_ops", "seconds": time.perf_counter() - t0,
+          "launches": ops_launches,
+          "bitmap_operand": {"shape": list(bitmap_in["float32"][0].shape),
+                             "nnz": bitmap_in["float32"][0].nnz,
+                             "formats_in_field": fmts["app_planes"]},
+          "volume_samples": list(volume_in[0].shape),
+          "flash_shape": FLASH_SHAPE})
+    for name in ("bitmap_matmul", "volume_render", "flash_attention"):
+        check(ops_launches[name] > 0,
+              f"{name} was not launched through kernel_ops")
+    ops_rows = kernel_ops_rows(torch, (bitmap_decode, volume_render,
+                                       flash_attention), op_inputs, cfg,
+                               rendering, ops_launches)
+    del op_inputs, bitmap_in, volume_in, flash_in
+
     # -- kernels: each against its plain version on captured inputs ------
     rows = []
     fargs, fkw, hits = cap.fused_inputs()
@@ -494,6 +742,8 @@ def main() -> int:
             "bound_by": b_by, "library_ms": None,
             "shape": {"Q": nq, "stream_bytes": stream_bytes},
             "bytes": nq * 8 + stream_bytes, "ops": g_ops})
+    rows += ops_rows
+    check(len(rows) == 6, f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", file=sys.stderr)
     print(nvidia_smi(), flush=True)

@@ -143,6 +143,16 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def all_on_cpu(name: str, *tensors: torch.Tensor) -> bool:
+    """True if every tensor lies on the CPU (the wrapper then runs its
+    plain version), False if none does; a mix raises."""
+    on_cpu = [t.device.type == "cpu" for t in tensors]
+    require(all(on_cpu) or not any(on_cpu),
+            f"{name}: tensors on the CPU and on "
+            f"{[str(t.device) for t in tensors]}")
+    return all(on_cpu)
+
+
 def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape: tuple = None) -> None:
     """`t` is a contiguous CUDA tensor of `dtype` (and `shape`, if given)."""

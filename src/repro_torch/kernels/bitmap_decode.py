@@ -1,11 +1,15 @@
-"""Bitmap gather: random access into a bitmap-encoded (rows, cols) matrix.
-The port of `repro/kernels/bitmap_decode.py` `bitmap_gather`.
+"""Kernels over a bitmap-encoded (rows, cols) matrix. The port of
+`repro/kernels/bitmap_decode.py`:
 
-`bitmap_gather` launches the CUDA kernel (`csrc/bitmap_gather.cu`) on
-CUDA tensors and runs the plain PyTorch version `bitmap_gather_ref` on
-CPU tensors; anything else raises. `bitmap_gather.launches` counts kernel
-launches. (`bitmap_matmul`, the reference's other kernel in this module,
-is not ported yet.)
+  * `bitmap_gather`: random access, the matrix's values at linear
+    indices (0 at zeros);
+  * `bitmap_matmul`: y = W @ x for a dense x (cols, n), W decoded on the
+    fly and never expanded to dense.
+
+Each launches its CUDA kernel (`csrc/bitmap_gather.cu`,
+`csrc/bitmap_matmul.cu`) on CUDA tensors and runs its plain PyTorch
+version (`bitmap_gather_ref`, `bitmap_matmul_ref`) on CPU tensors;
+anything else raises. `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -82,3 +86,71 @@ def bitmap_gather(words: torch.Tensor, rowptr: torch.Tensor,
 
 
 bitmap_gather.launches = 0
+
+
+MATMUL_DTYPES = (torch.float32, torch.float16)
+
+
+def bitmap_matmul_ref(words: torch.Tensor, rowptr: torch.Tensor,
+                      values: torch.Tensor, x: torch.Tensor, cols: int,
+                      rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of the reference's `ref.bitmap_decode_matmul_ref`:
+    decode W (rows, cols) densely, cast it to x's dtype, multiply in
+    float32 and return y (rows, n) in x's dtype."""
+    rows = words.shape[0]
+    q = torch.arange(rows * cols, dtype=torch.int32, device=words.device)
+    w = bitmap_gather_ref(words, rowptr, values, q, cols, rank=rank)
+    w = w.reshape(rows, cols).to(x.dtype).to(torch.float32)
+    return (w @ x.to(torch.float32)).to(x.dtype)
+
+
+def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
+                  values: torch.Tensor, x: torch.Tensor, *, cols: int,
+                  rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """y = decode(words, rowptr, values) @ x, x (cols, n) float32 or
+    float16, values float32 or float16; y in x's dtype. `words` holds the
+    uint32 bitmap as int32 bit patterns; `rank` is the optional
+    (rows, words) int32 table of `core.sparse.bitmap_rank`."""
+    tensors = (words, rowptr, values, x) + (() if rank is None else (rank,))
+    if _build.all_on_cpu("bitmap_matmul", *tensors):
+        return bitmap_matmul_ref(words, rowptr, values, x, cols, rank=rank)
+    _build.require(words.dim() == 2, "bitmap_matmul: words must be 2-D")
+    rows, nwords = words.shape
+    _build.require(nwords == (cols + 31) // 32,
+                   f"bitmap_matmul: words {tuple(words.shape)} do not fit "
+                   f"{cols} columns")
+    _build.require(values.dim() == 1 and values.shape[0] > 0,
+                   "bitmap_matmul: values must be a non-empty vector")
+    _build.require(x.dim() == 2 and x.shape[0] == cols,
+                   f"bitmap_matmul: x must be ({cols}, n), got "
+                   f"{tuple(x.shape)}")
+    _build.require(values.dtype in MATMUL_DTYPES and x.dtype in MATMUL_DTYPES,
+                   f"bitmap_matmul: values and x must be float32 or float16, "
+                   f"got {values.dtype} and {x.dtype}")
+    _build.require_cuda("bitmap_matmul words", words, torch.int32)
+    _build.require_cuda("bitmap_matmul rowptr", rowptr, torch.int32, (rows,))
+    if rank is not None:
+        _build.require_cuda("bitmap_matmul rank", rank, torch.int32,
+                            (rows, nwords))
+    _build.require_cuda("bitmap_matmul values", values, values.dtype)
+    _build.require_cuda("bitmap_matmul x", x, x.dtype)
+    dev = x.device
+    _build.require(all(t.device == dev for t in tensors),
+                   "bitmap_matmul: tensors on different devices")
+    n = x.shape[1]
+    y = torch.empty((rows, n), dtype=x.dtype, device=dev)
+    fn = _build.entry("bitmap_matmul_launch",
+                      (_build.P, _build.P, _build.P, _build.P, _build.I32,
+                       _build.I32, _build.I32, _build.I32, _build.I32,
+                       _build.P, _build.I32, _build.I32, _build.P, _build.P))
+    code = fn(words.data_ptr(), rowptr.data_ptr(),
+              None if rank is None else rank.data_ptr(), values.data_ptr(),
+              values.shape[0], int(values.dtype == torch.float16), rows,
+              nwords, cols, x.data_ptr(), int(x.dtype == torch.float16), n,
+              y.data_ptr(), _build.stream_ptr(dev))
+    _build.check("bitmap_matmul", code)
+    bitmap_matmul.launches += 1
+    return y
+
+
+bitmap_matmul.launches = 0

@@ -1,0 +1,75 @@
+"""Flash attention, forward, with an fp32 online softmax. The port of
+`repro/kernels/flash_attention.py`.
+
+q (B, H, Sq, D), k and v (B, H, Sk, D) -> (B, H, Sq, D) in q's dtype,
+scale 1/sqrt(D). When causal, query i sees the keys j <= i: the mask is
+aligned at the top left, as the Pallas kernel aligns it (the reference's
+jnp oracle `ref.flash_attention_ref` aligns it at the bottom right, which
+agrees only when Sq == Sk). k and v carry q's head count; a model with
+grouped kv heads repeats them before the call.
+
+`flash_attention` launches the CUDA kernel (`csrc/flash_attention.cu`) on
+CUDA tensors and runs the plain PyTorch version `flash_attention_ref` on
+CPU tensors; anything else raises. `flash_attention.launches` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 128                 # csrc/flash_attention.cu pads D to 128
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain version of the Pallas kernel's function: scores in float32,
+    masked from the top left, softmax, then P V; cast to q's dtype."""
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    s = (qf @ kf.transpose(-1, -2)) * (1.0 / (q.shape[-1] ** 0.5))
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, NEG_INF)
+    return (torch.softmax(s, dim=-1) @ vf).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D)) v, float32 or bfloat16, D <= 128."""
+    if _build.all_on_cpu("flash_attention", q, k, v):
+        return flash_attention_ref(q, k, v, causal=causal)
+    _build.require(q.dim() == 4, "flash_attention: q must be (B, H, S, D)")
+    B, H, Sq, D = q.shape
+    _build.require(q.dtype in DTYPES, f"flash_attention: expected float32 "
+                   f"or bfloat16, got {q.dtype}")
+    _build.require(0 < D <= MAX_HEAD_DIM,
+                   f"flash_attention: head dim {D} outside [1, "
+                   f"{MAX_HEAD_DIM}]")
+    _build.require(k.dim() == 4 and k.shape[2] > 0,
+                   "flash_attention: k must be (B, H, Sk, D), Sk > 0")
+    Sk = k.shape[2]
+    _build.require(B * H <= 65535, f"flash_attention: B*H = {B * H} > 65535")
+    _build.require_cuda("flash_attention q", q, q.dtype)
+    _build.require_cuda("flash_attention k", k, q.dtype, (B, H, Sk, D))
+    _build.require_cuda("flash_attention v", v, q.dtype, (B, H, Sk, D))
+    _build.require(k.device == q.device and v.device == q.device,
+                   "flash_attention: q, k, v on different devices")
+    o = torch.empty_like(q)
+    fn = _build.entry("flash_attention_launch",
+                      (_build.P, _build.P, _build.P, _build.P, _build.I32,
+                       _build.I32, _build.I32, _build.I32, _build.F32,
+                       _build.I32, _build.I32, _build.P))
+    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B * H,
+              Sq, Sk, D, 1.0 / (D ** 0.5), int(causal),
+              int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+    _build.check("flash_attention", code)
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0

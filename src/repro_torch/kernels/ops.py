@@ -17,10 +17,23 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import bitmap_decode, coo_gather as coo_mod
+from repro_torch.kernels import flash_attention as flash_mod
 from repro_torch.kernels import fused_sample
+from repro_torch.kernels import volume_render as vr_mod
 
 _REF = ("ref", "fused_ref")
 _KERNEL = ("kernel", "pallas", "fused")
+
+
+def bitmap_matmul(words, rowptr, values, x, *, cols: int,
+                  rank: Optional[torch.Tensor] = None,
+                  force: Optional[str] = None) -> torch.Tensor:
+    """y = decode(words, rowptr, values) @ x, in x's dtype."""
+    if force in _REF:
+        return bitmap_decode.bitmap_matmul_ref(words, rowptr, values, x,
+                                               cols, rank=rank)
+    return bitmap_decode.bitmap_matmul(words, rowptr, values, x, cols=cols,
+                                       rank=rank)
 
 
 def bitmap_gather(words, rowptr, values, queries, *, cols: int,
@@ -70,3 +83,19 @@ def fused_sigma_app(spec, streams, basis, pts, cube_base, cube_id, *,
                                                 cube_base, cube_id, **kw)
     return fused_sample.fused_sigma_app(spec, streams, basis, pts,
                                         cube_base, cube_id, **kw)
+
+
+def volume_render(sigma, rgb, *, delta: float, term_eps: float = 1e-4,
+                  force: Optional[str] = None):
+    """(color (R, 3), t_final (R,), nproc) of Eq. 1 front to back."""
+    if force in _REF:
+        return vr_mod.volume_render_ref(sigma, rgb, delta, term_eps)
+    return vr_mod.volume_render(sigma, rgb, delta=delta, term_eps=term_eps)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    force: Optional[str] = None) -> torch.Tensor:
+    """Forward attention (B, H, S, D), causal from the top left."""
+    if force in _REF:
+        return flash_mod.flash_attention_ref(q, k, v, causal=causal)
+    return flash_mod.flash_attention(q, k, v, causal=causal)

@@ -17,6 +17,8 @@ from repro_torch.core import rendering as trender
 from repro_torch.core import sparse as tsparse
 from repro_torch.core import tensorf as ttensorf
 from repro_torch.kernels import _build, bitmap_decode, coo_gather, fused_sample
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import volume_render as tvr
 from repro_torch.serving import RenderEngine
 
 pytestmark = pytest.mark.gpu
@@ -189,3 +191,183 @@ def test_engine_on_card_matches_cpu_and_launches_every_kernel(cuda):
                if k is not fused_sample.fused_sigma_app)
     occ = tocc.build_occupancy(gpu.field, cfg)
     assert torch.equal(occ.cpu(), cpu.cubes.occ)
+
+
+# ------------------------------------------- bitmap matmul, volume, flash ---
+@pytest.mark.parametrize("rows,cols,n_cols", [(8, 32, 4), (5, 70, 3),
+                                              (3, 1000, 20), (48, 25600, 8)])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float16, 2e-2)])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_bitmap_matmul_kernel_matches_plain(cuda, rows, cols, n_cols, dtype,
+                                            tol, density):
+    """Rows off the Pallas 8-row block, ragged last words, n over the
+    kernel's 8-column register tile; with and without the rank table."""
+    w = _matrix(rows, cols, density, rows + cols).astype(dtype)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(n_cols).randn(
+        cols, n_cols).astype(dtype)).to(cuda)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, cols)
+    for rank in (enc.rank, None):
+        before = bitmap_decode.bitmap_matmul.launches
+        got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                          x, cols=cols, rank=rank)
+        torch.cuda.synchronize()
+        assert bitmap_decode.bitmap_matmul.launches == before + 1
+        assert got.dtype == x.dtype and got.shape == (rows, n_cols)
+        _assert_matmul_close(got, want, enc, x, tol)
+
+
+def _assert_matmul_close(got, want, enc, x, tol):
+    """|got - want| <= tol * (1 + |W| @ |x|) elementwise: a row sums up to
+    25,600 products in another order than the plain version's GEMM, so
+    the error scales with the summed magnitudes, not with the result
+    (which may cancel)."""
+    scale = bitmap_decode.bitmap_matmul_ref(
+        enc.words, enc.rowptr, enc.values.abs(), x.abs(), x.shape[0]).float()
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= tol * (1.0 + scale)).all()), float(err.max())
+
+
+def test_bitmap_matmul_mixed_value_and_x_dtypes(cuda):
+    w = _matrix(16, 300, 0.4, 9)
+    x = torch.from_numpy(np.random.RandomState(9).randn(300, 5).astype(
+        np.float32)).to(cuda)
+    for vdt, xdt in ((np.float32, torch.float16), (np.float16, torch.float32)):
+        enc = tsparse.encode_bitmap(w.astype(vdt), device=cuda)
+        xx = x.to(xdt)
+        got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                          xx, cols=300)
+        want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr,
+                                               enc.values, xx, 300)
+        assert got.dtype == xdt
+        _assert_matmul_close(got, want, enc, xx, 2e-2)
+
+
+def _assert_nproc_close(got, want, t_before, term_eps):
+    """nproc exact, or within 1e-4 relative with every differing sample
+    at term_eps: the kernel's warp scans sum in another order than the
+    plain version's cumsum."""
+    diff = abs(float(got) - float(want))
+    if diff == 0:
+        return
+    near = int(((t_before - term_eps).abs() <= 1e-4 * term_eps).sum())
+    assert diff <= 1e-4 * float(want) and diff <= near, (got, want, near)
+
+
+def _t_before(sigma, delta):
+    tau = sigma * delta
+    return torch.exp(-(torch.cumsum(tau, dim=-1) - tau))
+
+
+@pytest.mark.parametrize("r,n_samples", [(4096, 512), (37, 50), (1000, 100),
+                                         (128, 64), (5, 1)])
+@pytest.mark.parametrize("scale", [0.1, 3.0, 50.0])
+def test_volume_render_kernel_matches_plain(cuda, r, n_samples, scale):
+    rng = np.random.RandomState(r + n_samples)
+    sigma = torch.from_numpy((np.abs(rng.randn(r, n_samples)) * scale).astype(
+        np.float32)).to(cuda)
+    rgb = torch.from_numpy(rng.rand(r, n_samples, 3).astype(np.float32)).to(
+        cuda)
+    before = tvr.volume_render.launches
+    color, t_final, nproc = tvr.volume_render(sigma, rgb, delta=0.02,
+                                              term_eps=1e-4)
+    torch.cuda.synchronize()
+    assert tvr.volume_render.launches == before + 1
+    assert nproc.shape == () and nproc.dtype == torch.float32
+    w_color, w_t, w_n = tvr.volume_render_ref(sigma, rgb, 0.02, 1e-4)
+    torch.testing.assert_close(color, w_color, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t_final, w_t, rtol=0, atol=1e-5)
+    _assert_nproc_close(nproc, w_n, _t_before(sigma, 0.02), 1e-4)
+
+
+def test_volume_render_kernel_opaque_wall(cuda):
+    sigma = torch.zeros((100, 300), device=cuda)
+    sigma[:, 40] = 1e4
+    rgb = torch.full((100, 300, 3), 0.5, device=cuda)
+    color, t_final, nproc = tvr.volume_render(sigma, rgb, delta=0.1,
+                                              term_eps=1e-4)
+    assert float(nproc) == 100 * 41
+    torch.testing.assert_close(t_final, torch.zeros_like(t_final), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(color, torch.full_like(color, 0.5), rtol=0,
+                               atol=1e-4)
+
+
+def _qkv_cuda(device, b, h, sq, sk, d, dtype, seed):
+    rng = np.random.RandomState(seed)
+
+    def make(s, scale):
+        a = (rng.randn(b, h, s, d) * scale).astype(np.float32)
+        return torch.from_numpy(a).to(device, dtype)
+    return make(sq, 0.5), make(sk, 0.5), make(sk, 1.0)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 2, 128, 128, 64),
+                                         (2, 3, 100, 100, 64),
+                                         (1, 2, 200, 200, 128),
+                                         (1, 1, 128, 256, 64),
+                                         (1, 2, 130, 70, 80),
+                                         (1, 32, 1024, 1024, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_kernel_matches_plain(cuda, b, h, sq, sk, d, causal, dtype,
+                                    tol):
+    """S off the 64-row block, Sq != Sk (causal from the top left), D = 128
+    and a D padded inside the kernel (80)."""
+    q, k, v = _qkv_cuda(cuda, b, h, sq, sk, d, dtype, sq + sk + d)
+    before = tflash.flash_attention.launches
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert tflash.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = tflash.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if causal:           # query 0 sees key 0 alone
+        torch.testing.assert_close(got[:, :, 0].float(), v[:, :, 0].float(),
+                                   rtol=tol, atol=tol)
+
+
+def test_new_wrappers_validate_cuda_inputs(cuda):
+    w = _matrix(8, 64, 0.5, 0)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.ones((64, 4), device=cuda)
+    with pytest.raises(ValueError, match="CPU"):
+        bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                    x.cpu(), cols=64)
+    with pytest.raises(ValueError, match="float32 or float16"):
+        bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                    x.double(), cols=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                    torch.ones((4, 64), device=cuda).t(),
+                                    cols=64)
+    with pytest.raises(ValueError):
+        bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values,
+                                    torch.ones((63, 4), device=cuda), cols=64)
+
+    sigma = torch.ones((8, 16), device=cuda)
+    rgb = torch.ones((8, 16, 3), device=cuda)
+    with pytest.raises(ValueError, match="CPU"):
+        tvr.volume_render(sigma, rgb.cpu(), delta=0.1)
+    with pytest.raises(ValueError, match="float32"):
+        tvr.volume_render(sigma.double(), rgb.double(), delta=0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tvr.volume_render(torch.ones((16, 8), device=cuda).t(), rgb,
+                          delta=0.1)
+    with pytest.raises(ValueError):
+        tvr.volume_render(sigma, rgb[:, :8].contiguous(), delta=0.1)
+
+    q = torch.ones((1, 2, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="CPU"):
+        tflash.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tflash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="bfloat16"):
+        tflash.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        tflash.flash_attention(q, q.transpose(2, 3), q)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.ones((1, 1, 8, 160), device=cuda)
+        tflash.flash_attention(big, big, big)
