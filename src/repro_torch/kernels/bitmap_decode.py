@@ -92,28 +92,29 @@ MATMUL_DTYPES = (torch.float32, torch.float16)
 
 
 def bitmap_matmul_ref(words: torch.Tensor, rowptr: torch.Tensor,
-                      values: torch.Tensor, x: torch.Tensor, cols: int,
-                      rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      values: torch.Tensor, x: torch.Tensor,
+                      cols: int) -> torch.Tensor:
     """Plain version of the reference's `ref.bitmap_decode_matmul_ref`:
     decode W (rows, cols) densely, cast it to x's dtype, multiply in
     float32 and return y (rows, n) in x's dtype."""
     rows = words.shape[0]
     q = torch.arange(rows * cols, dtype=torch.int32, device=words.device)
-    w = bitmap_gather_ref(words, rowptr, values, q, cols, rank=rank)
+    w = bitmap_gather_ref(words, rowptr, values, q, cols)
     w = w.reshape(rows, cols).to(x.dtype).to(torch.float32)
     return (w @ x.to(torch.float32)).to(x.dtype)
 
 
 def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
-                  values: torch.Tensor, x: torch.Tensor, *, cols: int,
-                  rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  values: torch.Tensor, x: torch.Tensor, *,
+                  cols: int) -> torch.Tensor:
     """y = decode(words, rowptr, values) @ x, x (cols, n) float32 or
     float16, values float32 or float16; y in x's dtype. `words` holds the
-    uint32 bitmap as int32 bit patterns; `rank` is the optional
-    (rows, words) int32 table of `core.sparse.bitmap_rank`."""
-    tensors = (words, rowptr, values, x) + (() if rank is None else (rank,))
+    uint32 bitmap as int32 bit patterns. The kernel walks each row's words
+    in order and finds their values with a running popcount scan, so it
+    needs no rank table."""
+    tensors = (words, rowptr, values, x)
     if _build.all_on_cpu("bitmap_matmul", *tensors):
-        return bitmap_matmul_ref(words, rowptr, values, x, cols, rank=rank)
+        return bitmap_matmul_ref(words, rowptr, values, x, cols)
     _build.require(words.dim() == 2, "bitmap_matmul: words must be 2-D")
     rows, nwords = words.shape
     _build.require(nwords == (cols + 31) // 32,
@@ -129,9 +130,6 @@ def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
                    f"got {values.dtype} and {x.dtype}")
     _build.require_cuda("bitmap_matmul words", words, torch.int32)
     _build.require_cuda("bitmap_matmul rowptr", rowptr, torch.int32, (rows,))
-    if rank is not None:
-        _build.require_cuda("bitmap_matmul rank", rank, torch.int32,
-                            (rows, nwords))
     _build.require_cuda("bitmap_matmul values", values, values.dtype)
     _build.require_cuda("bitmap_matmul x", x, x.dtype)
     dev = x.device
@@ -140,11 +138,10 @@ def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
     n = x.shape[1]
     y = torch.empty((rows, n), dtype=x.dtype, device=dev)
     fn = _build.entry("bitmap_matmul_launch",
-                      (_build.P, _build.P, _build.P, _build.P, _build.I32,
-                       _build.I32, _build.I32, _build.I32, _build.I32,
-                       _build.P, _build.I32, _build.I32, _build.P, _build.P))
-    code = fn(words.data_ptr(), rowptr.data_ptr(),
-              None if rank is None else rank.data_ptr(), values.data_ptr(),
+                      (_build.P, _build.P, _build.P, _build.I32, _build.I32,
+                       _build.I32, _build.I32, _build.I32, _build.P,
+                       _build.I32, _build.I32, _build.P, _build.P))
+    code = fn(words.data_ptr(), rowptr.data_ptr(), values.data_ptr(),
               values.shape[0], int(values.dtype == torch.float16), rows,
               nwords, cols, x.data_ptr(), int(x.dtype == torch.float16), n,
               y.data_ptr(), _build.stream_ptr(dev))

@@ -14,11 +14,11 @@
 // would move rows * cols values, so the kernel never does.
 //
 // Design: one CTA per row; its threads take the row's bitmap words in
-// passes of blockDim words. A word's first value sits at rowptr + the
-// set bits of the words before it: read from the rank table when the
-// caller has one, else a block-wide exclusive scan of the word popcounts
-// (warp __shfl_up_sync scans plus one value per warp in shared memory),
-// carried from pass to pass. Each thread walks its word's set bits with
+// passes of blockDim words, in order. A word's first value sits at
+// rowptr + the set bits of the words before it: a block-wide exclusive
+// scan of the word popcounts (warp __shfl_up_sync scans plus one value
+// per warp in shared memory), carried from pass to pass, as the Pallas
+// body's prefix count is. Each thread walks its word's set bits with
 // __ffs and accumulates value * x[c, j] for a tile of kTileN columns of
 // x in fp32 registers; a warp-shuffle and shared-memory reduction, in a
 // fixed order, writes y[row, tile]. Only the non-zeros are touched.
@@ -55,7 +55,6 @@ template <typename TV, typename TX>
 __global__ void __launch_bounds__(kThreads)
 bitmap_matmul_kernel(const uint32_t* __restrict__ words,
                      const int* __restrict__ rowptr,
-                     const int* __restrict__ rank,
                      const TV* __restrict__ values, int nvalues, int nwords,
                      int cols, const TX* __restrict__ x, int n,
                      TX* __restrict__ y) {
@@ -79,30 +78,25 @@ bitmap_matmul_kernel(const uint32_t* __restrict__ words,
         word = __ldg(words + row_off + wi);
         if (wi == nwords - 1) word &= last_mask;   // bits past `cols`
       }
-      int addr;
-      if (rank != nullptr) {
-        addr = wi < nwords ? __ldg(rank + row_off + wi) : 0;
-      } else {
-        const int cnt = __popc(word);
-        int incl = cnt;
+      const int cnt = __popc(word);
+      int incl = cnt;
 #pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int u = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += u;
-        }
-        if (lane == 31) warp_total[warp] = incl;
-        __syncthreads();
-        int before = 0, total = 0;
-#pragma unroll
-        for (int k = 0; k < kWarps; ++k) {
-          const int t = warp_total[k];
-          before += k < warp ? t : 0;
-          total += t;
-        }
-        __syncthreads();                     // warp_total is reused
-        addr = base + before + incl - cnt;
-        base += total;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int u = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += u;
       }
+      if (lane == 31) warp_total[warp] = incl;
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) {
+        const int t = warp_total[k];
+        before += k < warp ? t : 0;
+        total += t;
+      }
+      __syncthreads();                       // warp_total is reused
+      int addr = base + before + incl - cnt;
+      base += total;
       while (word != 0u) {
         const int b = __ffs(word) - 1;
         word &= word - 1u;
@@ -135,38 +129,37 @@ bitmap_matmul_kernel(const uint32_t* __restrict__ words,
 }
 
 template <typename TV, typename TX>
-void launch(const void* words, const void* rowptr, const void* rank,
-            const void* values, int nvalues, int rows, int nwords, int cols,
-            const void* x, int n, void* y, cudaStream_t stream) {
+void launch(const void* words, const void* rowptr, const void* values,
+            int nvalues, int rows, int nwords, int cols, const void* x, int n,
+            void* y, cudaStream_t stream) {
   bitmap_matmul_kernel<TV, TX><<<rows, kThreads, 0, stream>>>(
       static_cast<const uint32_t*>(words), static_cast<const int*>(rowptr),
-      static_cast<const int*>(rank), static_cast<const TV*>(values), nvalues,
-      nwords, cols, static_cast<const TX*>(x), n, static_cast<TX*>(y));
+      static_cast<const TV*>(values), nvalues, nwords, cols,
+      static_cast<const TX*>(x), n, static_cast<TX*>(y));
 }
 
 }  // namespace
 
-// value_half / x_half: 0 for float32, 1 for float16. rank may be null.
+// value_half / x_half: 0 for float32, 1 for float16.
 extern "C" int bitmap_matmul_launch(const void* words, const void* rowptr,
-                                    const void* rank, const void* values,
-                                    int nvalues, int value_half, int rows,
-                                    int nwords, int cols, const void* x,
-                                    int x_half, int n, void* y,
-                                    void* stream) {
+                                    const void* values, int nvalues,
+                                    int value_half, int rows, int nwords,
+                                    int cols, const void* x, int x_half,
+                                    int n, void* y, void* stream) {
   if (rows > 0 && n > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (value_half && x_half)
-      launch<__half, __half>(words, rowptr, rank, values, nvalues, rows,
-                             nwords, cols, x, n, y, s);
+      launch<__half, __half>(words, rowptr, values, nvalues, rows, nwords,
+                             cols, x, n, y, s);
     else if (value_half)
-      launch<__half, float>(words, rowptr, rank, values, nvalues, rows,
-                            nwords, cols, x, n, y, s);
+      launch<__half, float>(words, rowptr, values, nvalues, rows, nwords,
+                            cols, x, n, y, s);
     else if (x_half)
-      launch<float, __half>(words, rowptr, rank, values, nvalues, rows,
-                            nwords, cols, x, n, y, s);
+      launch<float, __half>(words, rowptr, values, nvalues, rows, nwords,
+                            cols, x, n, y, s);
     else
-      launch<float, float>(words, rowptr, rank, values, nvalues, rows,
-                           nwords, cols, x, n, y, s);
+      launch<float, float>(words, rowptr, values, nvalues, rows, nwords,
+                           cols, x, n, y, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,7 +20,7 @@
 // block. Q, K and V tiles are staged in shared memory as fp32 (Q and K
 // transposed, d-major, so a thread reads four rows or four keys as one
 // float4); D is padded with zeros to DP = 64 or 128, which puts the
-// tiles above 48 KB (the launch raises the dynamic shared-memory limit).
+// tiles above 48 KB (each launch raises the dynamic shared-memory limit).
 // Thread (ty, tx) of a 16 x 16 grid owns a 4 x 4 block of scores (rows
 // 4ty.., keys 4tx..) and, for P V, rows 4ty.. by columns 64h + 4tx..; the
 // row max and sum of the online softmax are shuffles across the 16 tx
@@ -218,14 +218,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH,
            int Sq, int Sk, int D, float scale, int causal,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
-  static bool configured = false;            // first call: raise the limit
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, DP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  // the limit holds per device: raise it on every launch, whichever
+  // device is current
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<T, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
   flash_attention_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

@@ -26,14 +26,12 @@ _KERNEL = ("kernel", "pallas", "fused")
 
 
 def bitmap_matmul(words, rowptr, values, x, *, cols: int,
-                  rank: Optional[torch.Tensor] = None,
                   force: Optional[str] = None) -> torch.Tensor:
     """y = decode(words, rowptr, values) @ x, in x's dtype."""
     if force in _REF:
         return bitmap_decode.bitmap_matmul_ref(words, rowptr, values, x,
-                                               cols, rank=rank)
-    return bitmap_decode.bitmap_matmul(words, rowptr, values, x, cols=cols,
-                                       rank=rank)
+                                               cols)
+    return bitmap_decode.bitmap_matmul(words, rowptr, values, x, cols=cols)
 
 
 def bitmap_gather(words, rowptr, values, queries, *, cols: int,

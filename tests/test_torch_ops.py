@@ -16,7 +16,6 @@ from repro.kernels import ref as jref
 from repro.kernels.bitmap_decode import bitmap_matmul as pallas_bitmap_matmul
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.kernels.volume_render import volume_render as pallas_volume_render
-from repro_torch.core import sparse as tsparse
 from repro_torch.kernels import bitmap_decode, ops
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import volume_render as tvr
@@ -40,11 +39,11 @@ def _bitmap_case(rows, cols, n_cols, dtype, density, seed):
 
 def _carry_bitmap(jenc):
     """The reference's encoding as the port holds it: uint32 words as
-    int32 bit patterns, plus the derived rank table."""
+    int32 bit patterns."""
     words = torch.from_numpy(np.asarray(jenc.words).view(np.int32).copy())
     rowptr = torch.from_numpy(np.asarray(jenc.rowptr).copy())
     values = torch.from_numpy(np.asarray(jenc.values).copy())
-    return words, rowptr, values, tsparse.bitmap_rank(words, rowptr)
+    return words, rowptr, values
 
 
 @pytest.mark.parametrize("rows,cols,n_cols", [(8, 32, 4), (16, 64, 8),
@@ -61,17 +60,15 @@ def test_bitmap_matmul_plain_matches_pallas_and_oracle(rows, cols, n_cols,
     oracle = np.asarray(jref.bitmap_decode_matmul_ref(
         jenc.words, jenc.rowptr, jenc.values, jnp.asarray(x), cols),
         np.float32)
-    words, rowptr, values, rank = _carry_bitmap(jenc)
+    words, rowptr, values = _carry_bitmap(jenc)
     before = _launches()
-    for r in (rank, None):
-        got = bitmap_decode.bitmap_matmul(words, rowptr, values,
-                                          torch.from_numpy(x), cols=cols,
-                                          rank=r)
-        assert got.dtype == torch.from_numpy(x).dtype
-        got = n(got).astype(np.float32)
-        np.testing.assert_allclose(got, pal, rtol=tol, atol=tol)
-        np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
+    got = bitmap_decode.bitmap_matmul(words, rowptr, values,
+                                      torch.from_numpy(x), cols=cols)
     assert _launches() == before
+    assert got.dtype == torch.from_numpy(x).dtype
+    got = n(got).astype(np.float32)
+    np.testing.assert_allclose(got, pal, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, oracle, rtol=tol, atol=tol)
     np.testing.assert_allclose(
         got, w.astype(np.float32) @ x.astype(np.float32), rtol=2e-2,
         atol=2e-2)
@@ -84,7 +81,7 @@ def test_bitmap_matmul_plain_off_pallas_blocks(rows, cols, n_cols):
     w, x, jenc = _bitmap_case(rows, cols, n_cols, np.float32, 0.3, cols)
     oracle = np.asarray(jref.bitmap_decode_matmul_ref(
         jenc.words, jenc.rowptr, jenc.values, jnp.asarray(x), cols))
-    words, rowptr, values, _ = _carry_bitmap(jenc)
+    words, rowptr, values = _carry_bitmap(jenc)
     got = n(bitmap_decode.bitmap_matmul(words, rowptr, values,
                                         torch.from_numpy(x), cols=cols))
     np.testing.assert_allclose(got, oracle, rtol=1e-5, atol=1e-5)
@@ -98,10 +95,9 @@ def test_bitmap_matmul_all_zero():
     pal = np.asarray(pallas_bitmap_matmul(jenc.words, jenc.rowptr,
                                           jenc.values, jnp.asarray(x),
                                           cols=32, interpret=True))
-    words, rowptr, values, rank = _carry_bitmap(jenc)
+    words, rowptr, values = _carry_bitmap(jenc)
     got = n(bitmap_decode.bitmap_matmul(words, rowptr, values,
-                                        torch.from_numpy(x), cols=32,
-                                        rank=rank))
+                                        torch.from_numpy(x), cols=32))
     assert np.all(pal == 0) and np.all(got == 0)
 
 
@@ -220,7 +216,7 @@ def test_flash_causal_mask_is_top_left_as_in_pallas():
 # -------------------------------------------------------------- dispatch ---
 def _small_inputs():
     w, x, jenc = _bitmap_case(8, 64, 4, np.float32, 0.5, 3)
-    words, rowptr, values, rank = _carry_bitmap(jenc)
+    words, rowptr, values = _carry_bitmap(jenc)
     rng = np.random.RandomState(4)
     sigma = torch.from_numpy(np.abs(rng.randn(16, 40)).astype(np.float32))
     rgb = torch.from_numpy(rng.rand(16, 40, 3).astype(np.float32))
@@ -228,7 +224,7 @@ def _small_inputs():
                                                  (1, 2, 32, 16), 5))
     return {
         "bitmap_matmul": ((words, rowptr, values, torch.from_numpy(x)),
-                          dict(cols=64, rank=rank)),
+                          dict(cols=64)),
         "volume_render": ((sigma, rgb), dict(delta=0.1, term_eps=1e-4)),
         "flash_attention": ((q, k, v), dict(causal=True)),
     }
