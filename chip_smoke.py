@@ -31,10 +31,14 @@ line each:
            heads, head dim 64, 8 kv heads repeated) over 4096 tokens,
            causal;
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve
-           or kernel_ops), the largest error against its plain version,
+           or kernel_ops), the largest error against its plain version
+           (the fused kernel on the captured step's cube order, two
+           ascending runs, and on a shuffled copy; the bf16 flash kernel
+           with the count of HGMMA in its SASS),
            its device time and the plain version's (CUDA events over a
            CUDA graph of repeated calls; `wall_ms`, over eager calls,
-           includes the wrapper's host time), the time of one PyTorch call
+           includes the wrapper's host time; the fused row's `host_ms` is
+           that host time alone), the time of one PyTorch call
            computing the same function where there is one, and the least
            time the card could take.
 
@@ -247,6 +251,20 @@ def time_ms(torch, fn, iters: int) -> tuple:
     return device, wall
 
 
+def host_ms(torch, fn, iters: int = 50) -> float:
+    """Host time per call of `fn` (perf_counter over `iters` eager calls
+    after a warm-up, before the device is synchronised): what a caller's
+    thread spends in the wrapper, whatever the device does."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e3
+
+
 def timing_keys(torch, kernel_fn, plain_fn, plain_iters: int = 10) -> dict:
     ms, wall = time_ms(torch, kernel_fn, 50)
     plain_ms, plain_wall = time_ms(torch, plain_fn, plain_iters)
@@ -263,6 +281,26 @@ def bound(nbytes: float, nops: float, peak_ops_s: float = PEAK_FP32_S
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def sass_count(lib: Path, nvcc: str, symbol: str, opcode: str) -> int:
+    """Lines of `opcode` in the SASS of the functions whose mangled name
+    holds `symbol`, by cuobjdump beside nvcc."""
+    tool = Path(nvcc).parent / "cuobjdump"
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True)
+    count, inside = 0, False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = symbol in line
+        elif inside and opcode in line:
+            count += 1
+    return count
+
+
+def cube_runs(cid) -> int:
+    """Non-decreasing runs of cube ids in point order."""
+    return 1 + int((cid[1:] < cid[:-1]).sum()) if cid.numel() else 0
 
 
 def errors(torch, got, want) -> tuple:
@@ -352,9 +390,10 @@ def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
     return bitmap, volume, flash
 
 
-def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches):
+def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
     """One {"kernels"} row per kernel of the kernel_ops phase: the first
-    dtype in the row, the other under "cases"."""
+    dtype in the row, the other under "cases". `hgmma`: HGMMA lines in the
+    SASS of the bf16 flash kernel."""
     bitmap_decode, volume_render, flash_attention = mods
     bitmap, volume, flash = inputs
     rows = []
@@ -478,6 +517,9 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches):
             "shape": {"B": B, "H": H, "S": S, "D": D,
                       "kv_heads": FLASH_SHAPE["kv_heads"], "causal": True},
             "bytes": f_bytes, "ops": f_ops})
+        if dt == "bfloat16":
+            cases[-1].update({"sass_hgmma": hgmma > 0,
+                              "sass_hgmma_lines": hgmma})
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:64",
@@ -561,8 +603,11 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log = _build.build_log()
+    hgmma = sass_count(lib, _build.find_nvcc(), "flash_bf16_kernel",
+                       "HGMMA")
+    check(hgmma > 0, "no HGMMA in the SASS of flash_bf16_kernel")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT)),
+          "library": str(lib.relative_to(ROOT)), "flash_bf16_hgmma": hgmma,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
 
@@ -706,7 +751,7 @@ def main() -> int:
               f"{name} was not launched through kernel_ops")
     ops_rows = kernel_ops_rows(torch, (bitmap_decode, volume_render,
                                        flash_attention), op_inputs, cfg,
-                               rendering, ops_launches)
+                               rendering, ops_launches, hgmma)
     del op_inputs, bitmap_in, volume_in, flash_in
 
     # -- kernels: each against its plain version on captured inputs ------
@@ -720,6 +765,27 @@ def main() -> int:
     for g, w in zip(got, want):
         check(torch.allclose(g, w, rtol=FUSED_TOL, atol=FUSED_TOL),
               f"fused kernel vs plain: abs {ea} rel {er}")
+    runs = cube_runs(cid)
+    check(runs <= 2, f"captured cube_id in {runs} ascending runs, not the "
+          f"serve step's two")
+    # the same points in a shuffled order: up to C cubes per tile
+    perm = torch.from_numpy(np.random.default_rng(args.seed + 13)
+                            .permutation(pts.shape[0])).to(dev)
+    sargs = (spec, streams, basis, pts[perm].contiguous(), base,
+             cid[perm].contiguous())
+    got_s = fused_sample.fused_sigma_app(*sargs, **fkw)
+    want_s = fused_sample.fused_sigma_app_ref(*sargs, **fkw)
+    torch.cuda.synchronize()
+    ea_s, er_s = errors(torch, got_s, want_s)
+    for g, w in zip(got_s, want_s):
+        check(torch.allclose(g, w, rtol=FUSED_TOL, atol=FUSED_TOL),
+              f"fused kernel vs plain, shuffled cube_id: abs {ea_s} rel "
+              f"{er_s}")
+    shuffled = {"max_abs_err": ea_s, "max_rel_err": er_s,
+                "cube_runs": cube_runs(sargs[5]),
+                "ms": time_ms(torch, lambda: fused_sample.fused_sigma_app(
+                    *sargs, **fkw), 50)[0]}
+    del got_s, want_s, sargs
     N, C, W = pts.shape[0], base.shape[0], fkw["window"]
     Rs, Rc, A = spec[0][1], spec[6][1], fkw["app_dim"]
     R = Rs + Rc
@@ -737,9 +803,14 @@ def main() -> int:
         **timing_keys(torch, lambda: fused_sample.fused_sigma_app(
             *fargs, **fkw), lambda: fused_sample.fused_sigma_app_ref(
             *fargs, **fkw)),
+        "host_ms": host_ms(torch, lambda: fused_sample.fused_sigma_app(
+            *fargs, **fkw)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": {"N": N, "C": C, "W": W, "R": R, "app_dim": A,
-                  "active_pairs": hits}, "bytes": f_bytes, "ops": f_ops})
+                  "active_pairs": hits, "cube_runs": runs},
+        "shuffled_cube_id": shuffled,
+        "smem_bytes": fused_sample.fused_smem_bytes(W, Rs, Rc),
+        "bytes": f_bytes, "ops": f_ops})
 
     for name, fmt, src, rep in (
             ("bitmap_gather", "bitmap", "bitmap_gather.cu",

@@ -137,10 +137,12 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
 
 
-def require(cond: bool, msg: str) -> None:
-    """Input validation for the wrappers: raise ValueError unless `cond`."""
+def require(cond: bool, msg: str, *args) -> None:
+    """Input validation for the wrappers: raise ValueError unless `cond`.
+    With `args`, the message is `msg.format(*args)`, formatted only when
+    the check fails (the wrappers run these checks on every call)."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg.format(*args) if args else msg)
 
 
 def all_on_cpu(name: str, *tensors: torch.Tensor) -> bool:
@@ -155,7 +157,11 @@ def all_on_cpu(name: str, *tensors: torch.Tensor) -> bool:
 
 def require_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape: tuple = None) -> None:
-    """`t` is a contiguous CUDA tensor of `dtype` (and `shape`, if given)."""
+    """`t` is a contiguous CUDA tensor of `dtype` (and `shape`, if given).
+    The messages are built only when a check fails."""
+    if (t.device.type == "cuda" and t.dtype == dtype and t.is_contiguous()
+            and (shape is None or tuple(t.shape) == tuple(shape))):
+        return
     require(t.device.type == "cuda", f"{name}: expected a CUDA tensor, got "
             f"{t.device}")
     require(t.dtype == dtype, f"{name}: expected {dtype}, got {t.dtype}")

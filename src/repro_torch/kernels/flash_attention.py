@@ -8,9 +8,11 @@ jnp oracle `ref.flash_attention_ref` aligns it at the bottom right, which
 agrees only when Sq == Sk). k and v carry q's head count; a model with
 grouped kv heads repeats them before the call.
 
-`flash_attention` launches the CUDA kernel (`csrc/flash_attention.cu`) on
-CUDA tensors and runs the plain PyTorch version `flash_attention_ref` on
-CPU tensors; anything else raises. `flash_attention.launches` counts
+`flash_attention` launches the CUDA kernels (`csrc/flash_attention.cu`)
+on CUDA tensors, float32 on the CUDA cores and bfloat16 with wgmma on the
+tensor cores (P rounded to bfloat16 for the P V product), and runs the
+plain PyTorch version `flash_attention_ref` on CPU tensors; anything else
+raises. `flash_attention.launches` counts
 kernel launches.
 """
 from __future__ import annotations
@@ -45,15 +47,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal)
     _build.require(q.dim() == 4, "flash_attention: q must be (B, H, S, D)")
     B, H, Sq, D = q.shape
-    _build.require(q.dtype in DTYPES, f"flash_attention: expected float32 "
-                   f"or bfloat16, got {q.dtype}")
+    _build.require(q.dtype in DTYPES, "flash_attention: expected float32 "
+                   "or bfloat16, got {}", q.dtype)
     _build.require(0 < D <= MAX_HEAD_DIM,
-                   f"flash_attention: head dim {D} outside [1, "
-                   f"{MAX_HEAD_DIM}]")
+                   "flash_attention: head dim {} outside [1, {}]", D,
+                   MAX_HEAD_DIM)
     _build.require(k.dim() == 4 and k.shape[2] > 0,
                    "flash_attention: k must be (B, H, Sk, D), Sk > 0")
     Sk = k.shape[2]
-    _build.require(B * H <= 65535, f"flash_attention: B*H = {B * H} > 65535")
+    _build.require(B * H <= 65535, "flash_attention: B*H = {} > 65535",
+                   B * H)
     _build.require_cuda("flash_attention q", q, q.dtype)
     _build.require_cuda("flash_attention k", k, q.dtype, (B, H, Sk, D))
     _build.require_cuda("flash_attention v", v, q.dtype, (B, H, Sk, D))

@@ -44,6 +44,10 @@ LINE_AXES = (0, 1, 2)
 STREAMS_PER_FMT = {"dense": 1, "bitmap": 3, "coo": 2}
 FMT_CODE = {"dense": 0, "bitmap": 1, "coo": 2}
 MAX_APP_DIM = 32          # csrc/fused_sample.cu kMaxAppDim
+TILE = 256                # points per CTA (kTile)
+BASIS_STRIDE = 40         # kBasisStride: a basis row, 32 columns + 8
+MAX_SMEM_BYTES = 232448   # a block's shared-memory limit on sm_90 (227 KB)
+PLAN_CACHE_SIZE = 8       # fields whose checks and descriptor are kept
 
 
 def fused_supported(spec) -> bool:
@@ -176,6 +180,83 @@ def fused_sigma_app_ref(spec, streams, basis, pts, cube_base, cube_id, *,
     return out[:, 0], out[:, 1:]
 
 
+def round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def window_block_floats(window: int, r: int) -> tuple:
+    """Floats of one (cube, mode) block of the decoded scratch: the plane
+    window (W*W, R) and the line window (W, R), each padded to 16 bytes so
+    one bulk copy moves it."""
+    return round4(window * window * r), round4(window * r)
+
+
+def comp_stride(r_color: int) -> int:
+    """Floats per point in the kernel's staged appearance channels: Rc
+    rounded up to the mma depth 8, plus 4 (bank spread)."""
+    return ((r_color + 7) & ~7) + 4
+
+
+def fused_smem_bytes(window: int, r_sigma: int, r_color: int) -> int:
+    """Shared memory of the sample kernel (csrc/fused_sample.cu SmemPlan):
+    one (cube, mode) window, the tile's appearance channels (or its
+    (TILE, 32) output staging, whichever is larger), the basis padded to 8
+    rows and BASIS_STRIDE columns, per-point fractions, cells and cube ids,
+    8 ints and an mbarrier."""
+    pb, lb = window_block_floats(window, r_sigma + r_color)
+    comp = max(TILE * comp_stride(r_color), TILE * MAX_APP_DIM)
+    basis = 3 * ((r_color + 7) & ~7) * BASIS_STRIDE
+    points = 5 * TILE + 8
+    return 4 * (pb + lb + comp + basis + points) + 8
+
+
+def check_smem_fit(window: int, r_sigma: int, r_color: int) -> int:
+    """The sample kernel's shared memory in bytes; raises ValueError when
+    one (cube, mode) window does not fit beside the rest."""
+    need = fused_smem_bytes(window, r_sigma, r_color)
+    _build.require(need <= MAX_SMEM_BYTES,
+                   "fused_sigma_app: window {} at R = {} needs {} bytes of "
+                   "shared memory, above the limit of {} bytes a block may "
+                   "use", window, r_sigma + r_color, need, MAX_SMEM_BYTES)
+    return need
+
+
+def field_key(spec, streams, basis, app_dim: int, window: int,
+              grid_res: int) -> tuple:
+    """What the field's checks and descriptor depend on: the spec, the
+    static arguments, and every stream tensor's (and the basis's) pointer,
+    shape, strides, dtype and device. Any change to one of them is a new
+    key, so a cached descriptor never carries a stale pointer."""
+    return (tuple(spec), app_dim, window, grid_res,
+            tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype,
+                   t.device) for t in (*streams, basis)))
+
+
+_PLANS: dict = {}
+
+
+def _field_plan(spec, streams, basis, app_dim: int, window: int,
+                grid_res: int) -> tuple:
+    """(Rs, Rc, descriptor) of a field, checked and built once per key."""
+    key = field_key(spec, streams, basis, app_dim, window, grid_res)
+    plan = _PLANS.get(key)
+    if plan is None:
+        groups = group_streams(spec, streams)
+        Rs, Rc = _check_field(spec, groups, basis, app_dim)
+        _build.require(app_dim <= MAX_APP_DIM,
+                       "fused_sigma_app: app_dim {} > {}", app_dim,
+                       MAX_APP_DIM)
+        _build.require(2 <= window <= grid_res,
+                       "fused_sigma_app: window {} outside [2, {}]", window,
+                       grid_res)
+        check_smem_fit(window, Rs, Rc)
+        plan = (Rs, Rc, _descriptor(groups))
+        if len(_PLANS) >= PLAN_CACHE_SIZE:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = plan
+    return plan
+
+
 def _check_field(spec, groups, basis, app_dim: int):
     _build.require(fused_supported(spec),
                    "fused_sigma_app: spec must hold 12 dense/bitmap/coo "
@@ -231,12 +312,8 @@ def fused_sigma_app(spec, streams, basis, pts, cube_base, cube_id, *,
                                    cube_id, grid_res=grid_res,
                                    scene_bound=scene_bound, window=window,
                                    app_dim=app_dim)
-    groups = group_streams(spec, streams)
-    Rs, Rc = _check_field(spec, groups, basis, app_dim)
-    _build.require(app_dim <= MAX_APP_DIM,
-                   f"fused_sigma_app: app_dim {app_dim} > {MAX_APP_DIM}")
-    _build.require(2 <= window <= grid_res,
-                   f"fused_sigma_app: window {window} outside [2, {grid_res}]")
+    Rs, Rc, desc = _field_plan(spec, streams, basis, app_dim, window,
+                               grid_res)
     n = pts.shape[0]
     _build.require_cuda("pts", pts, torch.float32, (n, 3))
     _build.require_cuda("cube_id", cube_id, torch.int32, (n,))
@@ -245,17 +322,16 @@ def fused_sigma_app(spec, streams, basis, pts, cube_base, cube_id, *,
                    "fused_sigma_app: cube_base must be (C, 3), C > 0")
     _build.require_cuda("cube_base", cube_base, torch.int32)
     C = cube_base.shape[0]
-    R = Rs + Rc
+    pb, lb = window_block_floats(window, Rs + Rc)
     dev = pts.device
-    pwin = torch.empty((C, 3, window * window, R), dtype=torch.float32,
-                       device=dev)
-    lwin = torch.empty((C, 3, window, R), dtype=torch.float32, device=dev)
+    pwin = torch.empty((C * 3 * pb,), dtype=torch.float32, device=dev)
+    lwin = torch.empty((C * 3 * lb,), dtype=torch.float32, device=dev)
     sig = torch.empty((n,), dtype=torch.float32, device=dev)
     feat = torch.empty((n, app_dim), dtype=torch.float32, device=dev)
     fn = _build.entry("fused_sigma_app_launch",
                       (_build.P,) + (_build.P,) * 4 + (_build.I32,) * 7
                       + (_build.F32,) + (_build.P,) * 5)
-    code = fn(_descriptor(groups), pts.data_ptr(), cube_id.data_ptr(),
+    code = fn(desc, pts.data_ptr(), cube_id.data_ptr(),
               cube_base.data_ptr(), basis.data_ptr(), n, C, grid_res, window,
               Rs, Rc, app_dim, float(scene_bound), pwin.data_ptr(),
               lwin.data_ptr(), sig.data_ptr(), feat.data_ptr(),

@@ -148,6 +148,108 @@ def test_fused_plain_on_card_divides_like_the_kernel(cuda):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+def _fused_case(cfg, cf, device, order, n_points=20000, n_cubes=8, seed=1):
+    """Points in `n_cubes` random cubes with `cube_id` in the serve step's
+    order (two ascending runs: the hitting pairs, then the misses) or
+    shuffled; returns the kernel's arguments and keywords."""
+    rng = np.random.RandomState(seed)
+    ci = rng.randint(0, cfg.cube_grid_res, size=(n_cubes, 3))
+    centers = torch.from_numpy((-cfg.scene_bound + (ci + 0.5)
+                                * cfg.cube_world()).astype(np.float32))
+    cid = rng.randint(0, n_cubes, n_points)
+    if order == "two_runs":
+        half = n_points // 3
+        cid = np.concatenate([np.sort(cid[:half]), np.sort(cid[half:])])
+    cid = torch.from_numpy(cid.astype(np.int32))
+    off = torch.from_numpy(rng.uniform(-cfg.cube_world(), cfg.cube_world(),
+                                       (n_points, 3)).astype(np.float32))
+    pts = (centers[cid.long()] + off).to(device)
+    spec, streams = ttensorf.fused_field_inputs(cf)
+    base = ttensorf.window_base(cfg, centers.to(device))
+    kw = dict(grid_res=cfg.grid_res, scene_bound=cfg.scene_bound,
+              window=ttensorf.fused_window(cfg), app_dim=cfg.app_dim)
+    return (spec, streams, cf.extras["basis"], pts, base, cid.to(device)), kw
+
+
+def _assert_fused_matches_plain(args, kw):
+    sig, feat = fused_sample.fused_sigma_app(*args, **kw)
+    torch.cuda.synchronize()
+    want_sig, want_feat = fused_sample.fused_sigma_app_ref(*args, **kw)
+    torch.testing.assert_close(sig, want_sig, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(feat, want_feat, rtol=1e-4, atol=1e-4)
+    return sig, feat
+
+
+@pytest.mark.parametrize("case", ["bitmap", "coo", "dense"])
+@pytest.mark.parametrize("order", ["two_runs", "shuffled"])
+def test_fused_kernel_any_cube_order(cuda, case, order):
+    """A tile of points spans one or two cubes in the serve step's order
+    and up to all eight when shuffled; both must be right."""
+    cfg, cf = _field(case, cuda)
+    args, kw = _fused_case(cfg, cf, cuda, order)
+    runs = 1 + int((args[5][1:] < args[5][:-1]).sum())
+    assert runs == 2 if order == "two_runs" else runs > 1000
+    _assert_fused_matches_plain(args, kw)
+
+
+def _full_width_field(device):
+    cfg = NeRFConfig()
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(4),
+                                 device="cpu")
+    cf = tfield.DenseField(params, cfg).prune(sparsity=0.9).encode()
+    return cfg, cf.to(device)
+
+
+def test_fused_kernel_at_full_width(cuda):
+    """NeRFConfig(): W 10, R 16 + 48, app_dim 27, in both orders."""
+    cfg, cf = _full_width_field(cuda)
+    assert (ttensorf.fused_window(cfg), cfg.r_sigma + cfg.r_color,
+            cfg.app_dim) == (10, 64, 27)
+    for order in ("two_runs", "shuffled"):
+        args, kw = _fused_case(cfg, cf, cuda, order, n_points=30000)
+        _assert_fused_matches_plain(args, kw)
+
+
+@pytest.mark.parametrize("r_sigma,r_color,app_dim", [(3, 5, 8), (16, 64, 27)])
+def test_fused_kernel_off_the_cached_path(cuda, r_sigma, r_color, app_dim):
+    """Channel counts off the kernel's 4-channel runs (Rs not a multiple
+    of 4; R above 64) take its channel-by-channel interpolation, and Rc
+    off a multiple of 8 pads the mma depth."""
+    cfg = NeRFConfig(grid_res=40, occ_res=40, cube_size=4, max_cubes=768,
+                     r_sigma=r_sigma, r_color=r_color, app_dim=app_dim)
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(5),
+                                 device="cpu")
+    cf = tfield.DenseField(params, cfg).prune(sparsity=0.6).encode(0.99)
+    for order in ("two_runs", "shuffled"):
+        args, kw = _fused_case(cfg, cf.to(cuda), cuda, order, n_points=6000)
+        _assert_fused_matches_plain(args, kw)
+
+
+def test_fused_wrapper_raises_when_a_window_exceeds_shared_memory(cuda):
+    cfg, cf = _full_width_field(cuda)
+    args, kw = _fused_case(cfg, cf, cuda, "two_runs", n_points=1000)
+    before = fused_sample.fused_sigma_app.launches
+    with pytest.raises(ValueError, match="232448 bytes"):
+        fused_sample.fused_sigma_app(*args, **{**kw, "window": 40})
+    assert fused_sample.fused_sigma_app.launches == before
+
+
+def test_fused_replaced_stream_is_not_served_from_the_cache(cuda):
+    """The wrapper caches a field's checks and descriptor; a stream
+    tensor replaced between two calls must be read through its own
+    pointer."""
+    cfg, cf = _field("bitmap", cuda)
+    args, kw = _fused_case(cfg, cf, cuda, "two_runs", n_points=5000)
+    first = _assert_fused_matches_plain(args, kw)
+    spec, streams = args[0], list(args[1])
+    # the last stream of app_planes[0] (slice 6): its values or matrix
+    i = sum(fused_sample.STREAMS_PER_FMT[fs[0]] for fs in spec[:7]) - 1
+    streams[i] = streams[i] * 2.0 + 0.5
+    args2 = (spec, tuple(streams), *args[2:])
+    second = _assert_fused_matches_plain(args2, kw)
+    assert not torch.allclose(first[1], second[1])
+
+
 def test_wrappers_validate_cuda_inputs(cuda):
     w = _matrix(8, 64, 0.5, 0)
     enc = tsparse.encode_bitmap(w, device=cuda)
@@ -334,6 +436,41 @@ def test_flash_kernel_matches_plain(cuda, b, h, sq, sk, d, causal, dtype,
     if causal:           # query 0 sees key 0 alone
         torch.testing.assert_close(got[:, :, 0].float(), v[:, :, 0].float(),
                                    rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 2, 130, 130, 72),
+                                         (1, 3, 200, 150, 20),
+                                         (1, 2, 100, 100, 33),
+                                         (1, 32, 4096, 4096, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_tensor_core_shapes(cuda, b, h, sq, sk, d, causal):
+    """The bf16 wgmma kernel off its TMA path's alignment: D 72 (TMA,
+    padded to 128), D 20 (rows not 16-byte aligned: cp.async), D 33 (odd:
+    plain loads), and the smoke's shape, Llama 3.2 1B's heads over 4096
+    tokens. Held to the bf16 limit of test_flash_kernel_matches_plain."""
+    q, k, v = _qkv_cuda(cuda, b, h, sq, sk, d, torch.bfloat16, sq + d)
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+def test_flash_bf16_unaligned_pointer_is_staged_by_threads(cuda):
+    """A contiguous view 2 bytes into its storage cannot be a TMA source:
+    the same kernel stages it by cp.async and must agree."""
+    q, k, v = _qkv_cuda(cuda, 1, 2, 200, 200, 64, torch.bfloat16, 5)
+    shifted = []
+    for t in (q, k, v):
+        store = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = store[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        shifted.append(view)
+    got = tflash.flash_attention(*shifted, causal=True)
+    want = tflash.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
 
 
 def test_new_wrappers_validate_cuda_inputs(cuda):
