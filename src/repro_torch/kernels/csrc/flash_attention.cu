@@ -715,7 +715,7 @@ typedef CUresult (*EncodeTiledFn)(
     CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
     CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, found once through the runtime
+// cuTensorMapEncodeTiled from libcuda, looked up once through the runtime
 EncodeTiledFn encode_tiled() {
   static EncodeTiledFn fn = nullptr;
   if (fn == nullptr) {

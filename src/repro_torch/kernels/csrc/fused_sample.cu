@@ -29,14 +29,16 @@
 //      bulk copy on an mbarrier; each half-warp walks 16 consecutive points
 //      (samples along a ray), 16 lanes on 4-channel runs of each stencil
 //      row, and keeps the rows while the next point's cells stay the same;
-//      it sums the density channels over those lanes and stages the
-//      appearance channels; then each warp runs the basis product for its
-//      own 32 points on the tensor cores, mma m16n8k8 in TF32 with each
-//      operand split into hi + lo parts (3xTF32, about fp32's precision:
-//      TF32 alone would not hold 1e-4), from the basis staged once per CTA.
-//      The next window's copy runs under that product. Shared-memory reads
-//      of window rows (up to 1.5 KB per point and mode) and the product's
-//      three mmas per tile take most of the time.
+//      it stages the appearance channels and the density channels' partial
+//      sums; then each warp runs the basis product for its own 32 points
+//      on the tensor cores, mma m16n8k8 in TF32 with each operand split
+//      into hi + lo parts (3xTF32, about fp32's precision: TF32 alone would
+//      not hold 1e-4), from the basis staged once per CTA. The next
+//      window's copy runs under that product, and the sample kernel is a
+//      programmatic dependent launch: its prologue runs under the decode
+//      kernel's tail. Shared-memory reads of window rows (up to 1.5 KB per
+//      point and mode) and the product's three mmas per tile take most of
+//      the time.
 //  Any order of cube_id is right (cubes are visited by least id); a tile
 //  spanning k cubes stages k x 3 windows, and the serve step's order (two
 //  ascending runs) gives one or two per tile. Shared memory grows with
@@ -113,6 +115,9 @@ __global__ void fused_decode_kernel(FieldDesc fd, const int* __restrict__ base,
                                     int C, int G, int W, int Rs, int Rc,
                                     float* __restrict__ pwin,
                                     float* __restrict__ lwin) {
+  // the sample kernel may start its prologue now (it waits for this grid
+  // before it reads the windows)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int R = Rs + Rc;
   const int PB = round4(W * W * R), LB = round4(W * R);
   const long long nplane = static_cast<long long>(C) * 3 * W * W * R;
@@ -224,13 +229,14 @@ __device__ __forceinline__ int block_min(int v, int* red) {
   return m;
 }
 
-// x = hi + lo, both TF32 (the 3xTF32 split: hi*hi + hi*lo + lo*hi keeps
-// about fp32's precision on the tensor cores)
+// x = hi + lo for the 3xTF32 split (hi*hi + hi*lo + lo*hi keeps about
+// fp32's precision on the tensor cores): hi is x cut to TF32's 10
+// mantissa bits, lo = x - hi exactly; the mma reads lo's top 10 bits,
+// which leaves an error near 2^-21 of x
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float r = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -247,13 +253,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // is right) and each mode, the (cube, mode) windows arrive in shared
 // memory by one bulk copy on an mbarrier. Each warp interpolates its
 // points two at a time, 16 lanes on the channels of each (a stencil row is
-// a contiguous run of R floats), folds the density channels by a sum over
-// those lanes and writes the appearance channels to its rows of `comp`
-// (point-major); after one barrier (the window is free, and the next
-// copy starts) the warp runs feat += comp basis[m] on the tensor cores:
-// mma m16n8k8 in TF32, each operand split into hi + lo parts (3xTF32), for
-// its 32 points x 32 columns. The warp reads back only its own rows of
-// comp, so no second barrier.
+// a contiguous run of R floats), and writes the appearance channels to its
+// rows of `comp` (point-major) with the density channels' partial sums
+// beside them (or sums those over the lanes where more than 4 lanes hold
+// them); after one barrier (the window is free, and the next copy starts)
+// the warp folds the partial sums into sig and runs feat += comp basis[m]
+// on the tensor cores: mma m16n8k8 in TF32, each operand split into hi +
+// lo parts (3xTF32), for its 32 points x 32 columns. The warp reads back
+// only its own rows of comp, so no second barrier.
 __global__ void __launch_bounds__(kThreads, 2)
 fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
                     const int* __restrict__ base, int N, int C, int G, int W,
@@ -273,6 +280,10 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
   // of two: Rs / 4 runs in the cached path, all 16 lanes otherwise
   int sig_lanes = 1;
   while (sig_lanes < (cached ? Rs / 4 : 16)) sig_lanes <<= 1;
+  // up to 4 of them leave their partial sums in the 4 floats past a comp
+  // row's K8 channels, which the warp folds into sig after the barrier;
+  // more take a shuffle reduction per point
+  const bool pad_sig = cached && sig_lanes <= 4;
   const SmemPlan plan(W, Rs, Rc);
   float* win = reinterpret_cast<float*>(smem4);
   float* comp = win + plan.win;               // (kTile, CS)
@@ -313,9 +324,8 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
   }
   __syncthreads();
   int cur = block_min(cids[tid], red);
-  if (tid == 0 && cur != kNone) stage_window(win, pwin, lwin, cur, 0, PB, LB, bar);
-  // the basis, padded to K8 rows and kBasisStride columns, while the first
-  // window is on its way (four loads in flight a thread)
+  // the basis, padded to K8 rows and kBasisStride columns, while the
+  // decode kernel finishes (four loads in flight a thread)
   const int nb = 3 * K8 * kBasisStride;
   for (int k0 = tid; k0 < nb; k0 += 4 * kThreads) {
     float v[4];
@@ -333,6 +343,11 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
   }
   for (int k = Rc + lane; k < K8; k += 32)    // comp's padding channels
     for (int p = 32 * warp; p < 32 * warp + 32; ++p) comp[p * CS + k] = 0.0f;
+  if (tid == 0 && cur != kNone) {
+    // the windows are the decode kernel's output: wait for that grid
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+    stage_window(win, pwin, lwin, cur, 0, PB, LB, bar);
+  }
 
   const int hw = lane >> 4, j = lane & 15;    // interpolation: half, lane
   const int g = lane >> 2, t = lane & 3;      // mma fragments
@@ -364,13 +379,14 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
       // take channels j, j + 16, ... one by one.
       int key = -1;                            // cells of the cached rows
       float4 c00, c01, c10, c11, d0, d1;
-#pragma unroll 2
+#pragma unroll 4
       for (int i = 0; i < 16; ++i) {
         const int p = pw + 16 * hw + i;
         float* crow = comp + p * CS - Rs;      // crow[r], r >= Rs
         float s = 0.0f;
         if (cids[p] != cur) {
           for (int r = Rs + j; r < R; r += 16) crow[r] = 0.0f;
+          if (pad_sig && j < 4) comp[p * CS + K8 + j] = 0.0f;
         } else {
           const float fu = frs[a * kTile + p], fv = frs[b * kTile + p];
           const float fx = frs[m * kTile + p], gx = 1.0f - fx;
@@ -406,6 +422,7 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
               if (c < Rs) s = (v.x + v.y) + (v.z + v.w);
               else *reinterpret_cast<float4*>(crow + c) = v;
             }
+            if (pad_sig && j < 4) comp[p * CS + K8 + j] = s;
           } else {
             const float* p01 = p00 + R;
             const float* p10 = p00 + W * R;
@@ -419,16 +436,23 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
             }
           }
         }
-        // the density channels sit on the half's first sig_lanes lanes
-        if (sig_lanes > 8) s += __shfl_xor_sync(0xffffffffu, s, 8);
-        if (sig_lanes > 4) s += __shfl_xor_sync(0xffffffffu, s, 4);
-        if (sig_lanes > 2) s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (sig_lanes > 1) s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s = __shfl_sync(0xffffffffu, s, lane & 16);
-        // lane 16 hw + i keeps point pw + 16 hw + i's density
-        if (j == i) sig += s;
+        if (!pad_sig) {
+          // the density channels sit on the half's first sig_lanes lanes
+          if (sig_lanes > 8) s += __shfl_xor_sync(0xffffffffu, s, 8);
+          if (sig_lanes > 4) s += __shfl_xor_sync(0xffffffffu, s, 4);
+          if (sig_lanes > 2) s += __shfl_xor_sync(0xffffffffu, s, 2);
+          if (sig_lanes > 1) s += __shfl_xor_sync(0xffffffffu, s, 1);
+          s = __shfl_sync(0xffffffffu, s, lane & 16);
+          // lane 16 hw + i keeps point pw + 16 hw + i's density
+          if (j == i) sig += s;
+        }
       }
       __syncthreads();                         // window read, comp written
+      if (pad_sig) {
+        const float4 ps = *reinterpret_cast<const float4*>(
+            comp + (pw + lane) * CS + K8);
+        sig += (ps.x + ps.y) + (ps.z + ps.w);
+      }
       if (tid == 0) {
         if (m < 2) stage_window(win, pwin, lwin, cur, m + 1, PB, LB, bar);
         else if (next != kNone)
@@ -437,6 +461,7 @@ fused_sample_kernel(const float* __restrict__ pts, const int* __restrict__ cid,
 
       // feat += comp basis[m] over this warp's 32 points, 8 channels a step
       const float* bm = bas + m * K8 * kBasisStride;
+#pragma unroll 2
       for (int k0 = 0; k0 < K8; k0 += 8) {
         uint32_t ah[2][4], al[2][4];
 #pragma unroll
@@ -531,12 +556,25 @@ extern "C" int fused_sigma_app_launch(
         fused_sample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    fused_sample_kernel<<<(N + kTile - 1) / kTile, kThreads, smem, s>>>(
-        static_cast<const float*>(pts), static_cast<const int*>(cid),
-        static_cast<const int*>(base), N, C, G, W, Rs, Rc, app_dim,
-        scene_bound, static_cast<const float*>(basis),
+    // programmatic dependent launch: the sample kernel's prologue runs
+    // under the decode kernel's tail
+    cudaLaunchConfig_t lc = {};
+    lc.gridDim = dim3((N + kTile - 1) / kTile);
+    lc.blockDim = dim3(kThreads);
+    lc.dynamicSmemBytes = smem;
+    lc.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    lc.attrs = attr;
+    lc.numAttrs = 1;
+    const cudaError_t e2 = cudaLaunchKernelEx(
+        &lc, fused_sample_kernel, static_cast<const float*>(pts),
+        static_cast<const int*>(cid), static_cast<const int*>(base), N, C, G,
+        W, Rs, Rc, app_dim, scene_bound, static_cast<const float*>(basis),
         static_cast<const float*>(pwin), static_cast<const float*>(lwin),
         static_cast<float*>(out_sig), static_cast<float*>(out_feat));
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
   }
   return static_cast<int>(cudaGetLastError());
 }
