@@ -33,8 +33,11 @@ line each:
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve
            or kernel_ops), the largest error against its plain version
            (the fused kernel on the captured step's cube order, two
-           ascending runs, and on a shuffled copy; the bf16 flash kernel
-           with the count of HGMMA in its SASS),
+           ascending runs, and on a shuffled copy; the COO gather on the
+           occupancy build's first and middle chunk and on a shuffled
+           copy, each with the share of its query tiles whose stream
+           window the kernel stages in shared memory; the bf16 flash
+           kernel with the count of HGMMA in its SASS),
            its device time and the plain version's (CUDA events over a
            CUDA graph of repeated calls; `wall_ms`, over eager calls,
            includes the wrapper's host time; the fused row's `host_ms` is
@@ -91,6 +94,7 @@ VR_RAYS = 4096        # the engine's ray chunk
 # the background's optical depth over a ray, about 1, becomes about 20,
 # above -log(term_eps) = 9.2, and the blobs stop their rays earlier
 VR_OPAQUE_SCALE = 20.0
+OCC_CHUNK = 65536     # core/occupancy.build_occupancy's points per chunk
 # Llama 3.2 1B (src/repro/configs/llama3_2_1b.py) at train_4k's length
 FLASH_SHAPE = {"B": 1, "H": 32, "kv_heads": 8, "S": 4096, "D": 64}
 
@@ -155,17 +159,21 @@ def object_field(cfg, seed: int):
 class Capture:
     """Records kernel inputs while the main path runs, without a host sync:
     the fused kernel's inputs of the scan step with the most hitting pairs
-    (kept on the device by `torch.where`), and the largest gather call of
-    each format."""
+    (kept on the device by `torch.where`), the first largest gather call
+    of each format, and for the formats in `middle_calls` the largest call
+    whose number (counted per format from 0) lies in the given range."""
 
-    def __init__(self, torch, ops, pipeline):
+    def __init__(self, torch, ops, pipeline, middle_calls=None):
         self.torch, self.ops, self.pipeline = torch, ops, pipeline
         self.orig = (ops.fused_sigma_app, ops.bitmap_gather, ops.coo_gather,
                      pipeline.compact_select)
         self.n_hit = None
         self.best = {}          # N -> {"hits", "pts", "base", "cid"}
         self.fused_static = None
-        self.gathers = {}       # fmt -> (args, kwargs)
+        self.gathers = {}       # fmt -> (args, kwargs, nq)
+        self.middle_calls = middle_calls or {}
+        self.middle = {}        # fmt -> (args, kwargs, nq)
+        self.calls = {}         # fmt -> calls so far
 
     def __enter__(self):
         self.ops.fused_sigma_app = self.fused
@@ -206,6 +214,12 @@ class Capture:
             prev = self.gathers.get(fmt)
             if prev is None or q.shape[0] > prev[2]:
                 self.gathers[fmt] = (args, kw, q.shape[0])
+            k = self.calls.get(fmt, 0)
+            self.calls[fmt] = k + 1
+            lo, hi = self.middle_calls.get(fmt, (0, 0))
+            prev = self.middle.get(fmt)
+            if lo <= k < hi and (prev is None or q.shape[0] > prev[2]):
+                self.middle[fmt] = (args, kw, q.shape[0])
             return fn(*args, **kw)
         return wrapped
 
@@ -430,12 +444,16 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
             **timing_keys(torch, lambda: bitmap_decode.bitmap_matmul(
                 *args, cols=cols),
                 lambda: bitmap_decode.bitmap_matmul_ref(*args, cols)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "dense_ms": time_ms(torch, lambda: torch.matmul(w_dense, x),
-                                50)[0],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": time_ms(torch, lambda: torch.matmul(w_dense, x),
+                                  50)[0],
+            "library": "torch.matmul on the decoded dense W",
             "shape": {"rows": enc.shape[0], "cols": cols, "n": x.shape[1],
                       "nnz": enc.nnz, "density": enc.nnz / (enc.shape[0]
                                                              * cols)},
+            "plan": bitmap_decode.matmul_plan(
+                enc.shape[0], enc.words.shape[1], x.shape[1],
+                bitmap_decode.sm_count(x.device))._asdict(),
             "bytes": b_bytes, "ops": b_ops})
     rows.append({"name": "bitmap_matmul", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/bitmap_matmul.cu",
@@ -526,6 +544,95 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
                  "launches": launches["flash_attention"], **cases[0],
                  "cases": cases[1:]})
     return rows
+
+
+def bitmap_gather_row(torch, bitmap_decode, captured, launches) -> dict:
+    """The bitmap gather kernel on the serve path's largest call."""
+    (words, rowptr, values, q), kw, nq = captured
+    cols, rank = kw["cols"], kw["rank"]
+
+    def run_k():
+        return bitmap_decode.bitmap_gather(words, rowptr, values, q,
+                                           cols=cols, rank=rank)
+
+    def run_p():
+        return bitmap_decode.bitmap_gather_ref(words, rowptr, values, q, cols,
+                                               rank=rank)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "bitmap_gather kernel differs from plain")
+    ea, er = errors(torch, got, want)
+    stream_bytes = nbytes(words, rowptr, values, rank)
+    g_bytes, g_ops = nq * 8 + stream_bytes, nq * 12
+    b_ms, b_by = bound(g_bytes, g_ops)
+    return {"name": "bitmap_gather", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/bitmap_gather.cu",
+            "replaces": "src/repro/kernels/bitmap_decode.py:68",
+            "launches": launches, "max_abs_err": ea, "max_rel_err": er,
+            "tol": 0.0, **timing_keys(torch, run_k, run_p), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "shape": {"Q": nq, "stream_bytes": stream_bytes},
+            "bytes": g_bytes, "ops": g_ops}
+
+
+def coo_gather_row(torch, coo_gather, cap, launches, seed) -> dict:
+    """The COO gather kernel on the serve path's first largest call
+    (occupancy chunk 0, at the grid's edge), with cases: the largest call
+    of the middle occupancy chunk, and a shuffled copy of the first call's
+    queries (every tile wide). Each case is checked bit-exact against the
+    plain version before it is timed, and reports the share of its tiles
+    whose window the kernel stages in shared memory."""
+    plan_cap = coo_gather.coo_plan(0).capacity
+    (coords, values, q0), _kw, _nq = cap.gathers["coo"]
+    perm = torch.from_numpy(np.random.default_rng(seed + 14).permutation(
+        q0.shape[0])).to(q0.device)
+    cases = [("occupancy_chunk_0", cap.gathers["coo"][0]),
+             ("occupancy_chunk_middle", cap.middle["coo"][0]),
+             ("shuffled_chunk_0", (coords, values, q0[perm].contiguous()))]
+    out = []
+    for case, (c, v, q) in cases:
+        got = coo_gather.coo_gather(c, v, q)
+        want = coo_gather.coo_gather_ref(c, v, q)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"coo_gather kernel differs from plain ({case})")
+        ea, er = errors(torch, got, want)
+        win = coo_gather.tile_windows(c, q)
+        nq = q.shape[0]
+        stream_bytes = nbytes(c, v)
+        g_bytes = nq * 8 + stream_bytes
+        g_ops = nq * 4 * coo_gather.search_steps(c.shape[0])
+        b_ms, b_by = bound(g_bytes, g_ops)
+        out.append({
+            "case": case, "max_abs_err": ea, "max_rel_err": er, "tol": 0.0,
+            **timing_keys(torch, lambda: coo_gather.coo_gather(c, v, q),
+                          lambda: coo_gather.coo_gather_ref(c, v, q)),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "staged_tile_share": float((win <= plan_cap).double().mean()),
+            "window_mean": float(win.double().mean()),
+            "window_max": int(win.max()), "capacity": plan_cap,
+            "shape": {"Q": nq, "tiles": win.shape[0],
+                      "stream_entries": c.shape[0],
+                      "stream_bytes": stream_bytes},
+            "bytes": g_bytes, "ops": g_ops})
+    # the capacity's effect: 4x the staged window leaves less of the L1 to
+    # the stream that the wide tiles of the shuffled copy search
+    big = {}
+    coo_gather.CAPACITY = 4 * plan_cap
+    try:
+        for case, (c, v, q) in (cases[0], cases[2]):
+            check(torch.equal(coo_gather.coo_gather(c, v, q),
+                              coo_gather.coo_gather_ref(c, v, q)),
+                  f"coo_gather at capacity {4 * plan_cap} differs ({case})")
+            big[f"{case}_ms"] = time_ms(
+                torch, lambda: coo_gather.coo_gather(c, v, q), 50)[0]
+    finally:
+        coo_gather.CAPACITY = plan_cap
+    return {"name": "coo_gather", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/coo_gather.cu",
+            "replaces": "src/repro/kernels/coo_gather.py:40",
+            "launches": launches, **out[0], "cases": out[1:],
+            f"capacity_{4 * plan_cap}": big}
 
 
 def profile_chunk(torch, engine, rendering, dev) -> dict:
@@ -643,9 +750,15 @@ def main() -> int:
          4.0 * math.sin(0.5)], [0.0, 0.0, 0.0], 1.2 * args.res, args.res,
         args.res, device=dev)
         for a in 2 * math.pi * (np.arange(args.views) + 0.125) / args.views]
+    # the occupancy build gathers every COO sigma slice once per chunk of
+    # OCC_CHUNK grid points: the middle chunk's calls, for the coo row
+    n_chunks = -(-cfg.occ_res ** 3 // OCC_CHUNK)
+    coo_per_chunk = (fmts["sigma_planes"] + fmts["sigma_lines"]).count("coo")
+    mid = n_chunks // 2 * coo_per_chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with Capture(torch, ops, pipeline) as cap:
+    with Capture(torch, ops, pipeline,
+                 {"coo": (mid, mid + coo_per_chunk)}) as cap:
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()
@@ -691,6 +804,10 @@ def main() -> int:
               f"view {r.view_id} counters {r.stats}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched while serving")
+    check(launches["coo_gather"] == n_chunks * coo_per_chunk,
+          f"coo_gather launched {launches['coo_gather']} times, not once per "
+          f"occupancy chunk and COO sigma slice ({n_chunks} x "
+          f"{coo_per_chunk})")
 
     # -- parity: a small view, card against the CPU plain versions --------
     # same config, field and cubes; a 128-ray chunk keeps the CPU side to
@@ -812,50 +929,10 @@ def main() -> int:
         "smem_bytes": fused_sample.fused_smem_bytes(W, Rs, Rc),
         "bytes": f_bytes, "ops": f_ops})
 
-    for name, fmt, src, rep in (
-            ("bitmap_gather", "bitmap", "bitmap_gather.cu",
-             "src/repro/kernels/bitmap_decode.py:68"),
-            ("coo_gather", "coo", "coo_gather.cu",
-             "src/repro/kernels/coo_gather.py:40")):
-        gargs, gkw, nq = cap.gathers[fmt]
-        kernel, plain = kernels[name], (
-            bitmap_decode.bitmap_gather_ref if fmt == "bitmap"
-            else coo_gather.coo_gather_ref)
-        if fmt == "bitmap":
-            words, rowptr, values, q = gargs
-            rank = gkw["rank"]
-
-            def run_k():
-                return kernel(words, rowptr, values, q, cols=gkw["cols"],
-                              rank=rank)
-
-            def run_p():
-                return plain(words, rowptr, values, q, gkw["cols"], rank=rank)
-            stream_bytes = nbytes(words, rowptr, values, rank)
-            g_ops = nq * 12
-        else:
-            coords, values, q = gargs
-
-            def run_k():
-                return kernel(coords, values, q)
-
-            def run_p():
-                return plain(coords, values, q)
-            stream_bytes = nbytes(coords, values)
-            g_ops = nq * 4 * coo_gather.search_steps(coords.shape[0])
-        got, want = run_k(), run_p()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"{name} kernel differs from plain")
-        ea, er = errors(torch, got, want)
-        b_ms, b_by = bound(nq * 8 + stream_bytes, g_ops)
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": rep,
-            "launches": launches[name], "max_abs_err": ea, "max_rel_err": er,
-            "tol": 0.0, **timing_keys(torch, run_k, run_p), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
-            "shape": {"Q": nq, "stream_bytes": stream_bytes},
-            "bytes": nq * 8 + stream_bytes, "ops": g_ops})
+    rows.append(bitmap_gather_row(torch, bitmap_decode, cap.gathers["bitmap"],
+                                  launches["bitmap_gather"]))
+    rows.append(coo_gather_row(torch, coo_gather, cap, launches["coo_gather"],
+                               args.seed))
     rows += ops_rows
     check(len(rows) == 6, f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,6 +36,8 @@ I32 = ctypes.c_int
 I64 = ctypes.c_longlong
 F32 = ctypes.c_float
 
+MAX_SMEM_BYTES = 232448   # a block's shared-memory limit on sm_90 (227 KB)
+
 
 def find_nvcc() -> str:
     cands = [os.path.join(os.environ[k], "bin", "nvcc")

@@ -13,7 +13,8 @@ anything else raises. `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -89,6 +90,52 @@ bitmap_gather.launches = 0
 
 
 MATMUL_DTYPES = (torch.float32, torch.float16)
+MATMUL_THREADS = 256          # csrc/bitmap_matmul.cu kThreads
+MAX_SEGMENTS = 8              # CTAs a row: the portable cluster size
+# the kernel's static shared memory: the set-bit list of kChunkWords
+# (= MATMUL_THREADS) words as uint16 column offsets, plus scan and
+# reduction scratch
+MATMUL_STATIC_SMEM_BYTES = MATMUL_THREADS * 32 * 2 + 512
+
+
+class MatmulPlan(NamedTuple):
+    segments: int      # CTAs per row (one cluster), 1 to MAX_SEGMENTS
+    seg_words: int     # bitmap words per segment; none is empty
+    smem_bytes: int    # dynamic shared memory a CTA: its partial y row,
+                       # and in rank 0 every CTA's (segments + 1 rows)
+
+
+def matmul_plan(rows: int, nwords: int, n: int, sms: int) -> MatmulPlan:
+    """Split each row's `nwords` words into S segments, one CTA each, so
+    that rows * S CTAs fill the card's `sms` SMs about twice (S a power of
+    two, at most MAX_SEGMENTS, no empty segment), and fewer where S + 1
+    partial rows of n floats would not fit a CTA's shared memory. Raises
+    ValueError when two do not fit (S = 1)."""
+    _build.require(rows >= 0 and nwords >= 0 and n >= 0 and sms >= 1,
+                   "bitmap_matmul: rows {}, words {}, n {}, sms {}", rows,
+                   nwords, n, sms)
+    want = -(-2 * sms // max(rows, 1))
+    s = 1
+    while s < min(want, MAX_SEGMENTS):
+        s *= 2
+    s = max(1, min(s, nwords))
+    room = _build.MAX_SMEM_BYTES - MATMUL_STATIC_SMEM_BYTES
+    while s > 1 and 4 * n * (s + 1) > room:
+        s //= 2
+    _build.require(8 * n <= room,
+                   "bitmap_matmul: x has {} columns; two partial rows and "
+                   "the set-bit list need {} bytes of shared memory, above "
+                   "the limit of {} bytes a block may use", n,
+                   8 * n + MATMUL_STATIC_SMEM_BYTES, _build.MAX_SMEM_BYTES)
+    seg = -(-nwords // s)
+    if seg:
+        s = -(-nwords // seg)
+    return MatmulPlan(s, seg, 4 * n * (s + 1))
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def bitmap_matmul_ref(words: torch.Tensor, rowptr: torch.Tensor,
@@ -109,9 +156,9 @@ def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
                   cols: int) -> torch.Tensor:
     """y = decode(words, rowptr, values) @ x, x (cols, n) float32 or
     float16, values float32 or float16; y in x's dtype. `words` holds the
-    uint32 bitmap as int32 bit patterns. The kernel walks each row's words
-    in order and finds their values with a running popcount scan, so it
-    needs no rank table."""
+    uint32 bitmap as int32 bit patterns. The kernel splits each row into
+    segments (`matmul_plan`) and finds a segment's first value by a
+    popcount of the words before it, so it needs no rank table."""
     tensors = (words, rowptr, values, x)
     if _build.all_on_cpu("bitmap_matmul", *tensors):
         return bitmap_matmul_ref(words, rowptr, values, x, cols)
@@ -136,15 +183,21 @@ def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
     _build.require(all(t.device == dev for t in tensors),
                    "bitmap_matmul: tensors on different devices")
     n = x.shape[1]
+    plan = matmul_plan(rows, nwords, n, sm_count(dev))
+    # 16-byte loads of x's 8-column tiles need whole tiles and an aligned
+    # pointer; otherwise the kernel loads x one value at a time
+    vec = int(n % 8 == 0 and x.data_ptr() % 16 == 0)
     y = torch.empty((rows, n), dtype=x.dtype, device=dev)
     fn = _build.entry("bitmap_matmul_launch",
                       (_build.P, _build.P, _build.P, _build.I32, _build.I32,
-                       _build.I32, _build.I32, _build.I32, _build.P,
-                       _build.I32, _build.I32, _build.P, _build.P))
+                       _build.I32, _build.I32, _build.I32, _build.I32,
+                       _build.I32, _build.P, _build.I32, _build.I32,
+                       _build.I32, _build.P, _build.P))
     code = fn(words.data_ptr(), rowptr.data_ptr(), values.data_ptr(),
               values.shape[0], int(values.dtype == torch.float16), rows,
-              nwords, cols, x.data_ptr(), int(x.dtype == torch.float16), n,
-              y.data_ptr(), _build.stream_ptr(dev))
+              nwords, cols, plan.segments, plan.seg_words, x.data_ptr(),
+              int(x.dtype == torch.float16), n, vec, y.data_ptr(),
+              _build.stream_ptr(dev))
     _build.check("bitmap_matmul", code)
     bitmap_matmul.launches += 1
     return y

@@ -5,14 +5,70 @@ absent). The port of `repro/kernels/coo_gather.py` `coo_gather`.
 tensors and runs the plain PyTorch version `coo_gather_ref` on CPU
 tensors; anything else raises. `coo_gather.launches` counts kernel
 launches.
+
+The kernel gives a CTA a tile of `TILE` consecutive queries and stages
+the tile's window of the stream (the entries between its least and
+largest query) in shared memory when the window holds at most
+`capacity` entries; `coo_plan` sizes that, `tile_windows` computes the
+windows the kernel will find (to report how many tiles it stages).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
+
+THREADS = 256                 # csrc/coo_gather.cu kThreads
+PER_THREAD = 8                # queries a thread (kPer)
+TILE = THREADS * PER_THREAD   # queries a CTA
+# window entries a CTA may stage: 8 KB, so that the resident CTAs leave
+# most of an SM's L1 to the stream that wide tiles search in device memory
+CAPACITY = 1024
+ENTRY_BYTES = 8               # an int32 coordinate and a float32 value
+STATIC_SMEM_BYTES = 128       # the kernel's reduction scratch, rounded up
+
+
+class CooPlan(NamedTuple):
+    tile: int          # queries a CTA
+    capacity: int      # window entries staged in shared memory
+    smem_bytes: int    # dynamic shared memory a CTA
+    blocks: int        # CTAs
+
+
+def coo_plan(nq: int, capacity: Optional[int] = None) -> CooPlan:
+    """Launch plan of the kernel for `nq` queries, staging windows of up to
+    `capacity` entries (default: the module's CAPACITY, read at each call);
+    raises ValueError when such a window does not fit a block's shared
+    memory."""
+    capacity = CAPACITY if capacity is None else capacity
+    _build.require(nq >= 0, "coo_gather: {} queries", nq)
+    _build.require(capacity >= 1, "coo_gather: capacity {} < 1", capacity)
+    smem = capacity * ENTRY_BYTES
+    _build.require(smem + STATIC_SMEM_BYTES <= _build.MAX_SMEM_BYTES,
+                   "coo_gather: a window of {} entries needs {} bytes of "
+                   "shared memory, above the limit of {} bytes a block may "
+                   "use", capacity, smem + STATIC_SMEM_BYTES,
+                   _build.MAX_SMEM_BYTES)
+    return CooPlan(TILE, capacity, smem, -(-nq // TILE))
+
+
+def tile_windows(coords: torch.Tensor, queries: torch.Tensor,
+                 tile: int = TILE) -> torch.Tensor:
+    """Entries of the stream between each tile's least and largest query,
+    as the kernel finds them (lower bound of the least, upper bound of the
+    largest): int64 (ceil(nq / tile),). A tile is staged when its window
+    holds at most the plan's capacity."""
+    nq = queries.shape[0]
+    if nq == 0:
+        return torch.zeros(0, dtype=torch.int64, device=queries.device)
+    pad = -nq % tile
+    q = torch.cat([queries, queries[-1:].expand(pad)]).reshape(-1, tile)
+    lo = torch.searchsorted(coords, q.amin(dim=1).contiguous())
+    hi = torch.searchsorted(coords, q.amax(dim=1).contiguous(), right=True)
+    return hi - lo
 
 
 def search_steps(n: int) -> int:
@@ -45,13 +101,16 @@ def coo_gather(coords: torch.Tensor, values: torch.Tensor,
     _build.require_cuda("coo_gather values", values, torch.float32, (n,))
     _build.require_cuda("coo_gather queries", queries, torch.int32)
     _build.require(queries.dim() == 1, "coo_gather: queries must be 1-D")
+    nq = queries.shape[0]
+    plan = coo_plan(nq)
     out = torch.empty(queries.shape, dtype=torch.float32,
                       device=queries.device)
+    vec = int(queries.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     fn = _build.entry("coo_gather_launch",
-                      (_build.P, _build.P, _build.I32, _build.I32, _build.P,
-                       _build.P, _build.I64, _build.P))
-    code = fn(coords.data_ptr(), values.data_ptr(), n, search_steps(n),
-              queries.data_ptr(), out.data_ptr(), queries.shape[0],
+                      (_build.P, _build.P, _build.I32, _build.I32, _build.I32,
+                       _build.P, _build.P, _build.I64, _build.P))
+    code = fn(coords.data_ptr(), values.data_ptr(), n, plan.capacity, vec,
+              queries.data_ptr(), out.data_ptr(), nq,
               _build.stream_ptr(queries.device))
     _build.check("coo_gather", code)
     coo_gather.launches += 1

@@ -46,7 +46,7 @@ FMT_CODE = {"dense": 0, "bitmap": 1, "coo": 2}
 MAX_APP_DIM = 32          # csrc/fused_sample.cu kMaxAppDim
 TILE = 256                # points per CTA (kTile)
 BASIS_STRIDE = 40         # kBasisStride: a basis row, 32 columns + 8
-MAX_SMEM_BYTES = 232448   # a block's shared-memory limit on sm_90 (227 KB)
+MAX_SMEM_BYTES = _build.MAX_SMEM_BYTES
 PLAN_CACHE_SIZE = 8       # fields whose checks and descriptor are kept
 
 

@@ -20,6 +20,7 @@ from repro_torch.kernels import _build, bitmap_decode, coo_gather, fused_sample
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import volume_render as tvr
 from repro_torch.serving import RenderEngine
+from test_torch_kernel_plans import occupancy_coo_calls
 
 pytestmark = pytest.mark.gpu
 
@@ -78,6 +79,105 @@ def test_coo_gather_kernel_is_bit_exact(cuda, size, nq, sparsity):
     assert torch.equal(got, coo_gather.coo_gather_ref(enc.coords, enc.values,
                                                       q))
     np.testing.assert_array_equal(got.cpu().numpy(), flat[q.cpu().numpy()])
+
+
+def _assert_coo_exact(coords, values, q):
+    before = coo_gather.coo_gather.launches
+    got = coo_gather.coo_gather(coords, values, q)
+    torch.cuda.synchronize()
+    assert coo_gather.coo_gather.launches == before + 1
+    assert torch.equal(got, coo_gather.coo_gather_ref(coords, values, q))
+
+
+@pytest.mark.parametrize("order", ["occupancy", "shuffled"])
+def test_coo_gather_kernel_on_occupancy_queries(cuda, monkeypatch, order):
+    """Occupancy-order tiles span a narrow band of the stream and are
+    staged in shared memory; a shuffled copy makes every tile wide."""
+    cap = coo_gather.coo_plan(0).capacity
+    wide_streams = 0
+    for call in occupancy_coo_calls(monkeypatch):
+        coords, values, q = (t.to(cuda) for t in call)
+        if order == "shuffled":
+            g = torch.Generator(device="cpu").manual_seed(q.shape[0])
+            q = q[torch.randperm(q.shape[0], generator=g).to(cuda)]
+        win = coo_gather.tile_windows(coords, q)
+        staged = float((win <= cap).double().mean())
+        nnz = int((coords != tsparse.PAD_COORD).sum())
+        if order == "occupancy":
+            assert staged > 0.9, staged
+        elif nnz > 1.5 * cap:
+            assert staged == 0.0, staged
+            wide_streams += 1
+        _assert_coo_exact(coords, values, q)
+    assert order == "occupancy" or wide_streams > 0
+
+
+def _gapped_stream(device, n=20000, first=1000):
+    """Coordinates first, first + 3, ... (n entries) padded to a multiple
+    of 8 with PAD_COORD, values 1, 2, ..."""
+    coords = first + 3 * np.arange(n, dtype=np.int64)
+    pad = -n % 8 + 8
+    coords = np.concatenate([coords, np.full(pad, tsparse.PAD_COORD)])
+    values = np.concatenate([np.arange(1, n + 1, dtype=np.float32),
+                             np.zeros(pad, np.float32)])
+    return (torch.from_numpy(coords.astype(np.int32)).to(device),
+            torch.from_numpy(values).to(device))
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_coo_gather_window_at_and_over_capacity(cuda, extra):
+    """One tile whose window holds exactly the capacity (staged) and one
+    whose window holds one entry more (searched in device memory)."""
+    coords, values = _gapped_stream(cuda)
+    cap = coo_gather.coo_plan(0).capacity
+    c = coords.cpu().numpy().astype(np.int64)
+    a = 37
+    lo_q, hi_q = int(c[a]), int(c[a + cap - 1 + extra])
+    rng = np.random.RandomState(cap + extra)
+    q = rng.randint(lo_q, hi_q + 1, coo_gather.TILE)
+    q[:2] = lo_q, hi_q
+    q = torch.from_numpy(q.astype(np.int32)).to(cuda)
+    assert int(coo_gather.tile_windows(coords, q)[0]) == cap + extra
+    _assert_coo_exact(coords, values, q)
+
+
+def test_coo_gather_below_the_stream_pad_region_and_empty_windows(cuda):
+    coords, values = _gapped_stream(cuda)
+    last = int(coords[19999])
+    T = coo_gather.TILE
+    tiles = [
+        np.arange(-T // 2, T // 2),                        # below the first
+        last - 5 + np.arange(T),                           # into the pad
+        np.full(T, tsparse.PAD_COORD - 1),                 # pad region only
+        np.concatenate([np.full(T - 1, last + 1), [tsparse.PAD_COORD]]),
+        np.full(T, 1001),                                  # empty window
+        1001 + (np.arange(T) % 2),                         # in one gap
+        np.full(T, 1000),                                  # one entry
+    ]
+    q = torch.from_numpy(np.concatenate(tiles).astype(np.int32)).to(cuda)
+    win = coo_gather.tile_windows(coords, q).cpu().numpy()
+    assert win[4] == 0 and win[5] == 0 and win[6] == 1
+    _assert_coo_exact(coords, values, q)
+
+
+@pytest.mark.parametrize("nq", [1, 3, 2047, 2049, 3 * 2048 + 5])
+def test_coo_gather_ragged_query_count(cuda, nq):
+    coords, values = _gapped_stream(cuda)
+    q = torch.from_numpy(np.random.RandomState(nq).randint(
+        900, 70000, nq).astype(np.int32)).to(cuda)
+    _assert_coo_exact(coords, values, torch.sort(q).values)
+    _assert_coo_exact(coords, values, q)
+
+
+def test_coo_gather_unaligned_query_pointer(cuda):
+    """A slice q[1:] is 4 bytes off 16-byte alignment: scalar loads."""
+    coords, values = _gapped_stream(cuda)
+    q = torch.arange(900, 900 + 4 * 2048 + 1, dtype=torch.int32,
+                     device=cuda)
+    sub = q[1:]
+    assert sub.data_ptr() % 16 == 4
+    _assert_coo_exact(coords, values, sub)
+    _assert_coo_exact(coords, values, q[4:])
 
 
 def _field(case, device):
@@ -349,6 +449,101 @@ def test_bitmap_matmul_mixed_value_and_x_dtypes(cuda):
         assert got.dtype == xdt
         _assert_matmul_close(got, want, enc, xx,
                              2e-2 if xdt == torch.float16 else 1e-5)
+
+
+@pytest.mark.parametrize("rows,cols", [(1, 3000), (3, 70), (48, 25600),
+                                       (50, 1000)])
+@pytest.mark.parametrize("n_cols", [1, 8, 9, 16])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float16, 2e-2)])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+def test_bitmap_matmul_split_rows(cuda, rows, cols, n_cols, dtype, tol,
+                                  density):
+    """Rows 1 to 50 (1 to 8 segments a row), a ragged last word, fewer
+    words than segments (cols 70: 3 words), n on and off the 8-column
+    tile (n 8 and 16 take 16-byte loads of x, n 1 and 9 scalar ones)."""
+    plan = bitmap_decode.matmul_plan(rows, (cols + 31) // 32, n_cols,
+                                     bitmap_decode.sm_count(cuda))
+    assert 1 <= plan.segments <= 8
+    w = _matrix(rows, cols, density, rows * cols + n_cols).astype(dtype)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(n_cols + 1).randn(
+        cols, n_cols).astype(dtype)).to(cuda)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, cols)
+    got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                                      cols=cols)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (rows, n_cols)
+    _assert_matmul_close(got, want, enc, x, tol)
+
+
+@pytest.mark.parametrize("vdt,xdt", [(np.float32, torch.float16),
+                                     (np.float16, torch.float32)])
+@pytest.mark.parametrize("n_cols", [8, 9])
+def test_bitmap_matmul_split_rows_mixed_dtypes(cuda, vdt, xdt, n_cols):
+    w = _matrix(48, 25600, 0.3, n_cols).astype(vdt)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(n_cols).randn(
+        25600, n_cols).astype(np.float32)).to(cuda).to(xdt)
+    got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                                      cols=25600)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, 25600)
+    assert got.dtype == xdt
+    _assert_matmul_close(got, want, enc, x,
+                         2e-2 if xdt == torch.float16 else 1e-5)
+
+
+@pytest.mark.parametrize("n_cols,dtype,tol", [(8, np.float32, 1e-5),
+                                              (9, np.float16, 2e-2)])
+def test_bitmap_matmul_segments_of_several_chunks(cuda, n_cols, dtype, tol):
+    """300 rows fill the SMs with one segment a row: 800 words, which the
+    CTA compacts and sweeps in four chunks of 256 words."""
+    plan = bitmap_decode.matmul_plan(300, 800, n_cols,
+                                     bitmap_decode.sm_count(cuda))
+    assert plan.segments == 1 and plan.seg_words == 800
+    w = _matrix(300, 25600, 0.3, 7).astype(dtype)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        25600, n_cols).astype(dtype)).to(cuda)
+    got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                                      cols=25600)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, 25600)
+    _assert_matmul_close(got, want, enc, x, tol)
+
+
+def test_bitmap_matmul_wide_x_takes_fewer_segments(cuda):
+    """n = 8000: nine partial rows would not fit shared memory, so the
+    plan takes 4 segments (5 partial rows) and the kernel loops over 1000
+    column tiles."""
+    plan = bitmap_decode.matmul_plan(2, 94, 8000, bitmap_decode.sm_count(cuda))
+    assert plan.segments == 4
+    w = _matrix(2, 3000, 0.3, 5)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    x = torch.from_numpy(np.random.RandomState(5).randn(3000, 8000).astype(
+        np.float32)).to(cuda)
+    got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                                      cols=3000)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, 3000)
+    _assert_matmul_close(got, want, enc, x, 1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float16, 2e-2)])
+def test_bitmap_matmul_unaligned_x_takes_scalar_loads(cuda, dtype, tol):
+    """x at n = 8 but 4 (fp32) or 2 (fp16) bytes off 16-byte alignment."""
+    w = _matrix(48, 2000, 0.5, 3).astype(dtype)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    flat = torch.from_numpy(np.random.RandomState(3).randn(
+        2000 * 8 + 1).astype(dtype)).to(cuda)
+    x = flat[1:].view(2000, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = bitmap_decode.bitmap_matmul(enc.words, enc.rowptr, enc.values, x,
+                                      cols=2000)
+    want = bitmap_decode.bitmap_matmul_ref(enc.words, enc.rowptr, enc.values,
+                                           x, 2000)
+    _assert_matmul_close(got, want, enc, x, tol)
 
 
 def _assert_nproc_close(got, want, t_before, term_eps):

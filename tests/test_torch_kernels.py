@@ -111,6 +111,33 @@ def test_coo_gather_plain_matches_reference(size, nq, sparsity):
     np.testing.assert_array_equal(n(got), flat[q])
 
 
+@pytest.mark.parametrize("order", ["occupancy", "shuffled"])
+def test_coo_gather_plain_matches_pallas_on_occupancy_queries(monkeypatch,
+                                                             order):
+    """The serving path's queries (tensorf.gather_factor over an occupancy
+    chunk, meshgrid order) and a shuffled copy: the plain version equals
+    the reference's Pallas kernel in interpret mode and its jnp oracle."""
+    from repro.kernels.coo_gather import coo_gather as pallas_coo_gather
+    from test_torch_kernel_plans import occupancy_coo_calls
+
+    calls = occupancy_coo_calls(monkeypatch, grid=64, chunk=4096)
+    rng = np.random.RandomState(7)
+    for coords, values, q in calls:
+        if order == "occupancy":
+            start = rng.randint(0, q.shape[0] // 8192) * 8192
+            q = q[start:start + 8192]
+        else:
+            q = q[torch.from_numpy(rng.choice(q.shape[0], 8192,
+                                              replace=False))]
+        want = np.asarray(pallas_coo_gather(n(coords), n(values), n(q),
+                                            block_q=4096, interpret=True))
+        np.testing.assert_array_equal(
+            want, np.asarray(jref.coo_gather_ref(n(coords), n(values),
+                                                 n(q))))
+        got = coo_gather.coo_gather(coords, values, q)
+        np.testing.assert_array_equal(n(got), want)
+
+
 def test_coo_search_steps_match_reference():
     for size in (1, 2, 128, 129, 256, 409600):
         assert coo_gather.search_steps(size) == \

@@ -74,6 +74,25 @@ def test_bitmap_matmul_plain_matches_pallas_and_oracle(rows, cols, n_cols,
         atol=2e-2)
 
 
+@pytest.mark.parametrize("rows,cols,n_cols", [(8, 70, 1), (24, 200, 9),
+                                              (48, 1000, 8), (16, 3200, 16)])
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-5), (np.float16, 2e-2)])
+def test_bitmap_matmul_plain_matches_pallas_at_split_row_shapes(
+        rows, cols, n_cols, dtype, tol):
+    """Shapes the card kernel splits into 1 to 8 segments a row, ragged
+    last words, n on and off its 8-column tile: the plain version against
+    the Pallas kernel (8-row blocks) in interpret mode."""
+    w, x, jenc = _bitmap_case(rows, cols, n_cols, dtype, 0.4, rows + cols)
+    pal = np.asarray(pallas_bitmap_matmul(
+        jenc.words, jenc.rowptr, jenc.values, jnp.asarray(x), cols=cols,
+        interpret=True), np.float32)
+    words, rowptr, values = _carry_bitmap(jenc)
+    got = n(bitmap_decode.bitmap_matmul(words, rowptr, values,
+                                        torch.from_numpy(x), cols=cols))
+    np.testing.assert_allclose(got.astype(np.float32), pal, rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.parametrize("rows,cols,n_cols", [(5, 70, 3), (3, 1000, 9)])
 def test_bitmap_matmul_plain_off_pallas_blocks(rows, cols, n_cols):
     """Row counts off the Pallas 8-row block and ragged last words: the
