@@ -36,7 +36,8 @@ line each:
            ascending runs, and on a shuffled copy; the COO gather on the
            occupancy build's first and middle chunk and on a shuffled
            copy, each with the share of its query tiles whose stream
-           window the kernel stages in shared memory; the bf16 flash
+           window the kernel staged in shared memory, as the kernel
+           counts them; the bf16 flash
            kernel with the count of HGMMA in its SASS),
            its device time and the plain version's (CUDA events over a
            CUDA graph of repeated calls; `wall_ms`, over eager calls,
@@ -160,10 +161,10 @@ class Capture:
     """Records kernel inputs while the main path runs, without a host sync:
     the fused kernel's inputs of the scan step with the most hitting pairs
     (kept on the device by `torch.where`), the first largest gather call
-    of each format, and for the formats in `middle_calls` the largest call
-    whose number (counted per format from 0) lies in the given range."""
+    of each format, and the COO gather call numbered `coo_call` (counted
+    from 0)."""
 
-    def __init__(self, torch, ops, pipeline, middle_calls=None):
+    def __init__(self, torch, ops, pipeline, coo_call):
         self.torch, self.ops, self.pipeline = torch, ops, pipeline
         self.orig = (ops.fused_sigma_app, ops.bitmap_gather, ops.coo_gather,
                      pipeline.compact_select)
@@ -171,9 +172,8 @@ class Capture:
         self.best = {}          # N -> {"hits", "pts", "base", "cid"}
         self.fused_static = None
         self.gathers = {}       # fmt -> (args, kwargs, nq)
-        self.middle_calls = middle_calls or {}
-        self.middle = {}        # fmt -> (args, kwargs, nq)
-        self.calls = {}         # fmt -> calls so far
+        self.coo_call, self.coo_calls = coo_call, 0
+        self.coo_at_call = None  # args of COO call number `coo_call`
 
     def __enter__(self):
         self.ops.fused_sigma_app = self.fused
@@ -214,12 +214,10 @@ class Capture:
             prev = self.gathers.get(fmt)
             if prev is None or q.shape[0] > prev[2]:
                 self.gathers[fmt] = (args, kw, q.shape[0])
-            k = self.calls.get(fmt, 0)
-            self.calls[fmt] = k + 1
-            lo, hi = self.middle_calls.get(fmt, (0, 0))
-            prev = self.middle.get(fmt)
-            if lo <= k < hi and (prev is None or q.shape[0] > prev[2]):
-                self.middle[fmt] = (args, kw, q.shape[0])
+            if fmt == "coo":
+                if self.coo_calls == self.coo_call:
+                    self.coo_at_call = args
+                self.coo_calls += 1
             return fn(*args, **kw)
         return wrapped
 
@@ -577,27 +575,35 @@ def bitmap_gather_row(torch, bitmap_decode, captured, launches) -> dict:
 
 def coo_gather_row(torch, coo_gather, cap, launches, seed) -> dict:
     """The COO gather kernel on the serve path's first largest call
-    (occupancy chunk 0, at the grid's edge), with cases: the largest call
-    of the middle occupancy chunk, and a shuffled copy of the first call's
-    queries (every tile wide). Each case is checked bit-exact against the
-    plain version before it is timed, and reports the share of its tiles
-    whose window the kernel stages in shared memory."""
-    plan_cap = coo_gather.coo_plan(0).capacity
+    (occupancy chunk 0, at the grid's edge), with cases: the same slice's
+    call in the middle occupancy chunk, and a shuffled copy of the first
+    call's queries (every tile wide). Each case is checked bit-exact
+    against the plain version before it is timed. `staged_tile_share` is
+    the kernel's own count of the tiles it staged in shared memory, held
+    against the count that the windows of the inputs predict
+    (`tile_windows`, which also gives `window_mean` and `window_max`)."""
     (coords, values, q0), _kw, _nq = cap.gathers["coo"]
+    check(cap.coo_at_call is not None
+          and cap.coo_at_call[2].shape == q0.shape,
+          "the middle occupancy chunk's COO call was not captured")
     perm = torch.from_numpy(np.random.default_rng(seed + 14).permutation(
         q0.shape[0])).to(q0.device)
     cases = [("occupancy_chunk_0", cap.gathers["coo"][0]),
-             ("occupancy_chunk_middle", cap.middle["coo"][0]),
+             ("occupancy_chunk_middle", cap.coo_at_call),
              ("shuffled_chunk_0", (coords, values, q0[perm].contiguous()))]
     out = []
     for case, (c, v, q) in cases:
-        got = coo_gather.coo_gather(c, v, q)
+        got, staged = coo_gather.coo_gather_staged(c, v, q)
         want = coo_gather.coo_gather_ref(c, v, q)
         torch.cuda.synchronize()
         check(torch.equal(got, want),
               f"coo_gather kernel differs from plain ({case})")
         ea, er = errors(torch, got, want)
         win = coo_gather.tile_windows(c, q)
+        predicted = int((win <= coo_gather.CAPACITY).sum())
+        check(staged == predicted,
+              f"coo_gather staged {staged} tiles, the windows predict "
+              f"{predicted} ({case})")
         nq = q.shape[0]
         stream_bytes = nbytes(c, v)
         g_bytes = nq * 8 + stream_bytes
@@ -608,31 +614,17 @@ def coo_gather_row(torch, coo_gather, cap, launches, seed) -> dict:
             **timing_keys(torch, lambda: coo_gather.coo_gather(c, v, q),
                           lambda: coo_gather.coo_gather_ref(c, v, q)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "staged_tile_share": float((win <= plan_cap).double().mean()),
+            "staged_tile_share": staged / win.shape[0],
             "window_mean": float(win.double().mean()),
-            "window_max": int(win.max()), "capacity": plan_cap,
+            "window_max": int(win.max()), "capacity": coo_gather.CAPACITY,
             "shape": {"Q": nq, "tiles": win.shape[0],
                       "stream_entries": c.shape[0],
                       "stream_bytes": stream_bytes},
             "bytes": g_bytes, "ops": g_ops})
-    # the capacity's effect: 4x the staged window leaves less of the L1 to
-    # the stream that the wide tiles of the shuffled copy search
-    big = {}
-    coo_gather.CAPACITY = 4 * plan_cap
-    try:
-        for case, (c, v, q) in (cases[0], cases[2]):
-            check(torch.equal(coo_gather.coo_gather(c, v, q),
-                              coo_gather.coo_gather_ref(c, v, q)),
-                  f"coo_gather at capacity {4 * plan_cap} differs ({case})")
-            big[f"{case}_ms"] = time_ms(
-                torch, lambda: coo_gather.coo_gather(c, v, q), 50)[0]
-    finally:
-        coo_gather.CAPACITY = plan_cap
     return {"name": "coo_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/coo_gather.cu",
             "replaces": "src/repro/kernels/coo_gather.py:40",
-            "launches": launches, **out[0], "cases": out[1:],
-            f"capacity_{4 * plan_cap}": big}
+            "launches": launches, **out[0], "cases": out[1:]}
 
 
 def profile_chunk(torch, engine, rendering, dev) -> dict:
@@ -751,14 +743,14 @@ def main() -> int:
         args.res, device=dev)
         for a in 2 * math.pi * (np.arange(args.views) + 0.125) / args.views]
     # the occupancy build gathers every COO sigma slice once per chunk of
-    # OCC_CHUNK grid points: the middle chunk's calls, for the coo row
+    # OCC_CHUNK grid points, plane 0 first: the middle chunk's first call,
+    # for the coo row
     n_chunks = -(-cfg.occ_res ** 3 // OCC_CHUNK)
     coo_per_chunk = (fmts["sigma_planes"] + fmts["sigma_lines"]).count("coo")
-    mid = n_chunks // 2 * coo_per_chunk
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with Capture(torch, ops, pipeline,
-                 {"coo": (mid, mid + coo_per_chunk)}) as cap:
+                 n_chunks // 2 * coo_per_chunk) as cap:
         for k in kernels.values():
             k.launches = 0
         t0 = time.perf_counter()

@@ -92,9 +92,9 @@ bitmap_gather.launches = 0
 MATMUL_DTYPES = (torch.float32, torch.float16)
 MATMUL_THREADS = 256          # csrc/bitmap_matmul.cu kThreads
 MAX_SEGMENTS = 8              # CTAs a row: the portable cluster size
-# the kernel's static shared memory: the set-bit list of kChunkWords
-# (= MATMUL_THREADS) words as uint16 column offsets, plus scan and
-# reduction scratch
+# the kernel's static shared memory, which the plan leaves room for: the
+# set-bit list of kChunkWords (= MATMUL_THREADS) words as uint16 column
+# offsets, plus scan and reduction scratch
 MATMUL_STATIC_SMEM_BYTES = MATMUL_THREADS * 32 * 2 + 512
 
 
@@ -191,11 +191,12 @@ def bitmap_matmul(words: torch.Tensor, rowptr: torch.Tensor,
     fn = _build.entry("bitmap_matmul_launch",
                       (_build.P, _build.P, _build.P, _build.I32, _build.I32,
                        _build.I32, _build.I32, _build.I32, _build.I32,
-                       _build.I32, _build.P, _build.I32, _build.I32,
-                       _build.I32, _build.P, _build.P))
+                       _build.I32, _build.I32, _build.P, _build.I32,
+                       _build.I32, _build.I32, _build.P, _build.P))
     code = fn(words.data_ptr(), rowptr.data_ptr(), values.data_ptr(),
               values.shape[0], int(values.dtype == torch.float16), rows,
-              nwords, cols, plan.segments, plan.seg_words, x.data_ptr(),
+              nwords, cols, plan.segments, plan.seg_words, plan.smem_bytes,
+              x.data_ptr(),
               int(x.dtype == torch.float16), n, vec, y.data_ptr(),
               _build.stream_ptr(dev))
     _build.check("bitmap_matmul", code)

@@ -9,50 +9,41 @@ launches.
 The kernel gives a CTA a tile of `TILE` consecutive queries and stages
 the tile's window of the stream (the entries between its least and
 largest query) in shared memory when the window holds at most
-`capacity` entries; `coo_plan` sizes that, `tile_windows` computes the
-windows the kernel will find (to report how many tiles it stages).
+`CAPACITY` entries. `coo_plan` is the launch's grid, which the kernel
+checks against its own constants; `tile_windows` computes the windows
+from the inputs, and `coo_gather_staged` reads back how many tiles the
+kernel itself staged.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-THREADS = 256                 # csrc/coo_gather.cu kThreads
-PER_THREAD = 8                # queries a thread (kPer)
+# csrc/coo_gather.cu's kThreads and kPer; the launch raises when TILE or
+# CAPACITY disagrees with the kernel's kTile or kCapacity
+THREADS = 256
+PER_THREAD = 8                # queries a thread
 TILE = THREADS * PER_THREAD   # queries a CTA
-# window entries a CTA may stage: 8 KB, so that the resident CTAs leave
-# most of an SM's L1 to the stream that wide tiles search in device memory
+# window entries a CTA stages: 8 KB of static shared memory, so that the
+# resident CTAs leave most of an SM's L1 to the stream that wide tiles
+# search in device memory
 CAPACITY = 1024
-ENTRY_BYTES = 8               # an int32 coordinate and a float32 value
-STATIC_SMEM_BYTES = 128       # the kernel's reduction scratch, rounded up
 
 
 class CooPlan(NamedTuple):
     tile: int          # queries a CTA
     capacity: int      # window entries staged in shared memory
-    smem_bytes: int    # dynamic shared memory a CTA
     blocks: int        # CTAs
 
 
-def coo_plan(nq: int, capacity: Optional[int] = None) -> CooPlan:
-    """Launch plan of the kernel for `nq` queries, staging windows of up to
-    `capacity` entries (default: the module's CAPACITY, read at each call);
-    raises ValueError when such a window does not fit a block's shared
-    memory."""
-    capacity = CAPACITY if capacity is None else capacity
+def coo_plan(nq: int) -> CooPlan:
+    """Launch plan of the kernel for `nq` queries."""
     _build.require(nq >= 0, "coo_gather: {} queries", nq)
-    _build.require(capacity >= 1, "coo_gather: capacity {} < 1", capacity)
-    smem = capacity * ENTRY_BYTES
-    _build.require(smem + STATIC_SMEM_BYTES <= _build.MAX_SMEM_BYTES,
-                   "coo_gather: a window of {} entries needs {} bytes of "
-                   "shared memory, above the limit of {} bytes a block may "
-                   "use", capacity, smem + STATIC_SMEM_BYTES,
-                   _build.MAX_SMEM_BYTES)
-    return CooPlan(TILE, capacity, smem, -(-nq // TILE))
+    return CooPlan(TILE, CAPACITY, -(-nq // TILE))
 
 
 def tile_windows(coords: torch.Tensor, queries: torch.Tensor,
@@ -88,12 +79,8 @@ def coo_gather_ref(coords: torch.Tensor, values: torch.Tensor,
     return torch.where(found, vals, torch.zeros_like(vals))
 
 
-def coo_gather(coords: torch.Tensor, values: torch.Tensor,
-               queries: torch.Tensor) -> torch.Tensor:
-    """values at `queries` (int32 linear coords) from a sorted int32
-    `coords` stream padded with PAD_COORD; 0 where absent."""
-    if queries.device.type == "cpu":
-        return coo_gather_ref(coords, values, queries)
+def _launch(coords: torch.Tensor, values: torch.Tensor,
+            queries: torch.Tensor, staged: int) -> torch.Tensor:
     n = coords.shape[0]
     _build.require(coords.dim() == 1 and n > 0,
                    "coo_gather: coords must be a non-empty vector")
@@ -108,13 +95,37 @@ def coo_gather(coords: torch.Tensor, values: torch.Tensor,
     vec = int(queries.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
     fn = _build.entry("coo_gather_launch",
                       (_build.P, _build.P, _build.I32, _build.I32, _build.I32,
-                       _build.P, _build.P, _build.I64, _build.P))
-    code = fn(coords.data_ptr(), values.data_ptr(), n, plan.capacity, vec,
-              queries.data_ptr(), out.data_ptr(), nq,
+                       _build.I64, _build.I32, _build.P, _build.P, _build.I64,
+                       _build.P, _build.P))
+    code = fn(coords.data_ptr(), values.data_ptr(), n, plan.tile,
+              plan.capacity, plan.blocks, vec, queries.data_ptr(),
+              out.data_ptr(), nq, staged or None,
               _build.stream_ptr(queries.device))
     _build.check("coo_gather", code)
     coo_gather.launches += 1
     return out
+
+
+def coo_gather(coords: torch.Tensor, values: torch.Tensor,
+               queries: torch.Tensor) -> torch.Tensor:
+    """values at `queries` (int32 linear coords) from a sorted int32
+    `coords` stream padded with PAD_COORD; 0 where absent."""
+    if queries.device.type == "cpu":
+        return coo_gather_ref(coords, values, queries)
+    return _launch(coords, values, queries, 0)
+
+
+def coo_gather_staged(coords: torch.Tensor, values: torch.Tensor,
+                      queries: torch.Tensor) -> tuple:
+    """(coo_gather's result, number of query tiles whose window the kernel
+    staged in shared memory), from one launch of the kernel on CUDA
+    tensors; waits for the launch to finish."""
+    _build.require(queries.device.type == "cuda",
+                   "coo_gather_staged: the count comes from the kernel, "
+                   "which runs on CUDA tensors")
+    staged = torch.zeros(1, dtype=torch.int32, device=queries.device)
+    out = _launch(coords, values, queries, staged.data_ptr())
+    return out, int(staged.item())
 
 
 coo_gather.launches = 0

@@ -266,15 +266,12 @@ bitmap_matmul_kernel(const uint32_t* __restrict__ words,
 template <typename TV, typename TX, bool kVec>
 cudaError_t launch(const void* words, const void* rowptr, const void* values,
                    int nvalues, int rows, int nwords, int cols, int segments,
-                   int seg_words, const void* x, int n, void* y,
+                   int seg_words, int smem, const void* x, int n, void* y,
                    cudaStream_t stream) {
   auto kernel = bitmap_matmul_kernel<TV, TX, kVec>;
-  const size_t smem =
-      static_cast<size_t>(n) * (segments + 1) * sizeof(float);
   if (smem > 16 * 1024) {                    // 48 KB with the static, or near
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t lc = {};
@@ -299,46 +296,52 @@ cudaError_t launch(const void* words, const void* rowptr, const void* values,
 template <typename TV, typename TX>
 cudaError_t launch_vec(int vec, const void* words, const void* rowptr,
                        const void* values, int nvalues, int rows, int nwords,
-                       int cols, int segments, int seg_words, const void* x,
-                       int n, void* y, cudaStream_t s) {
+                       int cols, int segments, int seg_words, int smem,
+                       const void* x, int n, void* y, cudaStream_t s) {
   return vec ? launch<TV, TX, true>(words, rowptr, values, nvalues, rows,
-                                    nwords, cols, segments, seg_words, x, n,
-                                    y, s)
+                                    nwords, cols, segments, seg_words, smem,
+                                    x, n, y, s)
              : launch<TV, TX, false>(words, rowptr, values, nvalues, rows,
-                                     nwords, cols, segments, seg_words, x, n,
-                                     y, s);
+                                     nwords, cols, segments, seg_words, smem,
+                                     x, n, y, s);
 }
 
 }  // namespace
 
 // value_half / x_half: 0 for float32, 1 for float16. segments (1 to 8):
-// CTAs per row, one cluster; seg_words: words per segment, none empty.
-// vec: 1 where n % 8 == 0 and x is 16-byte aligned.
+// CTAs per row, one cluster; seg_words: words per segment, none empty;
+// smem: dynamic shared memory a CTA, at least (segments + 1) * n floats
+// (the wrapper's `matmul_plan` sets all three). vec: 1 where n % 8 == 0
+// and x is 16-byte aligned.
 extern "C" int bitmap_matmul_launch(const void* words, const void* rowptr,
                                     const void* values, int nvalues,
                                     int value_half, int rows, int nwords,
                                     int cols, int segments, int seg_words,
-                                    const void* x, int x_half, int n, int vec,
-                                    void* y, void* stream) {
+                                    int smem, const void* x, int x_half,
+                                    int n, int vec, void* y, void* stream) {
+  if (segments < 1 || segments > 8
+      || static_cast<long long>(smem)
+             < static_cast<long long>(n) * (segments + 1) * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (rows > 0 && n > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t err;
     if (value_half && x_half)
       err = launch_vec<__half, __half>(vec, words, rowptr, values, nvalues,
                                        rows, nwords, cols, segments,
-                                       seg_words, x, n, y, s);
+                                       seg_words, smem, x, n, y, s);
     else if (value_half)
       err = launch_vec<__half, float>(vec, words, rowptr, values, nvalues,
                                       rows, nwords, cols, segments, seg_words,
-                                      x, n, y, s);
+                                      smem, x, n, y, s);
     else if (x_half)
       err = launch_vec<float, __half>(vec, words, rowptr, values, nvalues,
                                       rows, nwords, cols, segments, seg_words,
-                                      x, n, y, s);
+                                      smem, x, n, y, s);
     else
       err = launch_vec<float, float>(vec, words, rowptr, values, nvalues,
                                      rows, nwords, cols, segments, seg_words,
-                                     x, n, y, s);
+                                     smem, x, n, y, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

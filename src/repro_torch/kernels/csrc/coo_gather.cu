@@ -19,15 +19,15 @@
 // coordinates. A block reduction gives the tile's least and largest
 // query; two warps find the window [lo, hi) of stream entries between
 // them with 32 pivots a step (about 4 coalesced steps instead of 17
-// dependent ones). When the window holds at most `capacity` entries, the
+// dependent ones). When the window holds at most kCapacity entries, the
 // CTA copies its coordinates and values into shared memory (cp.async) and
 // each query searches there in ceil(log2(hi - lo + 1)) steps, the
 // searches of a thread's queries in lockstep. A wider window (any query
 // order is allowed) is searched per query in device memory, within
-// [lo, hi), as the first design did. The capacity is kept small (the
-// wrapper's plan: 1,024 entries, 8 KB) so that resident CTAs leave most
-// of the SM's L1 to the stream, which the wide searches read; the
-// serving path's windows hold a few hundred entries. Every path computes
+// [lo, hi), as the first design did. The capacity is kept small (1,024
+// entries, 8 KB) so that resident CTAs leave most of the SM's L1 to the
+// stream, which the wide searches read; the serving path's windows hold
+// a few hundred entries. Every path computes
 // the exact lower bound of the query, so the result is bit-exact with the
 // reference: coordinates below lo are smaller than every query of the
 // tile and those from hi on larger, and pad entries (INT32_MAX) sort last.
@@ -40,6 +40,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 8;                      // queries per thread
 constexpr int kTile = kThreads * kPer;       // queries per CTA
+constexpr int kCapacity = 1024;              // window entries staged
 constexpr int kRow = kThreads * 4;           // a row of 16-byte vectors
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -116,10 +117,9 @@ __global__ void __launch_bounds__(kThreads)
 coo_gather_kernel(const int* __restrict__ coords,
                   const float* __restrict__ values, int n,
                   const int* __restrict__ queries, float* __restrict__ out,
-                  long long nq, int capacity, int vec) {
-  extern __shared__ int4 smem_raw[];
-  int* s_coords = reinterpret_cast<int*>(smem_raw);
-  float* s_values = reinterpret_cast<float*>(s_coords + capacity);
+                  long long nq, int vec, int* __restrict__ staged) {
+  __shared__ int s_coords[kCapacity];
+  __shared__ float s_values[kCapacity];
   __shared__ int s_min[kWarps], s_max[kWarps], s_win[2];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -180,8 +180,9 @@ coo_gather_kernel(const int* __restrict__ coords,
 
   float r[kPer];
   int idx[kPer];
-  if (m <= capacity) {
+  if (m <= kCapacity) {
     // staged: the window in shared memory
+    if (staged != nullptr && threadIdx.x == 0) atomicAdd(staged, 1);
     for (int i = threadIdx.x; i < m; i += kThreads) {
       cp_async4(s_coords + i, coords + lo + i);
       cp_async4(s_values + i, values + lo + i);
@@ -224,25 +225,23 @@ coo_gather_kernel(const int* __restrict__ coords,
 
 }  // namespace
 
-// capacity: window entries a CTA may stage (its dynamic shared memory is
-// capacity * 8 bytes); vec: 1 where queries and out are 16-byte aligned.
+// tile, capacity, blocks: the wrapper's plan (`coo_plan`), which must
+// agree with kTile and kCapacity and cover nq; vec: 1 where queries and
+// out are 16-byte aligned; staged: nullptr, or an int the kernel adds 1 to
+// for each tile it stages.
 extern "C" int coo_gather_launch(const void* coords, const void* values,
-                                 int n, int capacity, int vec,
+                                 int n, int tile, int capacity,
+                                 long long blocks, int vec,
                                  const void* queries, void* out, long long nq,
-                                 void* stream) {
-  if (nq > 0) {
-    const size_t smem = static_cast<size_t>(capacity) * 8;
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          coo_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    coo_gather_kernel<<<static_cast<unsigned>((nq + kTile - 1) / kTile),
-                        kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+                                 void* staged, void* stream) {
+  if (tile != kTile || capacity != kCapacity || blocks * kTile < nq
+      || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nq > 0)
+    coo_gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(coords), static_cast<const float*>(values), n,
-        static_cast<const int*>(queries), static_cast<float*>(out), nq,
-        capacity, vec);
-  }
+        static_cast<const int*>(queries), static_cast<float*>(out), nq, vec,
+        static_cast<int*>(staged));
   return static_cast<int>(cudaGetLastError());
 }

@@ -82,33 +82,37 @@ def test_coo_gather_kernel_is_bit_exact(cuda, size, nq, sparsity):
 
 
 def _assert_coo_exact(coords, values, q):
+    """Bit-exact against the plain version, and the kernel stages exactly
+    the tiles whose window `tile_windows` finds within the capacity.
+    Returns the kernel's count of staged tiles."""
     before = coo_gather.coo_gather.launches
-    got = coo_gather.coo_gather(coords, values, q)
-    torch.cuda.synchronize()
+    got, staged = coo_gather.coo_gather_staged(coords, values, q)
     assert coo_gather.coo_gather.launches == before + 1
     assert torch.equal(got, coo_gather.coo_gather_ref(coords, values, q))
+    win = coo_gather.tile_windows(coords, q)
+    assert staged == int((win <= coo_gather.CAPACITY).sum())
+    return staged
 
 
 @pytest.mark.parametrize("order", ["occupancy", "shuffled"])
 def test_coo_gather_kernel_on_occupancy_queries(cuda, monkeypatch, order):
     """Occupancy-order tiles span a narrow band of the stream and are
     staged in shared memory; a shuffled copy makes every tile wide."""
-    cap = coo_gather.coo_plan(0).capacity
+    cap = coo_gather.CAPACITY
     wide_streams = 0
     for call in occupancy_coo_calls(monkeypatch):
         coords, values, q = (t.to(cuda) for t in call)
         if order == "shuffled":
             g = torch.Generator(device="cpu").manual_seed(q.shape[0])
             q = q[torch.randperm(q.shape[0], generator=g).to(cuda)]
-        win = coo_gather.tile_windows(coords, q)
-        staged = float((win <= cap).double().mean())
+        staged = _assert_coo_exact(coords, values, q) / coo_gather.coo_plan(
+            q.shape[0]).blocks
         nnz = int((coords != tsparse.PAD_COORD).sum())
         if order == "occupancy":
             assert staged > 0.9, staged
         elif nnz > 1.5 * cap:
             assert staged == 0.0, staged
             wide_streams += 1
-        _assert_coo_exact(coords, values, q)
     assert order == "occupancy" or wide_streams > 0
 
 
@@ -129,7 +133,7 @@ def test_coo_gather_window_at_and_over_capacity(cuda, extra):
     """One tile whose window holds exactly the capacity (staged) and one
     whose window holds one entry more (searched in device memory)."""
     coords, values = _gapped_stream(cuda)
-    cap = coo_gather.coo_plan(0).capacity
+    cap = coo_gather.CAPACITY
     c = coords.cpu().numpy().astype(np.int64)
     a = 37
     lo_q, hi_q = int(c[a]), int(c[a + cap - 1 + extra])
@@ -138,7 +142,7 @@ def test_coo_gather_window_at_and_over_capacity(cuda, extra):
     q[:2] = lo_q, hi_q
     q = torch.from_numpy(q.astype(np.int32)).to(cuda)
     assert int(coo_gather.tile_windows(coords, q)[0]) == cap + extra
-    _assert_coo_exact(coords, values, q)
+    assert _assert_coo_exact(coords, values, q) == 1 - extra
 
 
 def test_coo_gather_below_the_stream_pad_region_and_empty_windows(cuda):

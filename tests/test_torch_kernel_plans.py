@@ -1,10 +1,12 @@
 """Host-side plans of the `bitmap_matmul` and `coo_gather` kernels, on the
 CPU: how `matmul_plan` splits a row's words into the segments of one
-cluster, what `coo_plan` asks of shared memory, and the per-tile windows
+cluster, what `coo_plan` asks of shared memory, that both mirror the
+kernels' constants, and the per-tile windows
 `tile_windows` reports for queries in occupancy-build order and shuffled.
 The kernels themselves run only on the card (tests/test_torch_cuda.py).
 """
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -79,22 +81,60 @@ def test_coo_plan_fits_shared_memory_and_tiles_the_queries():
     plan = coo_gather.coo_plan(4_194_304)
     assert plan.tile == coo_gather.THREADS * coo_gather.PER_THREAD == 2048
     assert plan.blocks == 2048 and plan.capacity == 1024
-    assert plan.smem_bytes == 8 * plan.capacity
-    # eight CTAs (an SM's 2,048 threads) leave over half of its 256 KB of
-    # L1 and shared memory to the stream that wide tiles search
-    assert 8 * (plan.smem_bytes + coo_gather.STATIC_SMEM_BYTES) <= 128 * 1024
-    assert coo_gather.coo_plan(10, capacity=4096).smem_bytes == 32768
+    # the staged window (an int32 coordinate and a float32 value an entry)
+    # and the reduction scratch are static shared memory: under a block's
+    # static limit of 48 KB, and eight CTAs (an SM's 2,048 threads) leave
+    # over half of its 256 KB of L1 and shared memory to the stream that
+    # wide tiles search
+    smem = 8 * plan.capacity + 4 * (2 * 8 + 2)
+    assert smem <= 48 * 1024 and 8 * smem <= 128 * 1024
     assert coo_gather.coo_plan(2049).blocks == 2
     assert coo_gather.coo_plan(0).blocks == 0
-
-
-def test_coo_plan_raises_past_the_shared_memory_limit():
-    most = (_build.MAX_SMEM_BYTES - coo_gather.STATIC_SMEM_BYTES) // 8
-    assert coo_gather.coo_plan(10, capacity=most).smem_bytes == 8 * most
-    with pytest.raises(ValueError, match="232448 bytes"):
-        coo_gather.coo_plan(10, capacity=most + 1)
     with pytest.raises(ValueError):
-        coo_gather.coo_plan(10, capacity=0)
+        coo_gather.coo_plan(-1)
+
+
+def test_coo_gather_staged_count_needs_the_kernel():
+    """The staged-tile count is read from the kernel, never modelled on
+    the CPU."""
+    coords = torch.tensor([1, 5, tsparse.PAD_COORD], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        coo_gather.coo_gather_staged(coords, torch.ones(3),
+                                     torch.tensor([5], dtype=torch.int32))
+
+
+def _cu_constants(name):
+    """The `constexpr int` values of a kernel source, in order, each
+    evaluated over the earlier ones."""
+    text = (_build.CSRC / name).read_text()
+    consts = {}
+    for key, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        consts[key] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+@pytest.mark.parametrize("source,key,mirror", [
+    ("coo_gather.cu", "kThreads", lambda: coo_gather.THREADS),
+    ("coo_gather.cu", "kPer", lambda: coo_gather.PER_THREAD),
+    ("coo_gather.cu", "kTile", lambda: coo_gather.TILE),
+    ("coo_gather.cu", "kCapacity", lambda: coo_gather.CAPACITY),
+    ("bitmap_matmul.cu", "kThreads", lambda: bitmap_decode.MATMUL_THREADS),
+    ("bitmap_matmul.cu", "kChunkWords",
+     lambda: bitmap_decode.MATMUL_THREADS),
+])
+def test_plan_constants_mirror_the_kernel_sources(source, key, mirror):
+    """The pure-Python plans size the launches with the kernels' own
+    constants: a change in a .cu file shows here, before any card run."""
+    assert _cu_constants(source)[key] == mirror()
+
+
+def test_matmul_static_shared_memory_fits_the_plans_room():
+    """The kernel's static arrays: the uint16 set-bit list of kChunkWords
+    words, two int counts and the 8-float partial sums of each warp."""
+    k = _cu_constants("bitmap_matmul.cu")
+    static = (k["kChunkWords"] * 32 * 2 + 2 * 4 * k["kWarps"]
+              + 4 * k["kWarps"] * k["kTileN"])
+    assert static <= bitmap_decode.MATMUL_STATIC_SMEM_BYTES
 
 
 @pytest.mark.parametrize("nq", [1, 5, 2048, 2049, 7000])
