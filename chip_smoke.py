@@ -37,8 +37,10 @@ line each:
            occupancy build's first and middle chunk and on a shuffled
            copy, each with the share of its query tiles whose stream
            window the kernel staged in shared memory, as the kernel
-           counts them; the bf16 flash
-           kernel with the count of HGMMA in its SASS),
+           counts them; each flash kernel
+           with the count of HGMMA in its SASS; the volume row with the
+           bytes each case read; the fp32 flash row with its CUDA-core and
+           3xTF32 bounds, and the SDPA backend its library call ran),
            its device time and the plain version's (CUDA events over a
            CUDA graph of repeated calls; `wall_ms`, over eager calls,
            includes the wrapper's host time; the fused row's `host_ms` is
@@ -70,6 +72,7 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 PEAK_16BIT_S = 989e12         # bf16 and fp16 tensor cores, dense
+PEAK_TF32_S = 495e12          # TF32 tensor cores, dense
 
 FUSED_TOL = 1e-4      # summation order differs (per-channel vs one matmul)
 PARITY_TOL = 1e-3     # image: atomics order + kernel sums over 1024 steps
@@ -402,10 +405,33 @@ def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
     return bitmap, volume, flash
 
 
+def sdpa_backend(torch, q, k, v) -> dict:
+    """The SDPA backend that the default call runs on these inputs: each
+    backend alone (`torch.nn.attention.sdpa_kernel`), the ones that run,
+    and the one whose output equals the default call's bit for bit."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    default = sdpa(q, k, v, is_causal=True)
+    runs, same = [], []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                out = sdpa(q, k, v, is_causal=True)
+        except RuntimeError:
+            continue
+        runs.append(b.name)
+        if torch.equal(out, default):
+            same.append(b.name)
+        del out
+    return {"library_backend": same[0] if len(same) == 1 else
+            (same or "not identified"), "library_backends_that_run": runs}
+
+
 def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
     """One {"kernels"} row per kernel of the kernel_ops phase: the first
     dtype in the row, the other under "cases". `hgmma`: HGMMA lines in the
-    SASS of the bf16 flash kernel."""
+    SASS of each flash kernel, by dtype."""
     bitmap_decode, volume_render, flash_attention = mods
     bitmap, volume, flash = inputs
     rows = []
@@ -484,6 +510,9 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
         v_bytes = nproc * 16 + R * 16
         v_ops = nproc * 20
         b_ms, b_by = bound(v_bytes, v_ops)
+        tau = sigma * delta
+        alive = (torch.exp(-(torch.cumsum(tau, dim=-1) - tau)) > eps).sum(-1)
+        vec = volume_render.vector_loads(sigma, rgb)
         cases.append({
             "case": case, "max_abs_err": ea, "max_rel_err": er,
             "tol": VR_TOL, "nproc": nproc, "nproc_plain": float(want[2]),
@@ -494,9 +523,12 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
                                                         eps)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "full_read_bytes": R * N * 16 + R * 16,
+            "read_bytes": volume_render.read_bytes(alive, N, vec),
+            "vector_loads": vec,
             "shape": {"R": R, "N": N, "delta": delta, "term_eps": eps,
                       "terminated_rays": terminated},
             "bytes": v_bytes, "ops": v_ops})
+        cases[-1]["share_of_bound"] = b_ms / cases[-1]["ms"]
     rows.append({"name": "volume_render", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/volume_render.cu",
                  "replaces": "src/repro/kernels/volume_render.py:56",
@@ -519,6 +551,16 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
         f_bytes = 4 * nbytes(q)
         peak = PEAK_FP32_S if dt == "float32" else PEAK_16BIT_S
         b_ms, b_by = bound(f_bytes, f_ops, peak)
+        bounds = {}
+        if dt == "float32":
+            # fp32's precision costs three TF32 products on the tensor
+            # cores, the route the kernel takes, or one fp32 FMA each on
+            # the CUDA cores: the lesser time bounds it
+            tc_ms, tc_by = bound(f_bytes, 3 * f_ops, PEAK_TF32_S)
+            bounds = {"bound_cuda_cores_ms": b_ms, "bound_3xtf32_ms": tc_ms,
+                      "bound_used": "3xtf32: 3 x ops at 495 TFLOP/s (TF32 "
+                                    "tensor cores)"}
+            b_ms, b_by, peak = tc_ms, tc_by, PEAK_TF32_S / 3
         cases.append({
             "dtype": dt, "max_abs_err": ea, "max_rel_err": er,
             "tol": atol, "rtol": rtol, "max_err_over_limit": frac,
@@ -527,15 +569,16 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
                 lambda: flash_attention.flash_attention_ref(q, k, v,
                                                             causal=True),
                 plain_iters=3),
-            "bound_ms": b_ms, "bound_by": b_by, "peak_ops_s": peak,
+            "bound_ms": b_ms, "bound_by": b_by, "peak_ops_s": peak, **bounds,
             "library_ms": time_ms(torch, lambda: sdpa(q, k, v,
                                                       is_causal=True), 50)[0],
+            **sdpa_backend(torch, q, k, v),
             "shape": {"B": B, "H": H, "S": S, "D": D,
                       "kv_heads": FLASH_SHAPE["kv_heads"], "causal": True},
             "bytes": f_bytes, "ops": f_ops})
-        if dt == "bfloat16":
-            cases[-1].update({"sass_hgmma": hgmma > 0,
-                              "sass_hgmma_lines": hgmma})
+        cases[-1].update({"share_of_bound": b_ms / cases[-1]["ms"],
+                          "sass_hgmma": hgmma[dt] > 0,
+                          "sass_hgmma_lines": hgmma[dt]})
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                  "replaces": "src/repro/kernels/flash_attention.py:64",
@@ -702,11 +745,15 @@ def main() -> int:
     lib = _build.build()
     _build.library()
     log = _build.build_log()
-    hgmma = sass_count(lib, _build.find_nvcc(), "flash_bf16_kernel",
-                       "HGMMA")
-    check(hgmma > 0, "no HGMMA in the SASS of flash_bf16_kernel")
+    hgmma = {dt: sass_count(lib, _build.find_nvcc(), f"flash_{name}_kernel",
+                            "HGMMA")
+             for dt, name in (("bfloat16", "bf16"), ("float32", "f32"))}
+    for dt, n in hgmma.items():
+        check(n > 0, f"no HGMMA in the SASS of the {dt} flash kernel")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib.relative_to(ROOT)), "flash_bf16_hgmma": hgmma,
+          "library": str(lib.relative_to(ROOT)),
+          "flash_bf16_hgmma": hgmma["bfloat16"],
+          "flash_f32_hgmma": hgmma["float32"],
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
 

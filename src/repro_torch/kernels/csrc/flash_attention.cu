@@ -12,21 +12,31 @@
 //
 // Bound on Hopper: operations. 4 * Sq * Sk * D flops per head (half of
 // that when causal) against 4 * S * D values read or written; at S = 4096,
-// D = 64 that is about 500 flops per byte: 1.03 ms at the fp32 peak, 0.069
-// ms at the bf16 tensor-core peak (B 1, H 32, causal).
+// D = 64 that is about 500 flops per byte (B 1, H 32, causal: 68.7 GFLOP).
+// fp32 at fp32's precision: 1.03 ms on the CUDA cores (67 TFLOP/s), or
+// 0.417 ms as three TF32 products on the tensor cores (3 x 68.7 GFLOP at
+// 495 TFLOP/s), the route this kernel takes; bf16: 0.069 ms at 989 TFLOP/s.
 //
 // Both kernels: the kv axis is a loop inside the CTA, so (m, l, acc) live
 // in registers for the whole row block; D is padded with zeros to DP = 64
 // or 128 in shared memory; causal kv tiles above the diagonal are skipped,
 // and the q blocks with the most tiles start first.
 //
-// float32 (flash_attention_kernel): fp32 FMAs on the CUDA cores (TF32
-// would not hold the fp32 tolerance). One CTA of 256 threads per (64-row
-// q block, b*h); Q, K and V tiles in shared memory as fp32 (Q and K
-// transposed, d-major, so a thread reads four rows or four keys as one
-// float4). Thread (ty, tx) of a 16 x 16 grid owns a 4 x 4 block of scores
-// and, for P V, rows 4ty.. by columns 64h + 4tx..; the row max and sum are
-// shuffles across the 16 tx lanes, and P goes through shared memory.
+// float32 (flash_f32_kernel): both products on the tensor cores as 3xTF32
+// wgmma (m64nNk8, fp32 accumulate): each operand is split into a TF32 hi
+// part (cut by truncation) and lo = x - hi, and hi*hi + hi*lo + lo*hi
+// keeps about fp32's precision (one TF32 product is off by up to 2^-11 of
+// each term, far above the 1e-4 tolerance). Two warpgroups per CTA, 64 q
+// rows each; Q is split once into hi and lo tiles in shared memory. K and
+// V tiles (64 keys at DP 64, 32 at DP 128) arrive raw by TMA into a ring
+// (two stages at DP 64, one at DP 128; cp.async where D * 4 bytes is not
+// a multiple of 16 or a pointer is off 16 bytes). Since tf32 wgmma reads
+// only K-major operands, the threads split K into hi and lo tiles and
+// transpose V into hi and lo tiles of V^T; at DP 64 they do so for tile
+// kt + 1, into the second of two V^T buffers, while tile kt's P V wgmmas
+// run. P stays in registers as the A operand of O += P V: its k8 fragment
+// takes the accumulator's columns (2c, 2c + 1) as positions (c, c + 4),
+// and V^T is written with its keys permuted to match.
 //
 // bfloat16 (flash_bf16_kernel): both products on the tensor cores with
 // wgmma (m64nNk16, fp32 accumulate). Two warpgroups per CTA, 64 q rows
@@ -53,198 +63,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;                      // q rows per CTA
-constexpr int kBK = 64;                      // keys per kv tile
-constexpr int kThreads = 256;
-constexpr int kStride = kBQ + 4;             // padded row of Qt, Kt and P
 constexpr float kNegInf = -1e30f;            // the reference's mask value
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ float group16_max(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-__device__ __forceinline__ float group16_sum(float v) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float component(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-template <int DP>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (2 * DP * kStride + kBK * DP + kBQ * kStride);
-}
-
-template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int Sq,
-                       int Sk, int D, float scale, int causal) {
-  constexpr int kCols = DP / 16;             // output columns per thread
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);   // (DP, kStride) d-major
-  float* Kt = Qt + DP * kStride;                 // (DP, kStride) d-major
-  float* Vs = Kt + DP * kStride;                 // (kBK, DP)
-  float* Ps = Vs + kBK * DP;                     // (kBQ, kStride)
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const long long bh = blockIdx.y;
-  const T* qh = q + bh * Sq * D;
-  const T* kh = k + bh * Sk * D;
-  const T* vh = v + bh * Sk * D;
-
-  for (int e = tid; e < kBQ * DP; e += kThreads) {
-    const int row = e / DP, d = e % DP;
-    Qt[d * kStride + row] = (q0 + row < Sq && d < D)
-        ? to_f32(qh[static_cast<long long>(q0 + row) * D + d]) : 0.0f;
-  }
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
-  }
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();                         // the last tile's readers
-    for (int e = tid; e < kBK * DP; e += kThreads) {
-      const int row = e / DP, d = e % DP;
-      const bool ok = k0 + row < Sk && d < D;
-      const long long off = static_cast<long long>(k0 + row) * D + d;
-      Kt[d * kStride + row] = ok ? to_f32(kh[off]) : 0.0f;
-      Vs[row * DP + d] = ok ? to_f32(vh[off]) : 0.0f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(Qt + d * kStride + 4 * ty);
-      const float4 b = *reinterpret_cast<const float4*>(Kt + d * kStride + 4 * tx);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float ar = component(a, r);
-        s[r][0] += ar * b.x;
-        s[r][1] += ar * b.y;
-        s[r][2] += ar * b.z;
-        s[r][3] += ar * b.w;
-      }
-    }
-
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int qi = q0 + 4 * ty + r;
-      float tile_max = -CUDART_INF_F;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int kj = k0 + 4 * tx + c;
-        float x = s[r][c] * scale;
-        if (kj >= Sk) x = -CUDART_INF_F;     // past the keys: weight 0
-        else if (causal && kj > qi) x = kNegInf;
-        s[r][c] = x;
-        tile_max = fmaxf(tile_max, x);
-      }
-      const float m_new = fmaxf(m[r], group16_max(tile_max));
-      const float corr = expf(m[r] - m_new);
-      float row_sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[r][c] = expf(s[r][c] - m_new);
-        row_sum += s[r][c];
-      }
-      l[r] = l[r] * corr + group16_sum(row_sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[r][c] *= corr;
-      *reinterpret_cast<float4*>(Ps + (4 * ty + r) * kStride + 4 * tx) =
-          make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < kBK; j += 4) {
-      float4 p[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        p[r] = *reinterpret_cast<const float4*>(Ps + (4 * ty + r) * kStride + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = Vs + (j + jj) * DP;
-#pragma unroll
-        for (int h = 0; h < DP / 64; ++h) {
-          const float4 w = *reinterpret_cast<const float4*>(vrow + 64 * h + 4 * tx);
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float pr = component(p[r], jj);
-            acc[r][4 * h] += pr * w.x;
-            acc[r][4 * h + 1] += pr * w.y;
-            acc[r][4 * h + 2] += pr * w.z;
-            acc[r][4 * h + 3] += pr * w.w;
-          }
-        }
-      }
-    }
-  }
-
-  T* oh = o + bh * Sq * D;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int qi = q0 + 4 * ty + r;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int h = 0; h < DP / 64; ++h)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = 64 * h + 4 * tx + c;
-        if (col < D)
-          store(oh + static_cast<long long>(qi) * D + col,
-                acc[r][4 * h + c] / denom);
-      }
-  }
-}
-
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int BH,
-           int Sq, int Sk, int D, float scale, int causal,
-           cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP>();
-  // the limit holds per device: raise it on every launch, whichever
-  // device is current
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kBQ - 1) / kBQ, BH);
-  flash_attention_kernel<T, DP><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, D, scale,
-      causal);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // wgmma with every accumulator register named (generated: m64nNk16,
 // bf16 in, fp32 accumulate; ss = both operands from shared memory, rs =
@@ -792,6 +612,553 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int BH,
   return launch_bf16_as<DP, false>(tq, tq, tq, a, BH, stream);
 }
 
+// ---------------------------------------------------------------- fp32 ---
+// 3xTF32 wgmma on the tensor cores: each operand x is split into hi (x cut
+// to TF32's 10 mantissa bits) and lo = x - hi, and a product is hi*hi +
+// hi*lo + lo*hi in fp32 accumulation, about fp32's precision (the dropped
+// lo*lo and lo's own truncation leave an error near 2^-21 of each term).
+// TF32 wgmma takes only K-major operands from shared memory, so the V tile
+// is transposed there by the threads.
+
+constexpr int kF32BQ = 128;                  // q rows per CTA: 64 per warpgroup
+constexpr int kF32Threads = 256;             // two consumer warpgroups
+constexpr int kF32BK64 = 64;                 // keys per kv tile at DP = 64
+constexpr int kF32BK128 = 32;                // keys per kv tile at DP = 128
+constexpr int kF32Raw64 = 2;                 // raw K/V stages at DP = 64
+constexpr int kF32Raw128 = 1;                // raw K/V stages at DP = 128
+constexpr int kF32Vt64 = 2;                  // V^T work buffers at DP = 64
+constexpr int kF32Vt128 = 1;                 // V^T work buffers at DP = 128
+constexpr int kF32Bars = 64;                 // bytes for the stages' mbarriers
+
+template <int DP>
+__host__ __device__ constexpr int f32_bk() {
+  return DP == 64 ? kF32BK64 : kF32BK128;
+}
+template <int DP>
+__host__ __device__ constexpr int f32_raw() {
+  return DP == 64 ? kF32Raw64 : kF32Raw128;
+}
+template <int DP>
+__host__ __device__ constexpr int f32_vt() {
+  return DP == 64 ? kF32Vt64 : kF32Vt128;
+}
+template <int DP>
+__host__ __device__ constexpr int f32_smem_bytes() {
+  // Q hi + lo, the work tiles (K hi + lo, each V^T buffer hi + lo), the
+  // raw K/V ring, the mbarriers, and room to align to 1024
+  return 2 * kF32BQ * DP * 4 + (2 + 2 * f32_vt<DP>()) * f32_bk<DP>() * DP * 4 +
+         f32_raw<DP>() * 2 * f32_bk<DP>() * DP * 4 + kF32Bars + 1024;
+}
+
+// rows x DP fp32 tile in shared memory: DP / 32 panels of rows x 128 bytes,
+// each 16-byte chunk of a row at chunk ^ (row % 8) (TMA's SWIZZLE_128B, the
+// layout wgmma's 128-byte-swizzle descriptors read)
+__device__ __forceinline__ uint32_t swizzled32(int row, int col, int rows) {
+  return static_cast<uint32_t>((col >> 5) * rows * 128 + row * 128 +
+                               ((((col & 31) >> 2) ^ (row & 7)) << 4) +
+                               (col & 3) * 4);
+}
+
+__device__ __forceinline__ float tf32_hi(float x) {
+  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+// keeps A fragments in their registers up to this point (an async wgmma
+// reads them until its wait)
+template <int J>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[J][4]) {
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(f[j][r])::"memory");
+}
+
+// wgmma with every accumulator register named (generated: m64nNk8, tf32
+// in, fp32 accumulate; ss = both operands from shared memory, rs = A from
+// registers; both K-major, the only layout tf32 takes)
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+    const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+template <int N>
+__device__ __forceinline__ void f32_qk(float (&s)[N / 2], uint64_t da,
+                                       uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void f32_qk<64>(float (&s)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  wgmma_tf32_ss_n64(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void f32_qk<32>(float (&s)[16], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  wgmma_tf32_ss_n32(s, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void f32_pv(float (&o)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void f32_pv<64>(float (&o)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  wgmma_tf32_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void f32_pv<128>(float (&o)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  wgmma_tf32_rs_n128(o, a, db);
+}
+
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  int Sq, Sk, D, causal;
+  float scale_log2;                          // scale * log2(e)
+};
+
+// The raw K or V tile of keys row0.. by threads, for rows TMA cannot take
+// (D * 4 bytes not a multiple of 16, or a pointer off 16 bytes): 4-byte
+// cp.async with zero fill past Sk, into TMA's swizzled layout. Columns at
+// or past D are left as they are: the split never reads them.
+template <int DP>
+__device__ __forceinline__ void f32_thread_tile(uint8_t* dst, const float* src,
+                                                int row0, int S, int D,
+                                                int rows, int tid) {
+  for (int e = tid; e < rows * DP; e += kF32Threads) {
+    const int row = e / DP, col = e % DP;
+    if (col >= D) continue;
+    const bool ok = row0 + row < S;
+    const float* at = ok ? src + static_cast<long long>(row0 + row) * D + col
+                         : src;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_u32(dst + swizzled32(row, col, rows))),
+                 "l"(at), "r"(ok ? 4 : 0) : "memory");
+  }
+}
+
+// Thread t of warpgroup wg holds, of each 64-row accumulator, rows
+// r0 = 16 * (t / 32) + (t % 32) / 4 and r0 + 8, columns 8 j + 2 (t % 4) +
+// {0, 1} (register 4 j + {0, 1} on row r0, 4 j + {2, 3} on row r0 + 8).
+// The tf32 A fragment of a k8 step holds (r0, c), (r0 + 8, c), (r0, c + 4),
+// (r0 + 8, c + 4) for c = t % 4: the same rows, other columns. So P stays
+// in registers, its keys permuted within each group of 8 (position c holds
+// key 2 c, position c + 4 key 2 c + 1), and V^T is written with the same
+// permutation when it is transposed, which leaves the sum over keys as it
+// was.
+template <int DP, bool kTma>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, F32Args a) {
+  constexpr int BK = f32_bk<DP>();
+  constexpr int NR = f32_raw<DP>();
+  constexpr int NV = f32_vt<DP>();
+  constexpr int NS = BK / 2;                 // S registers per thread
+  constexpr int NO = DP / 2;                 // O registers per thread
+  constexpr int kTile = BK * DP * 4;         // one K or V tile, bytes
+  constexpr int kQTile = kF32BQ * DP * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const Qhi = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* const Qlo = Qhi + kQTile;
+  uint8_t* const Khi = Qlo + kQTile;         // (BK, DP) K-major
+  uint8_t* const Klo = Khi + kTile;
+  uint8_t* const Vt = Klo + kTile;           // NV x (hi, lo) (DP, BK) V^T
+  uint8_t* const ring = Vt + NV * 2 * kTile; // raw stage: K, then V
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(ring + NR * 2 * kTile);
+  const uint32_t full0 = smem_u32(bars);
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7, t = tid & 127;
+  const int lane = t & 31;
+  // heads along x, q blocks along y from the last (most causal tiles) to
+  // the first: every head's heaviest blocks start first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32BQ;
+  const int bh = blockIdx.x;
+  const long long qoff = static_cast<long long>(bh) * a.Sq * a.D;
+  const long long koff = static_cast<long long>(bh) * a.Sk * a.D;
+  int n_tiles = (a.Sk + BK - 1) / BK;
+  if (a.causal) n_tiles = min(n_tiles, (q0 + kF32BQ - 1) / BK + 1);
+  const int panels = (a.D + 31) >> 5;        // 32-column panels holding D
+
+  // raw K and V of tile kt into its stage: TMA by one thread on the
+  // stage's mbarrier (only the panels that hold columns of D), or by all
+  // threads with cp.async (one commit group a tile, empty past the last)
+  auto load_raw = [&](int kt) {
+    uint8_t* Kr = ring + (kt % NR) * 2 * kTile;
+    if constexpr (kTma) {
+      if (tid == 0 && kt < n_tiles) {
+        const uint32_t bar = full0 + 8 * (kt % NR);
+        mbar_expect_tx(bar, 2 * panels * BK * 128);
+        for (int p = 0; p < panels; ++p) {
+          tma_load(smem_u32(Kr + p * BK * 128), &tk, bar, 32 * p, kt * BK,
+                   bh);
+          tma_load(smem_u32(Kr + kTile + p * BK * 128), &tv, bar, 32 * p,
+                   kt * BK, bh);
+        }
+      }
+    } else {
+      if (kt < n_tiles) {
+        f32_thread_tile<DP>(Kr, a.k + koff, kt * BK, a.Sk, a.D, BK, tid);
+        f32_thread_tile<DP>(Kr + kTile, a.v + koff, kt * BK, a.Sk, a.D, BK,
+                            tid);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    }
+  };
+  auto wait_raw = [&](int kt) {
+    if constexpr (kTma) {
+      mbar_wait(full0 + 8 * (kt % NR), (kt / NR) & 1);
+    } else {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(NR - 1) : "memory");
+    }
+  };
+
+  // the raw tile kt into the work tiles: K split in place of layout (the
+  // raw and work tiles share it), V transposed into V^T buffer kt % NV;
+  // both zero at and past D. The caller makes the raw tile visible first.
+  // Straight-line code (fixed trip counts, selects): it runs while P V
+  // wgmmas are in flight, which ptxas keeps asynchronous only outside
+  // divergent paths.
+  static_assert(kTile / 16 % kF32Threads == 0, "whole K chunks a thread");
+  static_assert(DP * BK / 4 % kF32Threads == 0, "whole V^T tasks a thread");
+  auto split = [&](int kt) {
+    const uint8_t* Kr = ring + (kt % NR) * 2 * kTile;
+    const uint8_t* Vr = Kr + kTile;
+#pragma unroll 1   // ptxas (CUDA 12.8) crashes on the unrolled loops
+    for (int i = 0; i < kTile / 16 / kF32Threads; ++i) {
+      const int c = tid + i * kF32Threads;
+      const int row = (c >> 3) % BK;
+      const int col = ((c / (BK * 8)) << 5) + (((c & 7) ^ (row & 7)) << 2);
+      float4 x = *reinterpret_cast<const float4*>(Kr + 16 * c);
+      x.x = col < a.D ? x.x : 0.0f;
+      x.y = col + 1 < a.D ? x.y : 0.0f;
+      x.z = col + 2 < a.D ? x.z : 0.0f;
+      x.w = col + 3 < a.D ? x.w : 0.0f;
+      const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z),
+                                   tf32_hi(x.w));
+      *reinterpret_cast<float4*>(Khi + 16 * c) = h;
+      *reinterpret_cast<float4*>(Klo + 16 * c) =
+          make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
+    }
+    // V^T: position 8 j + 4 half + i holds key 8 j + 2 i + half; a lane
+    // per column d (a warp reads one 128-byte row of the raw tile, and its
+    // 16-byte stores fall on 8 distinct chunks of each 8-row group). Task
+    // n of a thread is column d = tid % DP of position block pb = tid / DP
+    // + n * kF32Threads / DP, so d, half = pb % 2 and the swizzled chunk
+    // of each of its 4 keys (row % 8 = half + 2 i) stay fixed: only the
+    // key group j moves.
+    static_assert(kF32Threads % DP == 0 && kF32Threads / DP % 2 == 0,
+                  "a thread keeps its column and half");
+    uint8_t* const Vhi = Vt + (kt % NV) * 2 * kTile;
+    uint8_t* const Vlo = Vhi + kTile;
+    const int d = tid % DP, half = (tid / DP) & 1;
+    const bool d_in = d < a.D;
+    const uint8_t* const vsrc = Vr + (d >> 5) * BK * 128 + (d & 3) * 4 +
+                                half * 128;
+    uint32_t chunk[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      chunk[i] = 2 * i * 128 + ((((d & 31) >> 2) ^ (half + 2 * i)) << 4);
+#pragma unroll 1
+    for (int n = 0; n < DP * BK / 4 / kF32Threads; ++n) {
+      const int pb = tid / DP + n * (kF32Threads / DP);
+      const uint8_t* const src = vsrc + (pb >> 1) * 8 * 128;
+      float x[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = *reinterpret_cast<const float*>(src + chunk[i]);
+        x[i] = d_in ? x[i] : 0.0f;
+      }
+      const float4 h = make_float4(tf32_hi(x[0]), tf32_hi(x[1]),
+                                   tf32_hi(x[2]), tf32_hi(x[3]));
+      const uint32_t at = (pb >> 3) * DP * 128 + d * 128 +
+                          (((pb & 7) ^ (d & 7)) << 4);
+      *reinterpret_cast<float4*>(Vhi + at) = h;
+      *reinterpret_cast<float4*>(Vlo + at) = make_float4(
+          x[0] - h.x, x[1] - h.y, x[2] - h.z, x[3] - h.w);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  if constexpr (kTma) {
+    if (tid == 0) {
+      for (int i = 0; i < NR; ++i) mbar_init(smem_u32(bars + i), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();                         // the barriers are set up
+  }
+  for (int kt = 0; kt < NR; ++kt) load_raw(kt);
+  // Q by the threads, split into hi and lo, zero past Sq and D
+  for (int e = tid; e < kF32BQ * DP; e += kF32Threads) {
+    const int row = e / DP, col = e % DP;
+    const float x = (q0 + row < a.Sq && col < a.D)
+        ? __ldg(a.q + qoff + static_cast<long long>(q0 + row) * a.D + col)
+        : 0.0f;
+    const float hi = tf32_hi(x);
+    const uint32_t at = swizzled32(row, col, kF32BQ);
+    *reinterpret_cast<float*>(Qhi + at) = hi;
+    *reinterpret_cast<float*>(Qlo + at) = x - hi;
+  }
+  wait_raw(0);
+  __syncthreads();                           // raw tile 0 in, Q written
+  split(0);
+  __syncthreads();                           // work tiles of tile 0 written
+  load_raw(NR);
+
+  const int r0 = q0 + 64 * wg + 16 * (t >> 5) + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+  const uint32_t qhi_at = smem_u32(Qhi) + wg * 64 * 128;
+  const uint32_t qlo_at = smem_u32(Qlo) + wg * 64 * 128;
+  const uint32_t khi_at = smem_u32(Khi), klo_at = smem_u32(Klo);
+
+  // Tile kt's products run while the threads split tile kt + 1: with two
+  // V^T buffers (NV 2) the split runs under tile kt's P V wgmmas; with one
+  // it waits for them. A warpgroup also runs a tile wholly above its
+  // diagonal (its weights are 0), so that no wgmma sits on a divergent
+  // path.
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * BK;
+    const uint32_t vhi_at = smem_u32(Vt + (kt % NV) * 2 * kTile);
+    const uint32_t vlo_at = vhi_at + kTile;
+    if constexpr (NV == 2) {
+      if (kt + 1 < n_tiles) wait_raw(kt + 1);
+    }
+    uint32_t hi[BK / 8][4], lo[BK / 8][4];   // P, the A of the P V wgmmas
+    // S = Q K^T, 3xTF32: A = Q rows of this warpgroup, B = the K tile,
+    // both K-major; 8 d per step, 32 bytes along a swizzled row
+    float sc[NS];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const uint32_t qs = (kk >> 2) * kF32BQ * 128 + (kk & 3) * 32;
+      const uint32_t ks = (kk >> 2) * BK * 128 + (kk & 3) * 32;
+      const uint64_t kh = make_desc(khi_at + ks, 16, 1024);
+      const uint64_t kl = make_desc(klo_at + ks, 16, 1024);
+      f32_qk<BK>(sc, make_desc(qhi_at + qs, 16, 1024), kh, kk > 0);
+      f32_qk<BK>(sc, make_desc(qhi_at + qs, 16, 1024), kl, 1);
+      f32_qk<BK>(sc, make_desc(qlo_at + qs, 16, 1024), kh, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // online softmax in the log2 domain, on the accumulator fragment; a
+    // tile that crosses the diagonal or the last key is scaled and
+    // masked first, any other is scaled inside the exponent
+    const bool edge = k0 + BK > a.Sk ||
+                      (a.causal && k0 + BK - 1 > q0 + 64 * wg);
+    const float mul = edge ? 1.0f : a.scale_log2;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int col = k0 + 8 * (i >> 2) + c0 + (i & 1);
+        const int row = r0 + ((i & 2) ? 8 : 0);
+        float x = sc[i] * a.scale_log2;
+        if (col >= a.Sk) x = -CUDART_INF_F;  // past the keys: weight 0
+        else if (a.causal && col > row) x = kNegInf;
+        sc[i] = x;
+      }
+    }
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h] * mul);
+      corr[h] = fast_exp2(m[h] - m_new);
+      m[h] = m_new;
+      l[h] *= corr[h];
+    }
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int h = (i >> 1) & 1;
+      sc[i] = fast_exp2(fmaf(sc[i], mul, -m[h]));
+      l[h] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] *= corr[(i >> 1) & 1];
+
+    // O += P V, 3xTF32: A = P in registers (hi and lo), its k8 step j
+    // from registers 4 j + {0, 2, 1, 3}; B = the permuted V^T tile
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x = sc[4 * j + ((r & 1) << 1) + (r >> 1)];
+        const float h = tf32_hi(x);
+        hi[j][r] = __float_as_uint(h);
+        lo[j][r] = __float_as_uint(x - h);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+      const uint32_t vs = (j >> 2) * DP * 128 + (j & 3) * 32;
+      const uint64_t vh = make_desc(vhi_at + vs, 16, 1024);
+      f32_pv<DP>(o, hi[j], vh);
+      f32_pv<DP>(o, hi[j], make_desc(vlo_at + vs, 16, 1024));
+      f32_pv<DP>(o, lo[j], vh);
+    }
+    wgmma_commit();
+    if constexpr (NV == 1) {
+      wgmma_wait_all();
+      fence_regs(o);
+      if (kt + 1 < n_tiles) wait_raw(kt + 1);
+    }
+    __syncthreads();             // S of tile kt done (K free), P V of kt - 1
+                                 // done (its V^T free), raw tile kt + 1 in
+    split(kt + 1);               // past the last tile: into free buffers
+    if constexpr (NV == 2) {
+      wgmma_wait_all();
+      fence_regs(o);
+      fence_frags(hi);                       // A stays put until here
+      fence_frags(lo);
+    }
+    __syncthreads();             // tile kt + 1's work tiles written, its
+                                 // raw stage read
+    load_raw(kt + 1 + NR);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    inv[h] = 1.0f / fmaxf(l[h], 1e-30f);
+  }
+  float* oh = a.o + qoff;
+#pragma unroll
+  for (int i = 0; i < NO; i += 2) {
+    const int h = (i >> 1) & 1;
+    const int row = r0 + 8 * h, col = 8 * (i >> 2) + c0;
+    if (row >= a.Sq || col >= a.D) continue;
+    float* dst = oh + static_cast<long long>(row) * a.D + col;
+    const float x = o[i] * inv[h], y = o[i + 1] * inv[h];
+    if ((a.D & 1) == 0) {
+      *reinterpret_cast<float2*>(dst) = make_float2(x, y);
+    } else {
+      dst[0] = x;
+      if (col + 1 < a.D) dst[1] = y;
+    }
+  }
+}
+
+// (D, S, BH) fp32, boxes of 32 columns x rows, 128-byte swizzle, zero fill
+bool encode_map_f32(CUtensorMap* map, const void* ptr, int BH, int S, int D,
+                    int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(BH)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 4,
+                                 static_cast<cuuint64_t>(S) * D * 4};
+  const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, bool kTma>
+int launch_f32_as(const CUtensorMap& tk, const CUtensorMap& tv,
+                  const F32Args& a, int BH, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_kernel<DP, kTma>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(BH, (a.Sq + kF32BQ - 1) / kF32BQ);
+  flash_f32_kernel<DP, kTma><<<grid, kF32Threads, smem, stream>>>(tk, tv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DP>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int BH,
+               int Sq, int Sk, int D, float scale, int causal,
+               cudaStream_t stream) {
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o), Sq,
+                  Sk, D, causal, scale * kLog2e};
+  CUtensorMap tk, tv;
+  const auto aligned = [D](const void* p) {
+    return D % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (aligned(k) && aligned(v)) {
+    if (!encode_map_f32(&tk, k, BH, Sk, D, f32_bk<DP>()) ||
+        !encode_map_f32(&tv, v, BH, Sk, D, f32_bk<DP>()))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_f32_as<DP, true>(tk, tv, a, BH, stream);
+  }
+  memset(&tk, 0, sizeof(tk));
+  return launch_f32_as<DP, false>(tk, tk, a, BH, stream);
+}
+
 }  // namespace
 
 // bf16: 0 for float32, 1 for bfloat16. D <= 128; BH <= 65535.
@@ -807,8 +1174,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                      : launch_bf16<128>(q, k, v, o, BH, Sq, Sk, D, scale,
                                         causal, s);
     return D <= 64
-        ? launch<float, 64>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s)
-        : launch<float, 128>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
+        ? launch_f32<64>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s)
+        : launch_f32<128>(q, k, v, o, BH, Sq, Sk, D, scale, causal, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

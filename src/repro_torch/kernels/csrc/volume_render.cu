@@ -13,96 +13,312 @@
 // rgb) for about 20 flops; a ray writes 16 bytes. Samples behind the
 // termination point need not be read at all.
 //
-// Design: one warp per ray, walking 32-sample chunks front to back. Each
-// lane takes one sample of the chunk; a __shfl_up_sync inclusive scan of
-// the raw tau gives the transmittance before each sample (from the log T
-// carried across chunks), which decides `alive` exactly as the Pallas
-// kernel does; the masked tau is scanned again for the weights. The warp
-// stops as soon as its log T is at or below log(term_eps), so a ray reads
-// only the chunks up to its termination (the TPU kernel's block-level
-// skip, per ray). Neighbouring lanes read neighbouring samples
-// (coalesced). nproc is counted in integers: one 64-bit atomic per ray.
-// The scans sum in another order than the plain version's cumsum, so
-// color and t_final agree to a tolerance, not bit for bit.
+// Design: one warp per ray, walking segments of kSegment samples (256),
+// each lane a run of kRun (8) consecutive samples. The warp copies the
+// segment's sigma into a stage in shared memory (cp.async, 16 bytes a
+// lane, each instruction 512 contiguous bytes of the row); each lane takes
+// its run from there, and a serial scan over the run in registers and one
+// warp scan over the 32 run totals give the raw cumulative tau before
+// each sample, from the log T carried across segments. That decides
+// `alive` exactly as the Pallas kernel does (in the log domain: log T
+// before the sample above log(term_eps)). Only then does the warp copy
+// rgb, and only the segment's (N, 3) row up to its last alive sample, so a
+// ray that terminates reads no rgb behind that point and no sigma past
+// its segment; if the ray is still alive at the segment's end, the next
+// segment's sigma copy goes out with this rgb copy, so a ray of n
+// segments costs n + 1 memory round trips, and the weights are computed
+// while the copies fly. The warp stops once its log T is at or below
+// log(term_eps). Where N is not a multiple of 4 or a pointer is off 16
+// bytes the same runs are read by scalar loads straight from device
+// memory (`kVec` false). nproc is counted in integers, one 64-bit atomic
+// per block of kRaysPerBlock rays, and written as a float by the last
+// block to finish, so one launch is the whole call.
+// The scans sum in another order than the plain version's cumsum, so color
+// and t_final agree to a tolerance, not bit for bit.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kRaysPerBlock = 8;             // 8 warps of 32 lanes
+constexpr int kRaysPerBlock = 4;             // 4 warps of 32 lanes
+constexpr int kRun = 8;                      // consecutive samples a lane
+constexpr int kSegment = 32 * kRun;          // samples a warp takes at once
+// 8 blocks an SM (4.3 KB of stages a warp, at most 64 registers a
+// thread): 4,224 rays in flight on 132 SMs
+constexpr int kBlocksPerSm = 8;
+// a warp's stages, in 16-byte slots: the segment's sigma, and its rgb (3
+// floats a sample), each with one pad slot after every 8 or 24
+constexpr int kSigmaSlots = kSegment / 4 + kSegment / 4 / 8;
+constexpr int kRgbSlots = 3 * kSegment / 4 + 3 * kSegment / 4 / 24;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float warp_inclusive_sum(float v, int lane) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(kFull, v, off);
-    if (lane >= off) v += u;
-  }
-  return v;
+// Stage slots of the segment's g-th 16-byte vector. A lane reads its
+// run's vectors (2 of sigma at 2 lane + q, 6 of rgb at 6 lane + i), so
+// without padding 2 lanes of each 8 would share banks; one pad slot after
+// every 8 (sigma) or 24 (rgb) vectors gives the 8 lanes of a quarter-warp
+// 8 distinct groups of 4 banks.
+__device__ __forceinline__ int sigma_slot(int g) { return g + (g >> 3); }
+__device__ __forceinline__ int rgb_slot(int g) { return g + g / 24; }
+
+// 2^x by the SFU (MUFU.EX2, about 2 ulp; subnormal results flush to 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(kRaysPerBlock * 32)
+// one 16-byte cp.async, bypassing L1 (a stage is read once)
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every cp.async of the warp landed
+__device__ __forceinline__ void landed() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncwarp();
+}
+
+// vecs 16-byte vectors from src into the stage's slots, 512 contiguous
+// bytes an instruction
+template <int kMax, bool kRgb>
+__device__ __forceinline__ void copy_vectors(float4* stage, const float* src,
+                                             int vecs, int lane) {
+#pragma unroll
+  for (int i = 0; i < kMax / 32; ++i) {
+    const int g = 32 * i + lane;
+    if (g < vecs) copy16(stage + (kRgb ? rgb_slot(g) : sigma_slot(g)),
+                         src + 4 * g);
+  }
+}
+
+// The segment's transmittance, from tau (this lane's run, 0 past N) and
+// log T before the segment: lt[j] = log T before sample j (a serial scan
+// over the run, then a warp scan of the run totals), the alive bits
+// (log T before above log(term_eps)), and, returned, the warp's sum of the
+// alive samples' tau (the same on every lane).
+__device__ __forceinline__ float segment_scan(const float (&tau)[kRun],
+                                              float (&lt)[kRun],
+                                              unsigned int& alive,
+                                              float log_t, float log_eps,
+                                              int k0, int N, int lane) {
+  float run = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    lt[j] = run;
+    run += tau[j];
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += u;
+  }
+  float lane_before = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) lane_before = 0.0f;
+  alive = 0;
+  float kept = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kRun; ++j) {
+    lt[j] = log_t - (lane_before + lt[j]);
+    const bool on = k0 + j < N && lt[j] > log_eps;
+    alive |= static_cast<unsigned int>(on) << j;
+    kept += on ? tau[j] : 0.0f;
+  }
+  // the butterfly leaves the same sum on every lane: the loop tests stay
+  // uniform across the warp
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    kept += __shfl_xor_sync(kFull, kept, off);
+  return kept;
+}
+
+// each sample's weight T (1 - exp(-tau)), in place of its tau: T by the
+// SFU's exp2 (a relative error near 2^-22 of w), 1 - exp(-tau) as the
+// plain version computes it
+__device__ __forceinline__ void weights(float (&tau)[kRun],
+                                        const float (&lt)[kRun]) {
+#pragma unroll
+  for (int j = 0; j < kRun; ++j)
+    tau[j] = fast_exp2(lt[j] * kLog2e) * (1.0f - expf(-tau[j]));
+}
+
+// color += the alive samples' w rgb, this lane's run of a staged segment
+__device__ __forceinline__ void accumulate(const float4* stage,
+                                           const float (&w)[kRun],
+                                           unsigned int alive, int lane,
+                                           float& cr, float& cg, float& cb) {
+#pragma unroll
+  for (int q = 0; q < kRun / 4; ++q) {       // 4 samples: 3 vectors
+    if (((alive >> (4 * q)) & 15u) == 0) continue;
+    const int g = 3 * kRun / 4 * lane + 3 * q;
+    const float4 a = stage[rgb_slot(g)], b = stage[rgb_slot(g + 1)],
+                 c = stage[rgb_slot(g + 2)];
+    const float f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      if ((alive >> (4 * q + m)) & 1u) {
+        cr += w[4 * q + m] * f[3 * m];
+        cg += w[4 * q + m] * f[3 * m + 1];
+        cb += w[4 * q + m] * f[3 * m + 2];
+      }
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kRaysPerBlock * 32, kBlocksPerSm)
 volume_render_kernel(const float* __restrict__ sigma,
                      const float* __restrict__ rgb, int R, int N,
-                     float delta, float term_eps, float log_eps,
+                     float delta, float log_eps,
                      float* __restrict__ color, float* __restrict__ t_final,
-                     unsigned long long* __restrict__ nproc) {
-  const int lane = threadIdx.x & 31;
-  const int ray = blockIdx.x * kRaysPerBlock + (threadIdx.x >> 5);
-  if (ray >= R) return;                      // whole warp leaves together
-  const float* s_row = sigma + static_cast<long long>(ray) * N;
-  const float* c_row = rgb + static_cast<long long>(ray) * N * 3;
-  float log_t = 0.0f;                        // log T before the chunk
+                     float* __restrict__ nproc,
+                     unsigned long long* __restrict__ scratch) {
+  __shared__ float4 sig_stage[kRaysPerBlock][kSigmaSlots];
+  __shared__ float4 rgb_stage[kRaysPerBlock][kRgbSlots];
+  __shared__ unsigned int counts[kRaysPerBlock];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ray = blockIdx.x * kRaysPerBlock + warp;
+  float log_t = 0.0f;                        // log T before the segment
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  int alive_count = 0;
-  for (int base = 0; base < N && log_t > log_eps; base += 32) {
-    const int k = base + lane;
-    const bool valid = k < N;
-    const float tau_raw = valid ? __ldg(s_row + k) * delta : 0.0f;
-    const float cum_raw = warp_inclusive_sum(tau_raw, lane);
-    const bool alive = valid && expf(log_t - (cum_raw - tau_raw)) > term_eps;
-    const float tau = alive ? tau_raw : 0.0f;
-    const float cum = warp_inclusive_sum(tau, lane);
-    if (alive) {
-      const float w = expf(log_t - (cum - tau)) * (1.0f - expf(-tau));
-      cr += w * __ldg(c_row + 3 * k);
-      cg += w * __ldg(c_row + 3 * k + 1);
-      cb += w * __ldg(c_row + 3 * k + 2);
-      ++alive_count;
-    }
-    log_t -= __shfl_sync(kFull, cum, 31);
-  }
+  unsigned int alive_count = 0;
+  if (ray < R) {                             // the whole warp or none of it
+    const float* s_row = sigma + static_cast<long long>(ray) * N;
+    const float* c_row = rgb + static_cast<long long>(ray) * N * 3;
+    float tau[kRun], lt[kRun];
+    unsigned int alive;
+    if constexpr (kVec) {
+      // N % 4 == 0, so every run and segment is whole 16-byte vectors.
+      // Segment s's rgb copy and segment s + 1's sigma copy share one
+      // round trip: a ray of n segments takes n + 1
+      float4* const ss = sig_stage[warp];
+      float4* const cs = rgb_stage[warp];
+      copy_vectors<kSegment / 4, false>(ss, s_row, min(kSegment, N) >> 2,
+                                        lane);
+      commit();
+      for (int base = 0;; base += kSegment) {
+        const int k0 = base + lane * kRun;
+        landed();                            // sigma(base), rgb(base - 1)
+        if (base > 0) accumulate(cs, tau, alive, lane, cr, cg, cb);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    cr += __shfl_xor_sync(kFull, cr, off);
-    cg += __shfl_xor_sync(kFull, cg, off);
-    cb += __shfl_xor_sync(kFull, cb, off);
-    alive_count += __shfl_xor_sync(kFull, alive_count, off);
+        for (int q = 0; q < kRun / 4; ++q) {
+          const float4 v = ss[sigma_slot(kRun / 4 * lane + q)];
+          tau[4 * q] = k0 + 4 * q < N ? v.x * delta : 0.0f;
+          tau[4 * q + 1] = k0 + 4 * q < N ? v.y * delta : 0.0f;
+          tau[4 * q + 2] = k0 + 4 * q < N ? v.z * delta : 0.0f;
+          tau[4 * q + 3] = k0 + 4 * q < N ? v.w * delta : 0.0f;
+        }
+        __syncwarp();                        // both stages free
+        log_t -= segment_scan(tau, lt, alive, log_t, log_eps, k0, N, lane);
+        alive_count += __popc(alive);
+        const int next = base + kSegment;
+        const bool more = next < N && log_t > log_eps;
+        if (more)
+          copy_vectors<kSegment / 4, false>(
+              ss, s_row + next, min(kSegment, N - next) >> 2, lane);
+        // rgb up to the segment's last alive sample: 3 floats a sample
+        const int len = 32 - __clz(alive);
+        const int used = __reduce_max_sync(kFull, len ? lane * kRun + len : 0);
+        copy_vectors<3 * kSegment / 4, true>(cs, c_row + 3 * base,
+                                             (3 * used + 3) >> 2, lane);
+        commit();
+        weights(tau, lt);                    // while the copies fly
+        if (!more) {
+          landed();
+          accumulate(cs, tau, alive, lane, cr, cg, cb);
+          break;
+        }
+      }
+    } else {
+      // scalar loads straight from device memory, one segment at a time
+      for (int base = 0; base < N && log_t > log_eps; base += kSegment) {
+        const int k0 = base + lane * kRun;
+#pragma unroll
+        for (int j = 0; j < kRun; ++j)
+          tau[j] = k0 + j < N ? __ldg(s_row + k0 + j) * delta : 0.0f;
+        log_t -= segment_scan(tau, lt, alive, log_t, log_eps, k0, N, lane);
+        alive_count += __popc(alive);
+        weights(tau, lt);
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          if ((alive >> j) & 1u) {
+            const float* c = c_row + 3 * (k0 + j);
+            cr += tau[j] * __ldg(c);
+            cg += tau[j] * __ldg(c + 1);
+            cb += tau[j] * __ldg(c + 2);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      cr += __shfl_xor_sync(kFull, cr, off);
+      cg += __shfl_xor_sync(kFull, cg, off);
+      cb += __shfl_xor_sync(kFull, cb, off);
+      alive_count += __shfl_xor_sync(kFull, alive_count, off);
+    }
+    if (lane == 0) {
+      color[3 * ray] = cr;
+      color[3 * ray + 1] = cg;
+      color[3 * ray + 2] = cb;
+      t_final[ray] = expf(log_t);
+    }
   }
-  if (lane == 0) {
-    color[3 * ray] = cr;
-    color[3 * ray + 1] = cg;
-    color[3 * ray + 2] = cb;
-    t_final[ray] = expf(log_t);
-    if (alive_count > 0)
-      atomicAdd(nproc, static_cast<unsigned long long>(alive_count));
+  // nproc: each block adds its count to scratch[0] and takes a ticket
+  // from scratch[1]; the last block writes the float and leaves both at 0
+  if (lane == 0) counts[warp] = alive_count;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int i = 0; i < kRaysPerBlock; ++i) total += counts[i];
+    if (total > 0) atomicAdd(scratch, total);
+    __threadfence();
+    if (atomicAdd(scratch + 1, 1ull) == gridDim.x - 1) {
+      __threadfence();
+      *nproc = static_cast<float>(atomicExch(scratch, 0ull));
+      scratch[1] = 0;
+    }
   }
 }
 
 }  // namespace
 
-// nproc must be a zeroed uint64 on the device; it receives the count.
+// nproc: one float on the device, the count of alive samples. scratch: two
+// uint64, 0 before the launch and left at 0 by it (its last block resets
+// them), so launches that share them must not overlap. vec: 1 for the
+// 16-byte copies, which need N % 4 == 0 and both pointers 16-byte aligned
+// (an error otherwise), 0 for scalar loads.
 extern "C" int volume_render_launch(const void* sigma, const void* rgb, int R,
-                                    int N, float delta, float term_eps,
-                                    float log_eps, void* color, void* t_final,
-                                    void* nproc, void* stream) {
+                                    int N, float delta, float log_eps,
+                                    void* color, void* t_final, void* nproc,
+                                    void* scratch, int vec, void* stream) {
+  if (vec && (N % 4 != 0 || reinterpret_cast<uintptr_t>(sigma) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(rgb) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (R > 0) {
     const int blocks = (R + kRaysPerBlock - 1) / kRaysPerBlock;
-    volume_render_kernel<<<blocks, kRaysPerBlock * 32, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(sigma), static_cast<const float*>(rgb), R,
-        N, delta, term_eps, log_eps, static_cast<float*>(color),
-        static_cast<float*>(t_final),
-        static_cast<unsigned long long*>(nproc));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* sp = static_cast<const float*>(sigma);
+    const float* cp = static_cast<const float*>(rgb);
+    float* col = static_cast<float*>(color);
+    float* tf = static_cast<float*>(t_final);
+    float* np = static_cast<float*>(nproc);
+    unsigned long long* sc = static_cast<unsigned long long*>(scratch);
+    if (vec)
+      volume_render_kernel<true><<<blocks, kRaysPerBlock * 32, 0, s>>>(
+          sp, cp, R, N, delta, log_eps, col, tf, np, sc);
+    else
+      volume_render_kernel<false><<<blocks, kRaysPerBlock * 32, 0, s>>>(
+          sp, cp, R, N, delta, log_eps, col, tf, np, sc);
   }
   return static_cast<int>(cudaGetLastError());
 }

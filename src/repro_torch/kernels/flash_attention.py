@@ -9,11 +9,16 @@ agrees only when Sq == Sk). k and v carry q's head count; a model with
 grouped kv heads repeats them before the call.
 
 `flash_attention` launches the CUDA kernels (`csrc/flash_attention.cu`)
-on CUDA tensors, float32 on the CUDA cores and bfloat16 with wgmma on the
-tensor cores (P rounded to bfloat16 for the P V product), and runs the
+on CUDA tensors, both on the tensor cores with wgmma: float32 as three
+TF32 products (each operand split into a TF32 hi part and an fp32 lo
+rest, hi*hi + hi*lo + lo*hi, about fp32's precision), bfloat16 with P
+split into bfloat16 hi and lo parts for the P V product. It runs the
 plain PyTorch version `flash_attention_ref` on CPU tensors; anything else
-raises. `flash_attention.launches` counts
-kernel launches.
+raises. `flash_attention.launches` counts kernel launches.
+
+`F32_TILES` and `f32_smem_bytes` mirror the float32 kernel's tile sizes
+and shared memory (a CPU test holds them against the .cu constants and
+the card's 227 KB limit).
 """
 from __future__ import annotations
 
@@ -24,6 +29,22 @@ from repro_torch.kernels import _build
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128                 # csrc/flash_attention.cu pads D to 128
 DTYPES = (torch.float32, torch.bfloat16)
+
+# the float32 kernel: kF32BQ q rows a CTA (two warpgroups of 64), and per
+# padded head dim DP its keys per kv tile, raw K/V stages and V^T work
+# buffers (kF32BK64 / kF32Raw64 / kF32Vt64, and the same for 128)
+F32_BQ = 128
+F32_TILES = {64: (64, 2, 2), 128: (32, 1, 1)}
+F32_BARRIER_BYTES = 64     # kF32Bars
+
+
+def f32_smem_bytes(dp: int) -> int:
+    """Dynamic shared memory of the float32 kernel at padded head dim
+    `dp`: Q hi and lo, the K tile and each V^T buffer hi and lo, the raw
+    K/V ring, the mbarriers, and 1024 bytes to align the swizzled tiles."""
+    bk, stages, vt = F32_TILES[dp]
+    return (2 * F32_BQ * dp * 4 + (2 + 2 * vt) * bk * dp * 4
+            + stages * 2 * bk * dp * 4 + F32_BARRIER_BYTES + 1024)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

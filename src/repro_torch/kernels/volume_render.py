@@ -10,6 +10,14 @@ the ASIC actually processes.
 CUDA tensors and runs the plain PyTorch version `volume_render_ref` on
 CPU tensors; anything else raises. `volume_render.launches` counts kernel
 launches.
+
+The kernel gives a ray one warp and takes its samples in segments of
+`SEGMENT`, each lane a run of `RUN` consecutive samples: all of a
+segment's sigma first, then rgb only up to the segment's last alive
+sample. nproc comes out of the same launch: each block adds its count to
+a counter, and the last block to finish writes the total.
+`vector_loads` says whether the launch takes 16-byte loads; `read_bytes`
+counts the bytes that the kernel reads for given per-ray alive counts.
 """
 from __future__ import annotations
 
@@ -18,6 +26,11 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+
+# csrc/volume_render.cu's kRaysPerBlock, kRun and kSegment
+RAYS_PER_BLOCK = 4
+RUN = 8                       # consecutive samples a lane
+SEGMENT = 32 * RUN            # samples a warp takes at once
 
 
 def volume_render_ref(sigma: torch.Tensor, rgb: torch.Tensor, delta: float,
@@ -33,6 +46,44 @@ def volume_render_ref(sigma: torch.Tensor, rgb: torch.Tensor, delta: float,
     w = torch.exp(-(cum - tau)) * (1.0 - torch.exp(-tau))
     color = torch.einsum("rn,rnc->rc", w, rgb.to(torch.float32))
     return color, torch.exp(-cum[:, -1]), alive.to(torch.float32).sum()
+
+
+_SCRATCH = {}     # (device index, stream) -> the kernel's zeroed counters
+
+
+def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    """The launch's counters (the alive count and the blocks done): two
+    int64, zero before and after every launch (the kernel's last block
+    resets them), one pair per device and stream so that launches on other
+    streams never share them."""
+    key = (dev.index, stream)
+    t = _SCRATCH.get(key)
+    if t is None:
+        t = _SCRATCH[key] = torch.zeros((2,), dtype=torch.int64, device=dev)
+    return t
+
+
+def vector_loads(sigma: torch.Tensor, rgb: torch.Tensor) -> bool:
+    """True where the kernel reads sigma and rgb as 16-byte vectors: N a
+    multiple of 4 (every row then starts 16-byte aligned) and both
+    tensors' data 16-byte aligned. Otherwise it reads the same runs by
+    scalar loads."""
+    return (sigma.shape[-1] % 4 == 0 and sigma.data_ptr() % 16 == 0
+            and rgb.data_ptr() % 16 == 0)
+
+
+def read_bytes(alive: torch.Tensor, n: int, vec: bool = True) -> int:
+    """Bytes the kernel reads for rays with `alive` (R,) alive samples each
+    (a prefix of the ray, as for sigma >= 0) of `n`: sigma for every
+    segment the warp enters, rgb for each segment up to its last alive
+    sample (whole 16-byte vectors with `vec`), and nothing behind."""
+    a = alive.to(torch.int64).cpu()[:, None]
+    bases = torch.arange(0, n, SEGMENT)[None, :]
+    entered = (bases < a) | (bases == 0)   # alive at the segment's start
+    sigma_b = 4 * int((torch.clamp(n - bases, max=SEGMENT) * entered).sum())
+    floats = 3 * torch.clamp(a - bases, 0, SEGMENT)
+    rgb_f = 4 * ((floats + 3) // 4) if vec else floats
+    return sigma_b + 4 * int(rgb_f.sum())
 
 
 def volume_render(sigma: torch.Tensor, rgb: torch.Tensor, *, delta: float,
@@ -51,17 +102,21 @@ def volume_render(sigma: torch.Tensor, rgb: torch.Tensor, *, delta: float,
     dev = sigma.device
     color = torch.empty((R, 3), dtype=torch.float32, device=dev)
     t_final = torch.empty((R,), dtype=torch.float32, device=dev)
-    nproc = torch.zeros((), dtype=torch.int64, device=dev)
+    if R == 0:
+        return color, t_final, torch.zeros((), device=dev)
+    nproc = torch.empty((), dtype=torch.float32, device=dev)
     fn = _build.entry("volume_render_launch",
                       (_build.P, _build.P, _build.I32, _build.I32,
-                       _build.F32, _build.F32, _build.F32, _build.P,
-                       _build.P, _build.P, _build.P))
+                       _build.F32, _build.F32, _build.P, _build.P, _build.P,
+                       _build.P, _build.I32, _build.P))
+    stream = _build.stream_ptr(dev)
     code = fn(sigma.data_ptr(), rgb.data_ptr(), R, N, float(delta),
-              float(term_eps), math.log(term_eps), color.data_ptr(),
-              t_final.data_ptr(), nproc.data_ptr(), _build.stream_ptr(dev))
+              math.log(term_eps), color.data_ptr(), t_final.data_ptr(),
+              nproc.data_ptr(), _scratch(dev, stream).data_ptr(),
+              int(vector_loads(sigma, rgb)), stream)
     _build.check("volume_render", code)
     volume_render.launches += 1
-    return color, t_final, nproc.to(torch.float32)
+    return color, t_final, nproc
 
 
 volume_render.launches = 0

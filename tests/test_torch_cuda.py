@@ -600,6 +600,88 @@ def test_volume_render_kernel_opaque_wall(cuda):
                                atol=1e-4)
 
 
+def _assert_volume_matches_plain(sigma, rgb, delta=0.02, term_eps=1e-4,
+                                 rgb_plain=None):
+    before = tvr.volume_render.launches
+    color, t_final, nproc = tvr.volume_render(sigma, rgb, delta=delta,
+                                              term_eps=term_eps)
+    torch.cuda.synchronize()
+    assert tvr.volume_render.launches == before + 1
+    w_color, w_t, w_n = tvr.volume_render_ref(
+        sigma, rgb if rgb_plain is None else rgb_plain, delta, term_eps)
+    torch.testing.assert_close(color, w_color, rtol=0, atol=1e-5)
+    torch.testing.assert_close(t_final, w_t, rtol=0, atol=1e-5)
+    _assert_nproc_close(nproc, w_n, _t_before(sigma, delta), term_eps)
+    return color, t_final, nproc
+
+
+def _volume_inputs(device, r, n, scale, seed):
+    rng = np.random.RandomState(seed)
+    sigma = (np.abs(rng.randn(r, n)) * scale).astype(np.float32)
+    rgb = rng.rand(r, n, 3).astype(np.float32)
+    return torch.from_numpy(sigma).to(device), torch.from_numpy(rgb).to(device)
+
+
+@pytest.mark.parametrize("n", [1500, 3, 7, 1, 516])
+@pytest.mark.parametrize("scale", [0.05, 3.0])
+def test_volume_render_ragged_segments(cuda, n, scale):
+    """N over one 256-sample segment and off it (1500: six segments, the
+    last ragged; 516), and N off the 16-byte vector (3, 7, 1: scalar
+    loads). Scale 0.05 keeps most rays alive to the end of 1500 samples;
+    3.0 stops them in the first segment."""
+    sigma, rgb = _volume_inputs(cuda, 300, n, scale, n)
+    assert tvr.vector_loads(sigma, rgb) is (n % 4 == 0)
+    _assert_volume_matches_plain(sigma, rgb)
+
+
+@pytest.mark.parametrize("which", ["rgb", "sigma", "both"])
+def test_volume_render_off_16_bytes_takes_scalar_loads(cuda, which):
+    """rgb (or sigma) at a storage offset of one float: not 16-byte
+    aligned, so the launch reads both by scalar loads, with the same
+    result."""
+    sigma, rgb = _volume_inputs(cuda, 200, 512, 0.5, 17)
+    shifted = []
+    for name, t in (("sigma", sigma), ("rgb", rgb)):
+        if which in (name, "both"):
+            store = torch.empty(t.numel() + 1, device=cuda)
+            view = store[1:].view(t.shape)
+            view.copy_(t)
+            assert view.is_contiguous() and view.data_ptr() % 16 != 0
+            t = view
+        shifted.append(t)
+    assert not tvr.vector_loads(*shifted)
+    _assert_volume_matches_plain(*shifted)
+
+
+@pytest.mark.parametrize("n", [512, 1500, 7])
+def test_volume_render_every_ray_dead_from_sample_1(cuda, n):
+    """sigma 1e4 at sample 0: only sample 0 is alive on every ray; its
+    weight is 1 to fp32, so color is its rgb and T after it is 0."""
+    sigma, rgb = _volume_inputs(cuda, 100, n, 1.0, 3)
+    sigma[:, 0] = 1e4
+    color, t_final, nproc = _assert_volume_matches_plain(sigma, rgb)
+    assert float(nproc) == 100
+    torch.testing.assert_close(t_final, torch.zeros_like(t_final), rtol=0,
+                               atol=1e-6)
+    torch.testing.assert_close(color, rgb[:, 0], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,scale", [(512, 2.0), (1500, 0.5), (7, 200.0)])
+def test_volume_render_ignores_rgb_behind_termination(cuda, n, scale):
+    """rgb is NaN on every dead sample: the color stays finite and equals
+    the plain version's on rgb zeroed there, so the kernel uses no rgb
+    behind a ray's termination."""
+    sigma, rgb = _volume_inputs(cuda, 256, n, scale, n + 1)
+    tau = sigma * 0.02
+    alive = torch.exp(-(torch.cumsum(tau, dim=-1) - tau)) > 1e-4
+    assert int((~alive).sum()) > 0
+    nan = rgb.masked_fill(~alive[..., None], float("nan"))
+    zeroed = rgb.masked_fill(~alive[..., None], 0.0)
+    color, _t, _n = _assert_volume_matches_plain(sigma, nan,
+                                                 rgb_plain=zeroed)
+    assert bool(torch.isfinite(color).all())
+
+
 def _qkv_cuda(device, b, h, sq, sk, d, dtype, seed):
     rng = np.random.RandomState(seed)
 
@@ -714,3 +796,81 @@ def test_new_wrappers_validate_cuda_inputs(cuda):
     with pytest.raises(ValueError, match="head dim"):
         big = torch.ones((1, 1, 8, 160), device=cuda)
         tflash.flash_attention(big, big, big)
+
+
+def _tf32(t):
+    """t cut to TF32's 10 mantissa bits, as one TF32 product reads it."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _over_limit(got, want, rtol, atol):
+    return float(((got.double() - want.double()).abs()
+                  / (atol + rtol * want.double().abs())).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_three_tf32_products_hold_where_one_does_not(cuda, causal):
+    """q and k at scale 2.0: operands cut to TF32 once (one TF32 product)
+    land above the (1e-4, 1e-4) limit; the kernel's three products stay
+    within it. The message gives both errors as shares of the limit."""
+    rng = np.random.RandomState(3)
+    q, k = (torch.from_numpy((rng.randn(1, 4, 512, 64) * 2.0).astype(
+        np.float32)).to(cuda) for _ in range(2))
+    v = torch.from_numpy(rng.randn(1, 4, 512, 64).astype(np.float32)).to(
+        cuda)
+    want = tflash.flash_attention_ref(q.double(), k.double(), v.double(),
+                                      causal=causal)
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    one = tflash.flash_attention_ref(_tf32(q), _tf32(k), _tf32(v),
+                                     causal=causal)
+    torch.cuda.synchronize()
+    e_kernel = _over_limit(got, want, 1e-4, 1e-4)
+    e_one = _over_limit(one, want, 1e-4, 1e-4)
+    assert e_one > 1.0 and e_kernel <= 1.0, (
+        f"1xTF32 {e_one:.3g} of the limit, kernel {e_kernel:.3g}")
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d", [(1, 2, 100, 300, 80),
+                                         (1, 2, 300, 100, 128),
+                                         (1, 3, 77, 1, 64),
+                                         (2, 2, 64, 1, 128),
+                                         (1, 2, 150, 150, 20),
+                                         (1, 2, 130, 90, 33),
+                                         (1, 2, 70, 200, 66),
+                                         (1, 1, 1, 5, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_tensor_core_shapes(cuda, b, h, sq, sk, d, causal):
+    """The fp32 3xTF32 kernel at D 80 and 128 (DP 128: 32-key tiles, one
+    raw stage), Sq != Sk both ways, Sk = 1, Sq = 1, D 20 (TMA, one partial
+    panel), D 33 and 66 (rows not 16-byte aligned: cp.async by the
+    threads). Held to (1e-4, 1e-4)."""
+    q, k, v = _qkv_cuda(cuda, b, h, sq, sk, d, torch.float32, sq + sk + d)
+    got = tflash.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_f32_at_the_smoke_shape(cuda):
+    """Llama 3.2 1B's heads over 4096 tokens, causal: the smoke's shape."""
+    q, k, v = _qkv_cuda(cuda, 1, 32, 4096, 4096, 64, torch.float32, 4096)
+    got = tflash.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = tflash.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_f32_unaligned_pointer_is_staged_by_threads(cuda):
+    """A contiguous view one float into its storage cannot be a TMA
+    source: the same kernel stages K and V by cp.async and must agree."""
+    q, k, v = _qkv_cuda(cuda, 1, 2, 200, 200, 64, torch.float32, 5)
+    shifted = []
+    for t in (q, k, v):
+        store = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = store[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        shifted.append(view)
+    got = tflash.flash_attention(*shifted, causal=True)
+    want = tflash.flash_attention_ref(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

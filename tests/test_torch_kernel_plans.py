@@ -1,9 +1,10 @@
-"""Host-side plans of the `bitmap_matmul` and `coo_gather` kernels, on the
-CPU: how `matmul_plan` splits a row's words into the segments of one
-cluster, what `coo_plan` asks of shared memory, that both mirror the
-kernels' constants, and the per-tile windows
-`tile_windows` reports for queries in occupancy-build order and shuffled.
-The kernels themselves run only on the card (tests/test_torch_cuda.py).
+"""Host-side plans of the kernels, on the CPU: how `matmul_plan` splits a
+row's words into the segments of one cluster, what `coo_plan` asks of
+shared memory, the per-tile windows `tile_windows` reports for queries in
+occupancy-build order and shuffled, the float32 flash kernel's tiles and
+shared memory, and the bytes `volume_render` reads; and that every Python
+mirror equals the kernel source's constant. The kernels themselves run
+only on the card (tests/test_torch_cuda.py).
 """
 import dataclasses
 import re
@@ -18,6 +19,8 @@ from repro_torch.core import occupancy as tocc
 from repro_torch.core import sparse as tsparse
 from repro_torch.core import tensorf as ttensorf
 from repro_torch.kernels import _build, bitmap_decode, coo_gather, ops
+from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import volume_render as tvr
 
 torch.set_num_threads(1)
 H100_SMS = 132
@@ -104,11 +107,12 @@ def test_coo_gather_staged_count_needs_the_kernel():
 
 
 def _cu_constants(name):
-    """The `constexpr int` values of a kernel source, in order, each
-    evaluated over the earlier ones."""
+    """The file-scope `constexpr int` values of a kernel source (those at
+    the start of a line), in order, each evaluated over the earlier ones."""
     text = (_build.CSRC / name).read_text()
     consts = {}
-    for key, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+    for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
+                                re.M):
         consts[key] = eval(expr.replace("/", "//"), {}, dict(consts))
     return consts
 
@@ -121,6 +125,17 @@ def _cu_constants(name):
     ("bitmap_matmul.cu", "kThreads", lambda: bitmap_decode.MATMUL_THREADS),
     ("bitmap_matmul.cu", "kChunkWords",
      lambda: bitmap_decode.MATMUL_THREADS),
+    ("volume_render.cu", "kRaysPerBlock", lambda: tvr.RAYS_PER_BLOCK),
+    ("volume_render.cu", "kRun", lambda: tvr.RUN),
+    ("volume_render.cu", "kSegment", lambda: tvr.SEGMENT),
+    ("flash_attention.cu", "kF32BQ", lambda: tflash.F32_BQ),
+    ("flash_attention.cu", "kF32BK64", lambda: tflash.F32_TILES[64][0]),
+    ("flash_attention.cu", "kF32Raw64", lambda: tflash.F32_TILES[64][1]),
+    ("flash_attention.cu", "kF32BK128", lambda: tflash.F32_TILES[128][0]),
+    ("flash_attention.cu", "kF32Raw128", lambda: tflash.F32_TILES[128][1]),
+    ("flash_attention.cu", "kF32Bars", lambda: tflash.F32_BARRIER_BYTES),
+    ("flash_attention.cu", "kF32Vt64", lambda: tflash.F32_TILES[64][2]),
+    ("flash_attention.cu", "kF32Vt128", lambda: tflash.F32_TILES[128][2]),
 ])
 def test_plan_constants_mirror_the_kernel_sources(source, key, mirror):
     """The pure-Python plans size the launches with the kernels' own
@@ -197,3 +212,99 @@ def test_occupancy_order_tiles_are_staged_and_shuffled_ones_wide(
             shuffled = coo_gather.tile_windows(coords, q[perm])
             assert bool((shuffled > cap).all())
     assert planes > 0
+
+
+# ------------------------------------------------------ flash (fp32) ---
+@pytest.mark.parametrize("dp", [64, 128])
+def test_flash_f32_shared_memory_fits_the_card(dp):
+    """Q hi + lo, the K tile and each V^T buffer hi + lo and the raw K/V
+    ring, computed from the .cu constants, equal the Python mirror and
+    stay within a block's 232,448 bytes; the raw ring has at least one
+    stage and V^T one or two buffers."""
+    k = _cu_constants("flash_attention.cu")
+    bk, stages, vt = (k[f"kF32BK{dp}"], k[f"kF32Raw{dp}"],
+                      k[f"kF32Vt{dp}"])
+    smem = (2 * k["kF32BQ"] * dp * 4 + (2 + 2 * vt) * bk * dp * 4
+            + stages * 2 * bk * dp * 4 + k["kF32Bars"] + 1024)
+    assert tflash.f32_smem_bytes(dp) == smem
+    assert smem <= _build.MAX_SMEM_BYTES == 232448
+    assert stages >= 1 and vt in (1, 2) and k["kF32Bars"] >= 8 * stages
+
+
+@pytest.mark.parametrize("dp", [64, 128])
+def test_flash_f32_tiles_suit_tf32_wgmma(dp):
+    """Every swizzled tile is whole 1024-byte groups of 8 rows of 128
+    bytes (32 fp32 a row), the key tile is a k8 multiple and a legal wgmma
+    N (8 to 256), and two warpgroups of 64 rows cover the q block."""
+    bk = tflash.F32_TILES[dp][0]
+    assert bk % 8 == 0 and 8 <= bk <= 256
+    assert dp % 32 == 0 and bk % 32 == 0
+    for rows in (tflash.F32_BQ, bk, dp):
+        assert (rows * 128) % 1024 == 0
+    assert tflash.F32_BQ == 2 * 64
+
+
+def _tf32(t):
+    """t cut to TF32's 10 mantissa bits, as one TF32 product reads it."""
+    return (t.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def test_flash_f32_input_breaks_one_tf32_product():
+    """The card test's input (q and k at scale 2.0): operands cut to TF32
+    once, the product alone is off by more than the (1e-4, 1e-4) limit,
+    so only a kernel holding fp32's precision passes there."""
+    rng = np.random.RandomState(3)
+    q, k = (torch.from_numpy((rng.randn(1, 2, 256, 64) * 2.0).astype(
+        np.float32)) for _ in range(2))
+    v = torch.from_numpy(rng.randn(1, 2, 256, 64).astype(np.float32))
+    want = tflash.flash_attention_ref(q.double(), k.double(), v.double())
+    one = tflash.flash_attention_ref(_tf32(q), _tf32(k), _tf32(v)).double()
+    full = tflash.flash_attention_ref(q, k, v).double()
+    limit = 1e-4 + 1e-4 * want.abs()
+    assert float(((one - want).abs() / limit).max()) > 2.0
+    assert float(((full - want).abs() / limit).max()) < 0.1
+
+
+# ------------------------------------------------------- volume_render ---
+def _direct_read_bytes(alive, n, vec):
+    """The kernel's reads, segment by segment: the sigma of each segment
+    it enters (the next one only while the ray is alive at this one's
+    end), and each segment's rgb up to its last alive sample."""
+    total = 0
+    for a in alive.tolist():
+        for base in range(0, n, tvr.SEGMENT):
+            if base and a <= base:
+                break
+            total += 4 * (min(base + tvr.SEGMENT, n) - base)
+            floats = 3 * max(0, min(a - base, tvr.SEGMENT))
+            total += 4 * (4 * -(-floats // 4) if vec else floats)
+    return total
+
+
+@pytest.mark.parametrize("n", [1, 3, 7, 100, 256, 257, 512, 1500])
+@pytest.mark.parametrize("vec", [True, False])
+def test_volume_read_bytes_match_a_segment_by_segment_count(n, vec):
+    rng = np.random.RandomState(n)
+    alive = torch.from_numpy(rng.randint(1, n + 1, 40))
+    alive[0], alive[-1] = 1, n
+    assert tvr.read_bytes(alive, n, vec) == _direct_read_bytes(alive, n, vec)
+
+
+def test_volume_read_bytes_of_rays_that_never_terminate():
+    """No ray terminates: every byte of sigma and rgb is read once."""
+    r, n = 64, 512
+    alive = torch.full((r,), n)
+    assert tvr.read_bytes(alive, n) == r * n * 16
+
+
+@pytest.mark.parametrize("n,offset,want", [(512, 0, True), (1500, 0, True),
+                                           (7, 0, False), (3, 0, False),
+                                           (512, 1, False)])
+def test_volume_vector_loads_need_whole_aligned_rows(n, offset, want):
+    """16-byte loads need N % 4 == 0 and 16-byte aligned sigma and rgb; a
+    storage offset of one float takes the scalar loads."""
+    sigma = torch.zeros((4, n))
+    store = torch.zeros(4 * n * 3 + 4)
+    rgb = store[offset:offset + 4 * n * 3].view(4, n, 3)
+    assert sigma.data_ptr() % 16 == 0 and store.data_ptr() % 16 == 0
+    assert tvr.vector_loads(sigma, rgb) is want
