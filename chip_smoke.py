@@ -37,10 +37,11 @@ line each:
            occupancy build's first and middle chunk and on a shuffled
            copy, each with the share of its query tiles whose stream
            window the kernel staged in shared memory, as the kernel
-           counts them; each flash kernel
-           with the count of HGMMA in its SASS; the volume row with the
-           bytes each case read; the fp32 flash row with its CUDA-core and
-           3xTF32 bounds, and the SDPA backend its library call ran),
+           counts them; each flash kernel with the count of HGMMA in its
+           SASS; the volume row with the bytes each case read, as the
+           kernel counts its copies, held against the design's
+           prediction; the fp32 flash row with its CUDA-core and 3xTF32
+           bounds, and the SDPA backend its library call ran),
            its device time and the plain version's (CUDA events over a
            CUDA graph of repeated calls; `wall_ms`, over eager calls,
            includes the wrapper's host time; the fused row's `host_ms` is
@@ -513,6 +514,20 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
         tau = sigma * delta
         alive = (torch.exp(-(torch.cumsum(tau, dim=-1) - tau)) > eps).sum(-1)
         vec = volume_render.vector_loads(sigma, rgb)
+        # the bytes the kernel's copies read, as it counts them (a launch
+        # of its counting build), against what the design should read
+        counted, read = volume_render.volume_render_read(
+            sigma, rgb, delta=delta, term_eps=eps)
+        predicted = volume_render.read_bytes(alive, N, vec)
+        # a sample at term_eps that the kernel's sum order keeps alive (or
+        # not) moves its rgb and, at a segment's end, the next segment's
+        # sigma: exact otherwise
+        slack = at_eps * (4 * volume_render.SEGMENT + 16)
+        check(abs(read - predicted) <= slack and all(
+            torch.equal(g, w) for g, w in zip(counted, got)),
+              f"volume_render {case}: the kernel read {read} bytes, the "
+              f"design {predicted} (slack {slack}), or its counting launch "
+              f"differs")
         cases.append({
             "case": case, "max_abs_err": ea, "max_rel_err": er,
             "tol": VR_TOL, "nproc": nproc, "nproc_plain": float(want[2]),
@@ -523,7 +538,7 @@ def kernel_ops_rows(torch, mods, inputs, cfg, rendering, launches, hgmma):
                                                         eps)),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "full_read_bytes": R * N * 16 + R * 16,
-            "read_bytes": volume_render.read_bytes(alive, N, vec),
+            "read_bytes": read, "read_bytes_predicted": predicted,
             "vector_loads": vec,
             "shape": {"R": R, "N": N, "delta": delta, "term_eps": eps,
                       "terminated_rays": terminated},

@@ -14,10 +14,13 @@ launches.
 The kernel gives a ray one warp and takes its samples in segments of
 `SEGMENT`, each lane a run of `RUN` consecutive samples: all of a
 segment's sigma first, then rgb only up to the segment's last alive
-sample. nproc comes out of the same launch: each block adds its count to
-a counter, and the last block to finish writes the total.
-`vector_loads` says whether the launch takes 16-byte loads; `read_bytes`
-counts the bytes that the kernel reads for given per-ray alive counts.
+sample. nproc comes out of the same kernel: each block adds its count to
+counters that belong to the call (zeroed by a one-block kernel that the
+main kernel runs under), and the last block to finish writes the total.
+`vector_loads` says whether the launch takes 16-byte copies;
+`read_bytes` predicts the bytes that the kernel reads for given per-ray
+alive counts, and `volume_render_read` returns the bytes the kernel
+itself counted.
 """
 from __future__ import annotations
 
@@ -48,35 +51,21 @@ def volume_render_ref(sigma: torch.Tensor, rgb: torch.Tensor, delta: float,
     return color, torch.exp(-cum[:, -1]), alive.to(torch.float32).sum()
 
 
-_SCRATCH = {}     # (device index, stream) -> the kernel's zeroed counters
-
-
-def _scratch(dev: torch.device, stream: int) -> torch.Tensor:
-    """The launch's counters (the alive count and the blocks done): two
-    int64, zero before and after every launch (the kernel's last block
-    resets them), one pair per device and stream so that launches on other
-    streams never share them."""
-    key = (dev.index, stream)
-    t = _SCRATCH.get(key)
-    if t is None:
-        t = _SCRATCH[key] = torch.zeros((2,), dtype=torch.int64, device=dev)
-    return t
-
-
 def vector_loads(sigma: torch.Tensor, rgb: torch.Tensor) -> bool:
     """True where the kernel reads sigma and rgb as 16-byte vectors: N a
     multiple of 4 (every row then starts 16-byte aligned) and both
-    tensors' data 16-byte aligned. Otherwise it reads the same runs by
-    scalar loads."""
+    tensors' data 16-byte aligned. Otherwise it fills the same stages by
+    4-byte copies."""
     return (sigma.shape[-1] % 4 == 0 and sigma.data_ptr() % 16 == 0
             and rgb.data_ptr() % 16 == 0)
 
 
 def read_bytes(alive: torch.Tensor, n: int, vec: bool = True) -> int:
-    """Bytes the kernel reads for rays with `alive` (R,) alive samples each
-    (a prefix of the ray, as for sigma >= 0) of `n`: sigma for every
-    segment the warp enters, rgb for each segment up to its last alive
-    sample (whole 16-byte vectors with `vec`), and nothing behind."""
+    """Bytes the kernel should read for rays with `alive` (R,) alive
+    samples each (a prefix of the ray, as for sigma >= 0) of `n`: sigma
+    for every segment the warp enters, rgb for each segment up to its last
+    alive sample (whole 16-byte vectors with `vec`), and nothing behind.
+    The prediction that `volume_render_read`'s count is held against."""
     a = alive.to(torch.int64).cpu()[:, None]
     bases = torch.arange(0, n, SEGMENT)[None, :]
     entered = (bases < a) | (bases == 0)   # alive at the segment's start
@@ -86,12 +75,10 @@ def read_bytes(alive: torch.Tensor, n: int, vec: bool = True) -> int:
     return sigma_b + 4 * int(rgb_f.sum())
 
 
-def volume_render(sigma: torch.Tensor, rgb: torch.Tensor, *, delta: float,
-                  term_eps: float = 1e-4):
-    """(color (R, 3), t_final (R,), nproc 0-dim) for float32 sigma (R, N)
-    and rgb (R, N, 3), composited front to back."""
-    if _build.all_on_cpu("volume_render", sigma, rgb):
-        return volume_render_ref(sigma, rgb, delta, term_eps)
+def _launch(sigma: torch.Tensor, rgb: torch.Tensor, delta: float,
+            term_eps: float, count: bool) -> tuple:
+    """(color, t_final, nproc, counters) from one launch of the kernel;
+    counters[2] is the bytes read where `count`."""
     _build.require(sigma.dim() == 2, "volume_render: sigma must be (R, N)")
     R, N = sigma.shape
     _build.require_cuda("volume_render sigma", sigma, torch.float32)
@@ -102,21 +89,44 @@ def volume_render(sigma: torch.Tensor, rgb: torch.Tensor, *, delta: float,
     dev = sigma.device
     color = torch.empty((R, 3), dtype=torch.float32, device=dev)
     t_final = torch.empty((R,), dtype=torch.float32, device=dev)
+    # the alive count, the blocks done and the bytes read: this call's own
+    counters = torch.empty((3,), dtype=torch.int64, device=dev)
     if R == 0:
-        return color, t_final, torch.zeros((), device=dev)
+        return color, t_final, torch.zeros((), device=dev), counters.zero_()
     nproc = torch.empty((), dtype=torch.float32, device=dev)
     fn = _build.entry("volume_render_launch",
                       (_build.P, _build.P, _build.I32, _build.I32,
                        _build.F32, _build.F32, _build.P, _build.P, _build.P,
-                       _build.P, _build.I32, _build.P))
-    stream = _build.stream_ptr(dev)
+                       _build.P, _build.I32, _build.I32, _build.P))
     code = fn(sigma.data_ptr(), rgb.data_ptr(), R, N, float(delta),
               math.log(term_eps), color.data_ptr(), t_final.data_ptr(),
-              nproc.data_ptr(), _scratch(dev, stream).data_ptr(),
-              int(vector_loads(sigma, rgb)), stream)
+              nproc.data_ptr(), counters.data_ptr(),
+              int(vector_loads(sigma, rgb)), int(count),
+              _build.stream_ptr(dev))
     _build.check("volume_render", code)
     volume_render.launches += 1
-    return color, t_final, nproc
+    return color, t_final, nproc, counters
+
+
+def volume_render(sigma: torch.Tensor, rgb: torch.Tensor, *, delta: float,
+                  term_eps: float = 1e-4):
+    """(color (R, 3), t_final (R,), nproc 0-dim) for float32 sigma (R, N)
+    and rgb (R, N, 3), composited front to back."""
+    if _build.all_on_cpu("volume_render", sigma, rgb):
+        return volume_render_ref(sigma, rgb, delta, term_eps)
+    return _launch(sigma, rgb, delta, term_eps, False)[:3]
+
+
+def volume_render_read(sigma: torch.Tensor, rgb: torch.Tensor, *,
+                       delta: float, term_eps: float = 1e-4) -> tuple:
+    """(volume_render's result, bytes of sigma and rgb that the kernel's
+    copies read from device memory, as the kernel counts them), from one
+    launch on CUDA tensors; waits for the launch to finish."""
+    _build.require(sigma.device.type == "cuda",
+                   "volume_render_read: the count comes from the kernel, "
+                   "which runs on CUDA tensors")
+    *out, counters = _launch(sigma, rgb, delta, term_eps, True)
+    return tuple(out), int(counters[2])
 
 
 volume_render.launches = 0

@@ -612,7 +612,24 @@ def _assert_volume_matches_plain(sigma, rgb, delta=0.02, term_eps=1e-4,
     torch.testing.assert_close(color, w_color, rtol=0, atol=1e-5)
     torch.testing.assert_close(t_final, w_t, rtol=0, atol=1e-5)
     _assert_nproc_close(nproc, w_n, _t_before(sigma, delta), term_eps)
+    _assert_read_bytes(sigma, rgb, delta, term_eps, (color, t_final, nproc))
     return color, t_final, nproc
+
+
+def _assert_read_bytes(sigma, rgb, delta, term_eps, result):
+    """The bytes the kernel's copies read, as the kernel counts them,
+    equal the design's (`read_bytes` on the plain version's alive counts)
+    up to the samples at term_eps, each of which may move its rgb and the
+    next segment's sigma; the counting launch gives the same result."""
+    counted, read = tvr.volume_render_read(sigma, rgb, delta=delta,
+                                           term_eps=term_eps)
+    t_before = _t_before(sigma, delta)
+    want = tvr.read_bytes((t_before > term_eps).sum(-1), sigma.shape[1],
+                          tvr.vector_loads(sigma, rgb))
+    near = int(((t_before - term_eps).abs() <= 1e-4 * term_eps).sum())
+    assert abs(read - want) <= near * (4 * tvr.SEGMENT + 16), (read, want)
+    for g, w in zip(counted, result):
+        assert torch.equal(g, w)
 
 
 def _volume_inputs(device, r, n, scale, seed):
@@ -680,6 +697,36 @@ def test_volume_render_ignores_rgb_behind_termination(cuda, n, scale):
     color, _t, _n = _assert_volume_matches_plain(sigma, nan,
                                                  rgb_plain=zeroed)
     assert bool(torch.isfinite(color).all())
+
+
+def test_volume_render_reads_only_up_to_termination(cuda):
+    """Rays that stop at sample 10, 300 or never: the kernel reads one
+    segment's sigma and 10 samples' rgb, two segments' sigma and 300
+    samples' rgb, or the whole row, as it counts its copies."""
+    sigma, rgb = _volume_inputs(cuda, 3, 512, 0.0, 5)
+    sigma[0, 9], sigma[1, 299] = 1e4, 1e4
+    (_c, _t, nproc), read = tvr.volume_render_read(sigma, rgb, delta=0.02)
+    assert float(nproc) == 10 + 300 + 512
+    assert read == (4 * 256 + 4 * 32) + (4 * 512 + 12 * 300) + 16 * 512
+
+
+def test_volume_render_calls_on_two_streams_keep_their_own_counts(cuda):
+    """Each call has its own nproc counters: calls in flight on two
+    streams at once each count their own rays."""
+    inputs = [_volume_inputs(cuda, 2000, 512, scale, 7)
+              for scale in (0.05, 3.0)]
+    want = [tvr.volume_render_ref(s, c, 0.02, 1e-4)[2] for s, c in inputs]
+    streams = [torch.cuda.Stream(cuda) for _ in inputs]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(20):
+        for i, ((s, c), st) in enumerate(zip(inputs, streams)):
+            with torch.cuda.stream(st):
+                got[i].append(tvr.volume_render(s, c, delta=0.02)[2])
+    torch.cuda.synchronize()
+    for g, w, (s, _c) in zip(got, want, inputs):
+        assert len({float(x) for x in g}) == 1
+        _assert_nproc_close(g[0], w, _t_before(s, 0.02), 1e-4)
 
 
 def _qkv_cuda(device, b, h, sq, sk, d, dtype, seed):

@@ -290,6 +290,14 @@ def test_volume_read_bytes_match_a_segment_by_segment_count(n, vec):
     assert tvr.read_bytes(alive, n, vec) == _direct_read_bytes(alive, n, vec)
 
 
+def test_volume_read_count_needs_the_kernel():
+    """The bytes read are counted by the kernel, never modelled on the
+    CPU."""
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tvr.volume_render_read(torch.ones((2, 4)), torch.ones((2, 4, 3)),
+                               delta=0.1)
+
+
 def test_volume_read_bytes_of_rays_that_never_terminate():
     """No ray terminates: every byte of sigma and rgb is read once."""
     r, n = 64, 512
