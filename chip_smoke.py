@@ -61,7 +61,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +104,26 @@ VR_OPAQUE_SCALE = 20.0
 OCC_CHUNK = 65536     # core/occupancy.build_occupancy's points per chunk
 # Llama 3.2 1B (src/repro/configs/llama3_2_1b.py) at train_4k's length
 FLASH_SHAPE = {"B": 1, "H": 32, "kv_heads": 8, "S": 4096, "D": 64}
+
+# the serving tier's phases. Views of 64 x 64 are one ray chunk (4096
+# rays, 1024 scan steps)
+STORE_SCENES = 3          # scenes made from --seed, --seed + 1, ...
+STORE_BUDGET = 2.5        # max_resident_bytes, in scene 0's factor bytes
+STORE_RES = 64
+DELTA_STEP = 0.05         # rad between delta frames
+DELTA_PSNR_DB = 35.0      # tests/test_temporal.py's bound
+AF_PRODUCERS, AF_VIEWS, AF_RES = 4, 2, 32
+AF_INTERVAL_S = 0.05
+RESULT_TIMEOUT_S = 300.0  # every future and thread of the phases
+# NeRFConfig(cube_size=16, max_cubes=1000): fused window 31, past the
+# sample kernel's shared memory; 16 is the smallest divisor of occ_res 160
+# that is (cube_size 12, window 24, does not divide 160), and 1000 cubes
+# are every cube of its 10^3 grid
+PER_OP_CUBE_SIZE = 16
+# the geometry phase's renders: one chunk per 200 x 200 view, a budget
+# above any step's hitting pairs (about 400), so none is dropped
+GEO_RAY_CHUNK = 40960
+GEO_PAIR_BUDGET = 4096
 
 
 def emit(obj) -> None:
@@ -365,6 +387,436 @@ def nproc_ok(torch, got, want, sigma, delta, term_eps) -> tuple:
     at_eps = int(((t_before - term_eps).abs() <= 1e-4 * term_eps).sum())
     ok = diff == 0 or (diff <= NPROC_REL_TOL * float(want) and diff <= at_eps)
     return ok, diff, at_eps
+
+
+class Deterministic:
+    """`torch.use_deterministic_algorithms(True, warn_only=True)` inside
+    the block: the renderer's `index_add_` scatters take PyTorch's
+    deterministic path on CUDA (its default atomics need not repeat bit
+    for bit), so two renders of one scene can be compared exactly."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import warnings
+        t = self.torch
+        self.prev = (t.are_deterministic_algorithms_enabled(),
+                     t.is_deterministic_algorithms_warn_only_enabled())
+        self.warn = warnings.catch_warnings()
+        self.warn.__enter__()
+        warnings.filterwarnings("ignore", message=".*determinis.*")
+        t.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.prev[0],
+                                                warn_only=self.prev[1])
+        self.warn.__exit__(*exc)
+
+
+def orbit_camera(m, angle: float, res: int, dev):
+    """The serve phase's orbit (radius 4, elevation 0.5 rad), at `res`."""
+    return m.rendering.look_at_camera(
+        [4.0 * math.cos(angle) * math.cos(0.5),
+         4.0 * math.sin(angle) * math.cos(0.5), 4.0 * math.sin(0.5)],
+        [0.0, 0.0, 0.0], 1.2 * res, res, res, device=dev)
+
+
+def launch_counts(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def max_diff(a, b) -> float:
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def host_state(m, field) -> dict:
+    """A field's streams as host arrays (copies)."""
+    _, arrays = m.field_lib.field_state(field)
+    return {k: np.array(v) for k, v in arrays.items()}
+
+
+def store_phase(torch, m, cfg, seed, dev, spill_dir, kernels) -> tuple:
+    """Three full-width scenes under a budget of STORE_BUDGET scenes:
+    register, spill, revive; every scene evicted and revived by a
+    round-robin of one-chunk views. Returns (phase line, engine)."""
+    import gc
+
+    t_phase = time.perf_counter()
+
+    def make(s):
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in object_field(cfg, s).items()}
+        return m.field_lib.DenseField(params, cfg).prune(tol=1e-3).encode()
+
+    names = [f"s{i}" for i in range(STORE_SCENES)]
+    zero_counts(kernels)
+    f0 = make(seed)
+    one = f0.factor_bytes()
+    t0 = time.perf_counter()
+    # a fixed pair budget: an adaptive resize changes the renderer's GEMM
+    # shapes between renders, and with them the image's last bits
+    eng = m.RenderEngine(cfg, f0, scene_name=names[0], device=dev,
+                         max_resident_bytes=int(STORE_BUDGET * one),
+                         spill_dir=spill_dir, adaptive_pair_budget=False)
+    torch.cuda.synchronize()
+    register_s = [time.perf_counter() - t0]
+    del f0
+    cam = orbit_camera(m, 0.3, STORE_RES, dev)
+    store = eng.store
+
+    def render(name):
+        r = eng.submit(cam, scene=name).result(timeout=RESULT_TIMEOUT_S)
+        check(r.stats["dispatch_path"] == "fused",
+              f"store view of {name} took {r.stats['dispatch_path']}")
+        return r.img
+
+    # two renders of the resident scene, in each mode: is the card's
+    # renderer repeatable bit for bit?
+    with Deterministic(torch):
+        img0 = render(names[0])
+        repeat_det = max_diff(render(names[0]), img0)
+    repeat_default = max_diff(render(names[0]), render(names[0]))
+    before = host_state(m, store.get_field(names[0]))
+    c = store.snapshot(names[0]).cubes
+    cubes0 = [t.cpu() for t in (c.centers, c.valid, c.occ)] + [c.count]
+    del c
+    for i, name in enumerate(names[1:], start=1):
+        f = make(seed + i)
+        t0 = time.perf_counter()
+        eng.register_scene(name, f)
+        torch.cuda.synchronize()
+        register_s.append(time.perf_counter() - t0)
+        del f
+
+    # one explicit eviction, with the card's allocated bytes around it
+    victim = next(n for n in names if n in store.resident_scenes())
+    victim_bytes = store.stats(victim)["factor_bytes"]
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    store.evict(victim)
+    spill_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+
+    # a round of views: each scene revived, and each evicted once more
+    revive_s, rr_latency = [], []
+    for i in range(STORE_SCENES):
+        name = names[i % STORE_SCENES]
+        was_resident = name in store.resident_scenes()
+        t0 = time.perf_counter()
+        store.ensure_resident(name)
+        torch.cuda.synchronize()
+        if not was_resident:
+            revive_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        render(name)
+        rr_latency.append(time.perf_counter() - t0)
+
+    # scene 0 revived once more: its streams, cubes and image as before
+    if names[0] not in store.resident_scenes():
+        t0 = time.perf_counter()
+        store.ensure_resident(names[0])
+        revive_s.append(time.perf_counter() - t0)
+    after = host_state(m, store.get_field(names[0]))
+    c = store.snapshot(names[0]).cubes
+    cubes_equal = (all(torch.equal(a.cpu(), b) for a, b in zip(
+        (c.centers, c.valid, c.occ), cubes0[:3])) and c.count == cubes0[3])
+    del c
+    streams_equal = (sorted(after) == sorted(before) and all(
+        after[k].dtype == before[k].dtype
+        and np.array_equal(after[k], before[k]) for k in before))
+    with Deterministic(torch):
+        revived_diff = max_diff(render(names[0]), img0)
+    torch.cuda.synchronize()
+    launches = launch_counts(kernels)
+    st = eng.stats()
+    per = {n: {k: st["scenes"][n][k] for k in ("evictions", "revivals",
+                                                "views_served")}
+           for n in names}
+    exact = repeat_det == 0.0
+    line = {"phase": "store", "seconds": time.perf_counter() - t_phase,
+            "scenes": STORE_SCENES, "res": STORE_RES,
+            "factor_bytes": one, "max_resident_bytes": st[
+                "max_resident_bytes"],
+            "register_s": register_s, "spill_s": spill_s,
+            "revive_s": revive_s, "round_robin_view_s": rr_latency,
+            "evictions": st["evictions"], "revivals": st["revivals"],
+            "per_scene": per, "resident_scenes": st["resident_scenes"],
+            "resident_bytes": st["resident_bytes"],
+            "evicted_scene": victim, "evicted_factor_bytes": victim_bytes,
+            "memory_allocated_before_evict": mem_before,
+            "memory_allocated_after_evict": mem_after,
+            "streams_bitwise_equal": streams_equal,
+            "cubes_equal": cubes_equal,
+            "repeat_max_abs_diff": {"deterministic": repeat_det,
+                                    "default": repeat_default},
+            "revived_max_abs_diff": revived_diff,
+            "image_match": "exact" if exact else
+            "within the deterministic repeat difference",
+            "launches": launches}
+    check(mem_before - mem_after >= victim_bytes,
+          f"evicting {victim} freed {mem_before - mem_after} bytes, less "
+          f"than its {victim_bytes} factor bytes")
+    check(streams_equal, "revived streams differ from the evicted ones")
+    check(cubes_equal, "revived cube set differs")
+    check(revived_diff <= repeat_det,
+          f"revived image differs by {revived_diff} (repeat {repeat_det})")
+    for n in names:
+        check(per[n]["evictions"] >= 1 and per[n]["revivals"] >= 1,
+              f"scene {n} was not evicted and revived: {per[n]}")
+    check(launches["fused_sigma_app"] > 0, "no fused launch in the store "
+          "phase")
+    return line, eng
+
+
+def delta_phase(torch, m, cfg, field, cubes, dev, kernels) -> dict:
+    """A 3-frame orbit step of one-chunk frames through submit_delta
+    (trajectory ordering), held against full renders of the same poses."""
+    t_phase = time.perf_counter()
+    eng = m.RenderEngine(cfg, field, cubes, order_mode="trajectory",
+                         adaptive_pair_budget=False, device=dev)
+    cams = [orbit_camera(m, 0.3 + DELTA_STEP * i, STORE_RES, dev)
+            for i in range(3)]
+    zero_counts(kernels)
+    frames = []
+    with Deterministic(torch):
+        full0 = eng.submit(cams[0]).result(timeout=RESULT_TIMEOUT_S)
+        prev = eng.submit_delta(cams[0], prev=None).result(
+            timeout=RESULT_TIMEOUT_S)
+        key_diff = max_diff(prev.img, full0.img)
+        for cam in cams[1:]:
+            t0 = time.perf_counter()
+            d = eng.submit_delta(cam, prev=prev).result(
+                timeout=RESULT_TIMEOUT_S)
+            delta_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            full = eng.submit(cam).result(timeout=RESULT_TIMEOUT_S)
+            full_s = time.perf_counter() - t0
+            psnr = float(m.rendering.psnr(
+                torch.from_numpy(d.img).clamp(0, 1),
+                torch.from_numpy(full.img).clamp(0, 1)))
+            n_pix = cam.h * cam.w
+            frames.append({"warp_fraction": d.warp_fraction,
+                           "fresh_rays": int(round((1 - d.warp_fraction)
+                                                   * n_pix)),
+                           "psnr_vs_full_db": psnr, "delta_s": delta_s,
+                           "full_s": full_s,
+                           "dispatch_path": d.stats["dispatch_path"]})
+            prev = d
+    torch.cuda.synchronize()
+    st = eng.stats()["delta"]
+    line = {"phase": "delta", "seconds": time.perf_counter() - t_phase,
+            "res": STORE_RES, "step_rad": DELTA_STEP,
+            "keyframe_max_abs_diff": key_diff, "frames": frames,
+            "delta_stats": st, "stages": sorted(eng.stage_breakdown()),
+            "launches": launch_counts(kernels)}
+    check(key_diff == 0.0, f"keyframe differs from submit's image by "
+          f"{key_diff}")
+    check(0.0 < frames[0]["warp_fraction"] < 1.0,
+          f"delta frame warp fraction {frames[0]['warp_fraction']}")
+    check(frames[0]["psnr_vs_full_db"] >= DELTA_PSNR_DB,
+          f"delta frame PSNR {frames[0]['psnr_vs_full_db']} dB")
+    check(st["views"] == 2 and st["full_fallbacks"] == 0,
+          f"delta stats {st}")
+    check(all(f["dispatch_path"] == "fused" for f in frames),
+          "delta frames left the fused path")
+    return line
+
+
+def auto_flush_phase(torch, m, eng, scenes, dev, kernels) -> dict:
+    """AF_PRODUCERS threads submit AF_VIEWS views each across two scenes
+    while the engine's flush thread renders; every future resolves
+    through result(timeout=...), and close() joins the thread."""
+    import threading
+
+    t_phase = time.perf_counter()
+    cam = orbit_camera(m, 1.1, AF_RES, dev)
+    zero_counts(kernels)
+    views0 = eng.stats()["views_served"]
+    flushes0 = eng.stats()["flushes"]
+    eng.start_auto_flush(AF_INTERVAL_S)
+    futs, errors = [], []
+    lock = threading.Lock()
+
+    def producer(i):
+        try:
+            for j in range(AF_VIEWS):
+                f = eng.submit(cam, scene=scenes[(i + j) % len(scenes)])
+                with lock:
+                    futs.append(f)
+        except BaseException as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=producer, args=(i,))
+               for i in range(AF_PRODUCERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(RESULT_TIMEOUT_S)
+    hung = sum(t.is_alive() for t in threads)
+    timeouts = 0
+    results = []
+    for f in futs:
+        try:
+            results.append(f.result(timeout=RESULT_TIMEOUT_S))
+        except TimeoutError:
+            timeouts += 1
+    flusher = eng._flusher
+    eng.close(timeout=RESULT_TIMEOUT_S)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    line = {"phase": "auto_flush", "seconds": time.perf_counter() - t_phase,
+            "producers": AF_PRODUCERS, "views_each": AF_VIEWS,
+            "scenes": list(scenes), "res": AF_RES,
+            "interval_s": AF_INTERVAL_S,
+            "views_served": st["views_served"] - views0,
+            "flushes": st["flushes"] - flushes0, "timeouts": timeouts,
+            "timed_out_results": sum(r.timed_out for r in results),
+            "producer_errors": errors, "producers_hung": hung,
+            "flusher_joined": not flusher.is_alive(),
+            "launches": launch_counts(kernels)}
+    check(not errors and not hung, f"producers: {errors}, {hung} hung")
+    check(timeouts == 0 and len(results) == AF_PRODUCERS * AF_VIEWS,
+          f"{timeouts} futures unresolved of {len(futs)}")
+    check(line["views_served"] == AF_PRODUCERS * AF_VIEWS
+          and line["timed_out_results"] == 0, f"auto-flush served "
+          f"{line['views_served']} views")
+    check(line["flusher_joined"], "close() left the flush thread running")
+    check(not st["auto_flush_running"], "auto-flush still running")
+    return line
+
+
+def per_op_route_phase(torch, m, cfg, field, dev, kernels) -> dict:
+    """A field whose fused window is past the sample kernel's shared
+    memory (NeRFConfig(cube_size=PER_OP_CUBE_SIZE), max_cubes the whole
+    cube grid: the same widths and streams, larger cubes) renders on the
+    card through the per-op gather kernels, and matches the CPU's plain
+    fused version."""
+    import dataclasses
+
+    t_phase = time.perf_counter()
+    cfg_op = dataclasses.replace(cfg, cube_size=PER_OP_CUBE_SIZE,
+                                 max_cubes=(cfg.occ_res
+                                            // PER_OP_CUBE_SIZE) ** 3)
+    W = m.tensorf.fused_window(cfg_op)
+    smem = m.fused_sample.fused_smem_bytes(W, cfg.r_sigma, cfg.r_color)
+    check(smem > m.fused_sample.MAX_SMEM_BYTES, f"window {W} fits ({smem})")
+    card_field = m.field_lib.CompressedField(field.factors, field.extras,
+                                             cfg_op, field.threshold)
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    eng = m.RenderEngine(cfg_op, card_field, device=dev, ray_chunk=128)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    occ_launches = launch_counts(kernels)
+    cam = m.rendering.look_at_camera([3.2, 2.0, 1.6], [0.0, 0.0, 0.0], 12.0,
+                                     10, 10, device="cpu")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    got = eng.submit(cam).result(timeout=RESULT_TIMEOUT_S)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = launch_counts(kernels)
+    cpu = field.to("cpu")
+    cpu_field = m.field_lib.CompressedField(cpu.factors, cpu.extras, cfg_op,
+                                            cpu.threshold)
+    t0 = time.perf_counter()
+    want = m.RenderEngine(cfg_op, cpu_field, eng.cubes, device="cpu",
+                          ray_chunk=128).submit(cam).result()
+    cpu_s = time.perf_counter() - t0
+    err = max_diff(got.img, want.img)
+    line = {"phase": "per_op_route", "seconds": time.perf_counter() - t_phase,
+            "cube_size": PER_OP_CUBE_SIZE, "window": W, "smem_bytes": smem,
+            "smem_limit": m.fused_sample.MAX_SMEM_BYTES,
+            "cubes": eng.cubes.count, "res": 10,
+            "dispatch_path": got.stats["dispatch_path"],
+            "cpu_dispatch_path": want.stats["dispatch_path"],
+            "engine_setup_s": setup_s, "card_view_s": card_s,
+            "cpu_view_s": cpu_s, "max_abs_err": err, "tol": PARITY_TOL,
+            "active_pairs_max": [got.stats["active_pairs_max"],
+                                 want.stats["active_pairs_max"]],
+            "occupancy_launches": occ_launches, "launches": launches}
+    check(got.stats["dispatch_path"] == "per-op",
+          f"oversized window took {got.stats['dispatch_path']}")
+    check(launches["fused_sigma_app"] == 0, "fused kernel launched on the "
+          "per-op route")
+    check(launches["bitmap_gather"] > 0 and launches["coo_gather"] > 0,
+          f"per-op route launches {launches}")
+    check(got.stats["active_pairs_max"] > 0, "per-op view is empty")
+    check(err <= PARITY_TOL, f"per-op card vs CPU image error {err}")
+    return line
+
+
+def geometry_phase(torch, m, cfg, field, cams, dev) -> dict:
+    """Occupancy and camera rays built on the card and on the CPU for the
+    serve phase's field and views: the grid and cube set bit for bit, and
+    the card's renders from either side's geometry with the same sample
+    and pair counts; the largest ray-direction difference is reported."""
+    t_phase = time.perf_counter()
+    xs_equal = bool(torch.equal(m.occ_lib.grid_coords(cfg, dev).cpu(),
+                                m.occ_lib.grid_coords(cfg, "cpu")))
+    t0 = time.perf_counter()
+    occ_card = m.occ_lib.build_occupancy(field, cfg)
+    torch.cuda.synchronize()
+    card_occ_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    occ_cpu = m.occ_lib.build_occupancy(field.to("cpu"), cfg)
+    cpu_occ_s = time.perf_counter() - t0
+    occ_equal = bool(torch.equal(occ_card.cpu(), occ_cpu))
+    cubes_card = m.occ_lib.extract_cubes(occ_card, cfg)
+    cubes_cpu = m.occ_lib.extract_cubes(occ_cpu, cfg)
+    cams_cpu = [m.rendering.look_at_camera(
+        c.origin.cpu().tolist(), [0.0, 0.0, 0.0], c.focal, c.h, c.w,
+        device="cpu") for c in cams]
+    dir_diff, origin_equal = 0.0, True
+    for cg, cc in zip(cams, cams_cpu):
+        (og, dg), (oc, dc) = (m.rendering.camera_rays(c) for c in (cg, cc))
+        dir_diff = max(dir_diff, float((dg.cpu() - dc).abs().max()))
+        origin_equal &= bool(torch.equal(og.cpu(), oc))
+    kw = dict(device=dev, ray_chunk=GEO_RAY_CHUNK, max_batch_views=len(cams),
+              pair_budget=GEO_PAIR_BUDGET, adaptive_pair_budget=False)
+    t0 = time.perf_counter()
+    by_card = m.RenderEngine(cfg, field, cubes_card, **kw).render_views(cams)
+    by_cpu = m.RenderEngine(cfg, field, cubes_cpu, **kw).render_views(
+        cams_cpu)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    views = [{k: (a.stats[k], b.stats[k]) for k in (
+        "processed_samples", "active_pairs_max", "dropped_pairs")}
+        for a, b in zip(by_card, by_cpu)]
+    img_diff = max(max_diff(a.img, b.img) for a, b in zip(by_card, by_cpu))
+    img_over = sum(int((np.abs(a.img - b.img).max(axis=-1) > 1e-4).sum())
+                   for a, b in zip(by_card, by_cpu))
+    line = {"phase": "geometry", "seconds": time.perf_counter() - t_phase,
+            "grid_coords_equal": xs_equal, "occupancy_equal": occ_equal,
+            "occupied_voxels": int(occ_card.sum()),
+            "cubes": [cubes_card.count, cubes_cpu.count],
+            "card_occupancy_s": card_occ_s, "cpu_occupancy_s": cpu_occ_s,
+            "ray_origins_equal": origin_equal,
+            "ray_direction_max_abs_diff": dir_diff,
+            "ray_chunk": GEO_RAY_CHUNK, "render_s": render_s,
+            "views": views, "image_max_abs_diff": img_diff,
+            "pixels_over_1e-4": img_over}
+    check(xs_equal, "grid coordinates differ between the card and the CPU")
+    check(occ_equal, "occupancy grid differs between the card and the CPU")
+    check(cubes_card.count == cubes_cpu.count and torch.equal(
+        cubes_card.centers.cpu(), cubes_cpu.centers), "cube sets differ")
+    check(origin_equal, "ray origins differ")
+    for i, v in enumerate(views):
+        for k in ("processed_samples", "active_pairs_max", "dropped_pairs"):
+            check(v[k][0] == v[k][1], f"view {i} {k}: card geometry "
+                  f"{v[k][0]}, CPU geometry {v[k][1]}")
+    return line
 
 
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
@@ -700,10 +1152,16 @@ def profile_chunk(torch, engine, rendering, dev) -> dict:
         engine.submit(cam).result()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, stages = [], {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0.0)
-        if e.device_type.name == "CUDA" and us > 0:
+        if e.key.startswith("rtnerf."):
+            # the renderer's record_function ranges: their device time
+            # spans the kernels inside them, so it is not added again
+            stages[e.key] = {"device_ms": us * 1e-3,
+                             "host_ms": e.cpu_time_total * 1e-3,
+                             "calls": e.count}
+        elif e.device_type.name == "CUDA" and us > 0:
             rows.append((us, e.key, e.count))
     busy_s = sum(r[0] for r in rows) * 1e-6
     rows.sort(reverse=True)
@@ -712,7 +1170,8 @@ def profile_chunk(torch, engine, rendering, dev) -> dict:
             "device_busy_s": busy_s if rows else "not measured",
             "device_busy_share": busy_s / wall if rows else "not measured",
             "top_kernels": [{"name": k[:80], "device_ms": us * 1e-3,
-                             "calls": n} for us, k, n in rows[:8]]}
+                             "calls": n} for us, k, n in rows[:8]],
+            "stages": stages}
 
 
 def main() -> int:
@@ -825,7 +1284,11 @@ def main() -> int:
         launches = {name: k.launches for name, k in kernels.items()}
     t_serve = time.perf_counter() - t0
     st = engine.stats()
+    steps = (len(cams) * -(-args.res ** 2 // engine.ray_chunk)
+             * (cfg.max_cubes // engine.cube_chunk))
     emit({"phase": "serve", "engine_setup_s": t_engine, "serve_s": t_serve,
+          "scan_steps": steps,
+          "step_ms": t_serve / steps * 1e3,
           "cubes": engine.cubes.count, "views": len(results),
           "res": args.res, "fps": st["fps"],
           "latency_p50_s": st["latency_p50_s"],
@@ -885,6 +1348,22 @@ def main() -> int:
 
     # -- profile: where one 4096-ray chunk's 1024 scan steps spend time ---
     emit(profile_chunk(torch, engine, rendering, dev))
+
+    # -- the serving tier: store, delta, auto-flush, per-op route, geometry
+    m = types.SimpleNamespace(
+        field_lib=field_lib, occ_lib=occ_lib, rendering=rendering,
+        tensorf=tensorf, fused_sample=fused_sample,
+        RenderEngine=RenderEngine)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
+        line, store_engine = store_phase(torch, m, cfg, args.seed, dev, spill,
+                                         kernels)
+        emit(line)
+        emit(delta_phase(torch, m, cfg, field, engine.cubes, dev, kernels))
+        emit(auto_flush_phase(torch, m, store_engine, ("s0", "s1"), dev,
+                              kernels))
+        del store_engine
+    emit(per_op_route_phase(torch, m, cfg, field, dev, kernels))
+    emit(geometry_phase(torch, m, cfg, field, cams, dev))
 
     # -- kernel_ops: the ops entry points beside the serve path -----------
     t0 = time.perf_counter()

@@ -1,0 +1,318 @@
+"""Checkpoints in the reference's on-disk format. The port of
+`repro/ckpt/checkpoint.py`.
+
+API: `save_checkpoint`/`restore_checkpoint` round-trip a tree of tensors
+(dicts, lists, tuples, named tuples; None is an empty subtree) through
+`step_XXXXXXXX/` directories (restore needs a `like` template);
+`save_state_dict`/`restore_state_dict` round-trip flat {name: array} dicts
+with the key order in the manifest (no template needed);
+`save_field`/`restore_field` checkpoint a `core.field.FieldBackend` in its
+current representation: an encoded field's bitmap/COO streams are written
+and rebuilt bit for bit, never decompressed. `spill_field`/`unspill_field`
+are the serving store's eviction path. `CheckpointManager` adds an async
+save and retention.
+
+The format is the reference's, byte for byte, so a checkpoint written by
+either package restores in the other:
+
+  * `step_XXXXXXXX/` is written as `step_XXXXXXXX.tmp/`, fsynced and
+    renamed, so a crash never leaves a readable partial checkpoint;
+  * `manifest.json` holds `{step, treedef, leaves, extra}` with
+    `leaves[i] = {shape, dtype, crc}`, `crc = zlib.crc32(arr.tobytes())`,
+    checked on restore;
+  * `leaf_NNNNN.npy` holds leaf i, in the reference's flatten order: a
+    dict's keys sorted, lists and tuples in order, None dropped
+    (`flatten`). `treedef` is written for readers only; neither package
+    parses it;
+  * the last `keep` steps are retained.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+import zlib
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+# -- tree flattening in the reference's leaf order ---------------------------
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def flatten(tree) -> Tuple[List[Any], str]:
+    """(leaves, treedef string) with leaf i where the reference's
+    `jax.tree.flatten` puts it: dict keys in sorted order, list, tuple and
+    named-tuple items in order, None an empty subtree, anything else a
+    leaf. The string mimics the reference's `str(treedef)`."""
+    leaves: List[Any] = []
+
+    def walk(x) -> str:
+        if x is None:
+            return "None"
+        if isinstance(x, dict):
+            return "{" + ", ".join(f"{k!r}: {walk(x[k])}"
+                                   for k in sorted(x)) + "}"
+        if _is_namedtuple(x):
+            inner = ", ".join(walk(v) for v in x)
+            return f"CustomNode(namedtuple[{type(x).__name__}], [{inner}])"
+        if isinstance(x, (list, tuple)):
+            inner = [walk(v) for v in x]
+            if isinstance(x, list):
+                return "[" + ", ".join(inner) + "]"
+            return "(" + ", ".join(inner) + ("," if len(inner) == 1 else "") \
+                + ")"
+        leaves.append(x)
+        return "*"
+
+    return leaves, f"PyTreeDef({walk(tree)})"
+
+
+def unflatten(like, leaves: List[Any]):
+    """The structure of `like` with its leaves replaced, in `flatten`
+    order."""
+    it = iter(leaves)
+
+    def build(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            out = {k: build(x[k]) for k in sorted(x)}
+            return {k: out[k] for k in x}          # the template's key order
+        if _is_namedtuple(x):
+            return type(x)(*[build(v) for v in x])
+        if isinstance(x, (list, tuple)):
+            return type(x)(build(v) for v in x)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the template holds")
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+# -- step directories ---------------------------------------------------------
+
+
+def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3,
+                    extra_meta: Optional[dict] = None):
+    os.makedirs(directory, exist_ok=True)
+    flat, treedef = flatten(tree)
+    tmp = os.path.join(directory, f"step_{step:08d}.tmp")
+    final = os.path.join(directory, f"step_{step:08d}")
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp)
+    manifest = {"step": step, "treedef": treedef, "leaves": [],
+                "extra": extra_meta or {}}
+    for i, leaf in enumerate(flat):
+        arr = _host(leaf)
+        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+        manifest["leaves"].append({
+            "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "crc": zlib.crc32(arr.tobytes()) & 0xFFFFFFFF,
+        })
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+        os.fsync(f.fileno())
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)                      # atomic publish
+    _apply_retention(directory, keep)
+    return final
+
+
+def _apply_retention(directory: str, keep: int):
+    steps = sorted(latest_steps(directory))
+    for s in steps[:-keep]:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def latest_steps(directory: str):
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for d in os.listdir(directory):
+        if d.startswith("step_") and not d.endswith(".tmp"):
+            try:
+                out.append(int(d.split("_")[1]))
+            except ValueError:
+                pass
+    return sorted(out)
+
+
+def latest_step(directory: str) -> Optional[int]:
+    steps = latest_steps(directory)
+    return steps[-1] if steps else None
+
+
+def read_manifest(directory: str, step: int) -> dict:
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        return json.load(f)
+
+
+def _load_leaf(path: str, i: int, meta: dict) -> np.ndarray:
+    arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+    crc = zlib.crc32(arr.tobytes()) & 0xFFFFFFFF
+    if crc != meta["crc"]:
+        raise IOError(f"checkpoint corruption in leaf {i} of {path}")
+    return arr.astype(np.dtype(meta["dtype"]))
+
+
+def restore_checkpoint(directory: str, step: int, like: Any, *,
+                       device: DeviceLike = None) -> Any:
+    """Restore into the structure of `like`, every leaf a tensor on
+    `device` (None: the card)."""
+    dev = resolve_device(device)
+    path = os.path.join(directory, f"step_{step:08d}")
+    manifest = read_manifest(directory, step)
+    flat_like, _ = flatten(like)
+    if len(flat_like) != len(manifest["leaves"]):
+        raise ValueError(f"leaf count mismatch: {len(flat_like)} vs "
+                         f"{len(manifest['leaves'])}")
+    # _load_leaf's astype is a fresh, writable copy (0-d arrays stay 0-d)
+    out = [torch.from_numpy(_load_leaf(path, i, meta)).to(dev)
+           for i, meta in enumerate(manifest["leaves"])]
+    return unflatten(like, out)
+
+
+# --------------------------------------------------------------------------
+# Flat state dicts + encoded radiance fields
+# --------------------------------------------------------------------------
+
+
+def save_state_dict(directory: str, step: int, state: dict, *,
+                    keep: int = 3, extra_meta: Optional[dict] = None):
+    """Save a flat {name: array} dict; names are recorded in the manifest so
+    the restore needs no `like` template."""
+    meta = dict(extra_meta or {})
+    meta["state_keys"] = sorted(state)
+    return save_checkpoint(directory, step, dict(state), keep=keep,
+                           extra_meta=meta)
+
+
+def restore_state_dict(directory: str, step: int):
+    """-> ({name: np.ndarray}, extra_meta). Inverse of save_state_dict."""
+    path = os.path.join(directory, f"step_{step:08d}")
+    manifest = read_manifest(directory, step)
+    keys = manifest.get("extra", {}).get("state_keys")
+    if keys is None:
+        raise ValueError(f"checkpoint at {path} is not a state-dict "
+                         f"checkpoint (no state_keys in manifest)")
+    if len(keys) != len(manifest["leaves"]):
+        raise ValueError(f"checkpoint at {path}: {len(keys)} state keys "
+                         f"for {len(manifest['leaves'])} leaves")
+    # a dict flattens in sorted-key order, so leaf i <-> sorted key i
+    arrays = {k: _load_leaf(path, i, meta)
+              for i, (k, meta) in enumerate(zip(keys, manifest["leaves"]))}
+    return arrays, manifest["extra"]
+
+
+def save_field(directory: str, step: int, field, *, keep: int = 3,
+               extra_meta: Optional[dict] = None):
+    """Checkpoint a FieldBackend in its current representation: an encoded
+    field's bitmap/COO streams are written as they are (no decompress)."""
+    from repro_torch.core import field as field_lib
+
+    spec, arrays = field_lib.field_state(field)
+    meta = dict(extra_meta or {})
+    meta["field_spec"] = spec
+    return save_state_dict(directory, step, arrays, keep=keep,
+                           extra_meta=meta)
+
+
+def restore_field(directory: str, step: int, cfg, *,
+                  device: DeviceLike = None):
+    """-> (FieldBackend on `device`, extra_meta). Rebuilds the exact
+    representation `save_field` wrote (formats, nnz, packed bytes)."""
+    from repro_torch.core import field as field_lib
+
+    arrays, extra = restore_state_dict(directory, step)
+    spec = extra.get("field_spec")
+    if spec is None:
+        raise ValueError(f"checkpoint at {directory} step {step} has no "
+                         f"field_spec: not a field checkpoint")
+    return field_lib.field_from_state(spec, arrays, cfg,
+                                      device=device), extra
+
+
+SPILL_STEP = 0
+
+
+def spill_field(directory: str, field, *, extra_meta: Optional[dict] = None):
+    """Demote a resident field to disk (the serving SceneStore's eviction
+    path): one `save_field` checkpoint at a fixed step with keep=1, so a
+    scene's spill directory holds exactly its latest encoded streams."""
+    return save_field(directory, SPILL_STEP, field, keep=1,
+                      extra_meta=extra_meta)
+
+
+def unspill_field(directory: str, cfg, *, device: DeviceLike = None):
+    """-> (FieldBackend, extra_meta). Inverse of `spill_field`: the exact
+    representation that was evicted, so a revived scene renders as
+    before."""
+    return restore_field(directory, SPILL_STEP, cfg, device=device)
+
+
+class CheckpointManager:
+    """Async save + restore-latest + retention. One writer at a time."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save_async(self, step: int, tree: Any):
+        """Copy every tensor to host numpy on the caller's thread (so the
+        caller may go on updating its tensors), then write on a thread."""
+        self.wait()                             # one save in flight
+        leaves, _ = flatten(tree)
+        # a copy: a CPU tensor's .numpy() shares its memory
+        host_tree = unflatten(tree, [np.array(_host(x)) for x in leaves])
+
+        def work():
+            try:
+                save_checkpoint(self.directory, step, host_tree,
+                                keep=self.keep)
+            except BaseException as e:          # surfaced on next wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self, timeout: Optional[float] = None):
+        """Join the save in flight and raise its error, if any. With a
+        `timeout`, a save still running after it raises TimeoutError."""
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                raise TimeoutError(
+                    f"checkpoint save still running after {timeout}s")
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def restore_latest(self, like: Any, *, device: DeviceLike = None):
+        step = latest_step(self.directory)
+        if step is None:
+            return None, None
+        return step, restore_checkpoint(self.directory, step, like,
+                                        device=device)

@@ -13,12 +13,14 @@ sets. The port of `repro/core/field.py`.
 
 `as_backend` is the one place that inspects a field's concrete type.
 `field_state`/`field_from_state` carry a field between this package and
-the reference as a json-able spec plus named numpy arrays.
+the reference as a json-able spec plus named numpy arrays;
+`cfg_mismatches` is the restore-time guard against a field of another
+config.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -317,3 +319,27 @@ def field_from_state(spec: Dict, arrays: Dict, cfg: NeRFConfig, *,
         factors[k] = tuple(efs)
     return CompressedField(factors, extras, cfg,
                            float(spec.get("threshold", 0.80)))
+
+
+def cfg_mismatches(field, cfg: NeRFConfig) -> List[str]:
+    """Shape-compare a (possibly encoded) field against the shapes
+    `tensorf.init_field(cfg)` would allocate (`tensorf.field_shapes`,
+    computed without allocating): the restore-time guard against serving
+    a field trained under another NeRFConfig. Returns the reference's
+    mismatch descriptions (empty = compatible)."""
+    like = tensorf.field_shapes(cfg)
+    field = as_backend(field, cfg)
+    if isinstance(field, DenseField):
+        got = {k: tuple(v.shape) for k, v in field.params.items()}
+    else:
+        got = {k: tuple(v.shape) for k, v in field.extras.items()}
+        for k, efs in field.factors.items():
+            got[k] = (len(efs),) + tuple(efs[0].nd_shape)
+    bad = []
+    for k in sorted(like):          # the reference's order: jax sorts keys
+        shape = like[k]
+        if k not in got:
+            bad.append(f"{k}: missing from field")
+        elif tuple(got[k]) != tuple(shape):
+            bad.append(f"{k}: field {tuple(got[k])} != cfg {tuple(shape)}")
+    return bad

@@ -27,8 +27,13 @@ class CubeSet(NamedTuple):
 
 
 def grid_coords(cfg: NeRFConfig, device) -> torch.Tensor:
+    """Voxel-center coordinates along one axis of the occupancy grid. The
+    divisor is a 0-dim device tensor: a CUDA tensor divided by a Python
+    scalar is a product with the reciprocal, one ulp off the true quotient
+    the reference and the CPU compute."""
     g = cfg.occ_res
-    xs = (torch.arange(g, device=device) + 0.5) / g * 2.0 - 1.0
+    g_t = torch.full((), float(g), dtype=torch.float32, device=device)
+    xs = (torch.arange(g, device=device) + 0.5) / g_t * 2.0 - 1.0
     return xs * cfg.scene_bound
 
 

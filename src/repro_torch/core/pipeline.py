@@ -13,16 +13,21 @@ slabs, compacts the hitting ray-cube pairs into a fixed budget, evaluates
 the field on their samples (the fused kernel for an encoded field),
 composites each segment and scatters the result into per-ray
 accumulators. The reference's `lax.scan` is a Python loop here with no
-host synchronisation inside it: every counter stays a device tensor.
+host synchronisation inside it: every counter stays a device tensor. The
+stages carry `torch.profiler.record_function` ranges named as the
+reference's `jax.named_scope` markers (`rtnerf.intersect`, `.compact`,
+`.field_eval`, `.composite`, `.scatter`) while a profiler records.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.core import field as field_lib
@@ -71,20 +76,50 @@ class OrderingCache:
     """Cache of per-view `order_cubes` schedules, one entry per
     `ordering_key`, LRU-bounded by `max_entries`. In "trajectory" mode an
     exact-key miss falls back to the nearest cached pose within
-    `nn_radius` quanta (tie-break on (distance, key))."""
+    `nn_radius` quanta (tie-break on (distance, key), so lookups do not
+    depend on LRU order).
+
+    `scene` labels the cache (the serving SceneStore keeps one per resident
+    scene); `with_cubes(cubes)` is the rebuild path: a NEW cache over the
+    new cube set that carries the hit/miss counters forward, so an
+    in-flight render keeps its old cache consistent while telemetry stays
+    cumulative. With a metrics `registry`, hits and misses are also
+    exported as `ordering_cache_hits` / `ordering_cache_misses` counters
+    (labelled by scene)."""
 
     def __init__(self, cubes: CubeSet, mode: str = "octant",
-                 max_entries: int = 64, *, pose_quantum: float = 0.25,
-                 nn_radius: float = 1.5):
+                 max_entries: int = 64, scene: Optional[str] = None, *,
+                 pose_quantum: float = 0.25, nn_radius: float = 1.5,
+                 registry=None):
         self.cubes = cubes
         self.mode = mode
+        self.scene = scene
         self.max_entries = int(max_entries)
         self.pose_quantum = float(pose_quantum)
         self.nn_radius = float(nn_radius)
+        self.registry = registry
         self._entries = collections.OrderedDict()  # key -> (perm, ctr, vld)
         self.hits = 0
         self.misses = 0
-        self.nn_hits = 0
+        self.nn_hits = 0            # subset of hits served by NN fallback
+        self._c_hits = self._c_misses = None
+        if registry is not None:
+            labels = {"scene": scene} if scene is not None else {}
+            self._c_hits = registry.counter("ordering_cache_hits", **labels)
+            self._c_misses = registry.counter("ordering_cache_misses",
+                                              **labels)
+
+    def with_cubes(self, cubes: CubeSet) -> "OrderingCache":
+        """Fresh (empty) cache over `cubes`, counters carried over: the
+        cube-set-changed path (occupancy rebuild, field swap). A new object
+        rather than an in-place invalidate, so a snapshot taken before the
+        swap keeps rendering from a consistent (cubes, ordering) pair."""
+        nxt = OrderingCache(cubes, self.mode, self.max_entries, self.scene,
+                            pose_quantum=self.pose_quantum,
+                            nn_radius=self.nn_radius, registry=self.registry)
+        nxt.hits, nxt.misses, nxt.nn_hits = (self.hits, self.misses,
+                                             self.nn_hits)
+        return nxt
 
     def key_for(self, origin) -> tuple:
         return ordering_key(origin, self.mode, self.pose_quantum)
@@ -97,25 +132,35 @@ class OrderingCache:
                 best = (d, k2)
         return None if best is None else best[1]
 
+    def _note(self, hit: bool, nn: bool = False):
+        if hit:
+            self.hits += 1
+            self.nn_hits += int(nn)
+            if self._c_hits is not None:
+                self._c_hits.inc()
+        else:
+            self.misses += 1
+            if self._c_misses is not None:
+                self._c_misses.inc()
+
     def _lookup(self, origin) -> tuple:
         k = self.key_for(origin)
         e = self._entries.get(k)
         if e is None and self.mode == "trajectory":
             k_nn = self._nearest(k)
             if k_nn is not None:
-                self.hits += 1
-                self.nn_hits += 1
+                self._note(hit=True, nn=True)
                 self._entries.move_to_end(k_nn)
                 return self._entries[k_nn]
         if e is None:
-            self.misses += 1
+            self._note(hit=False)
             perm = order_cubes(self.cubes, origin, self.mode)
             e = (perm, self.cubes.centers[perm], self.cubes.valid[perm])
             self._entries[k] = e
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
         else:
-            self.hits += 1
+            self._note(hit=True)
             self._entries.move_to_end(k)
         return e
 
@@ -127,6 +172,13 @@ class OrderingCache:
         """The permuted (centers, valid) tensors for this view."""
         _, centers, valid = self._lookup(origin)
         return centers, valid
+
+    def invalidate(self, cubes: Optional[CubeSet] = None):
+        """Drop every cached schedule (counters kept), optionally over a
+        new cube set."""
+        self._entries.clear()
+        if cubes is not None:
+            self.cubes = cubes
 
     def stats(self) -> Dict[str, int]:
         return {"hits": self.hits, "misses": self.misses,
@@ -173,6 +225,16 @@ def compact_select(flat_hit: torch.Tensor, budget: int) -> torch.Tensor:
     key = ((~flat_hit).to(torch.int32) * n
            + torch.arange(n, dtype=torch.int32, device=flat_hit.device))
     return torch.argsort(key, stable=True)[:budget]
+
+
+def _stage(name: str):
+    """A `torch.profiler.record_function` range named like the
+    reference's `jax.named_scope` stage markers, opened only while a
+    profiler records (a range costs microseconds of host time on every
+    scan step otherwise)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return contextlib.nullcontext()
 
 
 def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
@@ -225,56 +287,64 @@ def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
             ctr, vld = ctr_all[s], vld_all[s]
 
             # Step 2-1-d: line-slab intersection of every ray with each cube
-            ta = (ctr[:, None] - half - rays_o[None]) / safe_d[None]
-            tb = (ctr[:, None] + half - rays_o[None]) / safe_d[None]
-            t0 = torch.minimum(ta, tb).amax(dim=-1)             # (chunk, N)
-            t1 = torch.maximum(ta, tb).amin(dim=-1)
-            alive = torch.exp(log_t) > cfg.term_eps
-            # t1 > near: cubes behind the camera yield no samples and
-            # must not take pair-budget slots
-            hit = (t1 > t0) & (t1 > cfg.near) & vld[:, None] & alive[None]
-            t0 = torch.clamp(t0, min=cfg.near)
+            with _stage("rtnerf.intersect"):
+                ta = (ctr[:, None] - half - rays_o[None]) / safe_d[None]
+                tb = (ctr[:, None] + half - rays_o[None]) / safe_d[None]
+                t0 = torch.minimum(ta, tb).amax(dim=-1)         # (chunk, N)
+                t1 = torch.maximum(ta, tb).amin(dim=-1)
+                alive = torch.exp(log_t) > cfg.term_eps
+                # t1 > near: cubes behind the camera yield no samples and
+                # must not take pair-budget slots
+                hit = (t1 > t0) & (t1 > cfg.near) & vld[:, None] & alive[None]
+                t0 = torch.clamp(t0, min=cfg.near)
 
             # active-pair compaction: hits first, cut to the budget
-            flat_hit = hit.reshape(-1)
-            idx = compact_select(flat_hit, budget)
-            sel = flat_hit[idx]
-            ray_i = idx % n_rays
-            t0s = t0.reshape(-1)[idx]
-            t1s = t1.reshape(-1)[idx]
-            ro_s = rays_o[ray_i]
-            rd_s = rays_d[ray_i]
-            ts = t0s[:, None] + offs[None]
-            s_mask = sel[:, None] & (ts < t1s[:, None])         # (budget, ns)
-            pts = ro_s[:, None] + rd_s[:, None] * ts[..., None]
-            # points grouped by chunk-local cube for the fused kernel;
-            # non-selected pairs land out of window and are masked below
-            cid = (idx // n_rays).to(torch.int32)[:, None].expand(
-                s_mask.shape).reshape(-1)
+            with _stage("rtnerf.compact"):
+                flat_hit = hit.reshape(-1)
+                idx = compact_select(flat_hit, budget)
+                sel = flat_hit[idx]
+                ray_i = idx % n_rays
+                t0s = t0.reshape(-1)[idx]
+                t1s = t1.reshape(-1)[idx]
+                ro_s = rays_o[ray_i]
+                rd_s = rays_d[ray_i]
+                ts = t0s[:, None] + offs[None]
+                s_mask = sel[:, None] & (ts < t1s[:, None])    # (budget, ns)
+                pts = ro_s[:, None] + rd_s[:, None] * ts[..., None]
+                # points grouped by chunk-local cube for the fused kernel;
+                # non-selected pairs land out of window and are masked below
+                cid = (idx // n_rays).to(torch.int32)[:, None].expand(
+                    s_mask.shape).reshape(-1)
 
-            sigma, feats = f.sigma_app(pts.reshape(-1, 3), ctr, cid)
-            sigma = torch.where(s_mask, sigma.reshape(s_mask.shape), 0.0)
-            dirs = rd_s[:, None].expand(pts.shape).reshape(-1, 3)
-            rgb = f.color(feats, dirs).reshape(*s_mask.shape, 3)
+            # the reference's fused.* scopes inside its Pallas kernel have
+            # no host counterpart: that work is one CUDA kernel launch
+            with _stage("rtnerf.field_eval"):
+                sigma, feats = f.sigma_app(pts.reshape(-1, 3), ctr, cid)
+                sigma = torch.where(s_mask, sigma.reshape(s_mask.shape), 0.0)
+                dirs = rd_s[:, None].expand(pts.shape).reshape(-1, 3)
+                rgb = f.color(feats, dirs).reshape(*s_mask.shape, 3)
 
             # per-pair compositing along the segment
-            tau = sigma * delta
-            cum = torch.cumsum(tau, dim=-1)
-            w = torch.exp(-(cum - tau)) * (1.0 - torch.exp(-tau))
-            seg_rgb = torch.sum(w[..., None] * rgb, dim=-2)     # (budget, 3)
-            seg_d = torch.sum(w * ts, dim=-1)
-            seg_tau = torch.where(sel, cum[..., -1], 0.0)
+            with _stage("rtnerf.composite"):
+                tau = sigma * delta
+                cum = torch.cumsum(tau, dim=-1)
+                w = torch.exp(-(cum - tau)) * (1.0 - torch.exp(-tau))
+                seg_rgb = torch.sum(w[..., None] * rgb, dim=-2)  # (budget, 3)
+                seg_d = torch.sum(w * ts, dim=-1)
+                seg_tau = torch.where(sel, cum[..., -1], 0.0)
 
             # scatter into the per-ray accumulators (pre-step T)
-            t_here = torch.exp(log_t)[ray_i]
-            color.index_add_(0, ray_i, torch.where(
-                sel[:, None], t_here[:, None] * seg_rgb, 0.0))
-            depth.index_add_(0, ray_i, torch.where(sel, t_here * seg_d, 0.0))
-            log_t.index_add_(0, ray_i, -seg_tau)
-            processed = processed + s_mask.sum(dtype=torch.float32)
-            n_hit = flat_hit.sum(dtype=torch.int32)
-            dropped = dropped + torch.clamp(n_hit - budget, min=0)
-            pairs_max = torch.maximum(pairs_max, n_hit)
+            with _stage("rtnerf.scatter"):
+                t_here = torch.exp(log_t)[ray_i]
+                color.index_add_(0, ray_i, torch.where(
+                    sel[:, None], t_here[:, None] * seg_rgb, 0.0))
+                depth.index_add_(0, ray_i,
+                                 torch.where(sel, t_here * seg_d, 0.0))
+                log_t.index_add_(0, ray_i, -seg_tau)
+                processed = processed + s_mask.sum(dtype=torch.float32)
+                n_hit = flat_hit.sum(dtype=torch.int32)
+                dropped = dropped + torch.clamp(n_hit - budget, min=0)
+                pairs_max = torch.maximum(pairs_max, n_hit)
 
         t_final = torch.exp(log_t)
         if white_bg:

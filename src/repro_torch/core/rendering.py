@@ -35,9 +35,13 @@ def look_at_camera(origin, target, focal, h, w, *,
 
 
 def pixel_rays(cam: Camera, px: torch.Tensor, py: torch.Tensor):
-    """px,py (N,) pixel coords -> unit ray dirs (N,3) in world."""
-    x = (px + 0.5 - cam.w / 2.0) / cam.focal
-    y = -(py + 0.5 - cam.h / 2.0) / cam.focal
+    """px,py (N,) pixel coords -> unit ray dirs (N,3) in world. The focal
+    length divides as a 0-dim device tensor, so the card computes the true
+    quotient as the CPU does (not a product with the reciprocal)."""
+    focal = torch.full((), float(cam.focal), dtype=torch.float32,
+                       device=px.device)
+    x = (px + 0.5 - cam.w / 2.0) / focal
+    y = -(py + 0.5 - cam.h / 2.0) / focal
     d_cam = torch.stack([x, y, -torch.ones_like(x)], dim=-1)
     d = d_cam @ cam.c2w.T
     return d / torch.linalg.norm(d, dim=-1, keepdim=True)

@@ -37,36 +37,42 @@ def mlp_in_dim(cfg: NeRFConfig) -> int:
     return d_dir + d_feat
 
 
+def field_shapes(cfg: NeRFConfig) -> Dict[str, Tuple[int, ...]]:
+    """The shape of every parameter `init_field(cfg)` allocates, computed
+    from the config alone (nothing is allocated)."""
+    g, h, in_dim = cfg.grid_res, cfg.mlp_hidden, mlp_in_dim(cfg)
+    return {
+        "sigma_planes": (3, cfg.r_sigma, g, g),
+        "sigma_lines": (3, cfg.r_sigma, g),
+        "app_planes": (3, cfg.r_color, g, g),
+        "app_lines": (3, cfg.r_color, g),
+        "basis": (3 * cfg.r_color, cfg.app_dim),
+        "mlp_w1": (in_dim, h),
+        "mlp_b1": (h,),
+        "mlp_w2": (h, h),
+        "mlp_b2": (h,),
+        "mlp_w3": (h, 3),
+        "mlp_b3": (3,),
+    }
+
+
 def init_field(cfg: NeRFConfig, generator: torch.Generator, *,
                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    """Random field parameters: normal draws from `generator` (a CPU
-    generator, so a seed gives the same field on every device) scaled by
-    fan-in as in the reference. Zero biases."""
+    """Random field parameters of `field_shapes(cfg)`: normal draws from
+    `generator` (a CPU generator, so a seed gives the same field on every
+    device) scaled by fan-in as in the reference. Zero biases."""
     dev = resolve_device(device)
-    g = cfg.grid_res
-
-    def w(shape, fan_in, scale=1.0):
+    out = {}
+    for k, shape in field_shapes(cfg).items():
+        if k.startswith("mlp_b"):
+            out[k] = torch.zeros(shape, dtype=torch.float32, device=dev)
+            continue
+        fan_in, scale = (1, 0.1) if k in sparse.FACTOR_KEYS else (shape[0],
+                                                                  1.0)
         std = scale / math.sqrt(max(fan_in, 1))
-        return (torch.randn(shape, generator=generator,
-                            dtype=torch.float32) * std).to(dev)
-
-    def z(shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
-
-    in_dim = mlp_in_dim(cfg)
-    return {
-        "sigma_planes": w((3, cfg.r_sigma, g, g), 1, 0.1),
-        "sigma_lines": w((3, cfg.r_sigma, g), 1, 0.1),
-        "app_planes": w((3, cfg.r_color, g, g), 1, 0.1),
-        "app_lines": w((3, cfg.r_color, g), 1, 0.1),
-        "basis": w((3 * cfg.r_color, cfg.app_dim), 3 * cfg.r_color),
-        "mlp_w1": w((in_dim, cfg.mlp_hidden), in_dim),
-        "mlp_b1": z((cfg.mlp_hidden,)),
-        "mlp_w2": w((cfg.mlp_hidden, cfg.mlp_hidden), cfg.mlp_hidden),
-        "mlp_b2": z((cfg.mlp_hidden,)),
-        "mlp_w3": w((cfg.mlp_hidden, 3), cfg.mlp_hidden),
-        "mlp_b3": z((3,)),
-    }
+        out[k] = (torch.randn(shape, generator=generator,
+                              dtype=torch.float32) * std).to(dev)
+    return out
 
 
 def to_grid(cfg: NeRFConfig, pts: torch.Tensor) -> torch.Tensor:
@@ -247,27 +253,42 @@ def fused_field_inputs(cf) -> Tuple:
     return tuple(spec), tuple(streams)
 
 
-def hybrid_dispatch(cf, force=None) -> str:
-    """The path `eval_sigma_app_hybrid` takes for this field on its device:
-    "fused" (CUDA kernel), "fused_ref" (plain version) or "per-op"."""
-    spec, _ = fused_field_inputs(cf)
-    mode = ops.fused_mode(force, cf.device)
+def _route(cfg: NeRFConfig, spec, force, device) -> str:
+    """"fused", "fused_ref" or "per-op" for this field on `device`. Where
+    the kernel route is taken (CUDA tensors, or `force="fused"`), a field
+    whose fused window does not fit the kernel's shared memory, or whose
+    app_dim is above the kernel's, takes the per-op gathers instead: the
+    reference's own fallback for structures the fused path cannot stream.
+    The plain version (the CPU's default) has no such limit."""
+    mode = ops.fused_mode(force, device)
     if spec is None or mode == "per-op":
         return "per-op"
+    if mode == "fused" and not fused_sample.fused_fits(
+            fused_window(cfg), spec[0][1], spec[6][1], cfg.app_dim):
+        return "per-op"
     return mode
+
+
+def hybrid_dispatch(cf, force=None) -> str:
+    """The path `eval_sigma_app_hybrid` takes for this field on its device:
+    "fused" (CUDA kernel), "fused_ref" (plain version) or "per-op" (the
+    gathers: the field cannot stream, or its window does not fit the
+    kernel)."""
+    spec, _ = fused_field_inputs(cf)
+    return _route(cf.cfg, spec, force, cf.device)
 
 
 def eval_sigma_app_hybrid(cf, cfg: NeRFConfig, pts: torch.Tensor,
                           cube_base: torch.Tensor, cube_id: torch.Tensor,
                           force=None):
     """(sigma, app_features) over an encoded field in one pass of the fused
-    kernel; the per-op gather composition when the field cannot stream or
-    `force` is "per-op". The same math as eval_sigma_hybrid +
-    eval_app_features_hybrid."""
+    kernel; the per-op gather composition (bitmap_gather / coo_gather
+    kernels on the card) when `hybrid_dispatch` says "per-op". The same
+    math as eval_sigma_hybrid + eval_app_features_hybrid."""
     spec, streams = fused_field_inputs(cf)
-    mode = ops.fused_mode(force, pts.device)
-    if spec is None or mode == "per-op":
-        per_op_force = None if mode == "per-op" else force
+    mode = _route(cfg, spec, force, pts.device)
+    if mode == "per-op":
+        per_op_force = force if spec is None else None
         return (eval_sigma_hybrid(cf, cfg, pts, per_op_force),
                 eval_app_features_hybrid(cf, cfg, pts, per_op_force))
     raw, feats = ops.fused_sigma_app(

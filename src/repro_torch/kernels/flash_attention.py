@@ -16,6 +16,14 @@ split into bfloat16 hi and lo parts for the P V product. It runs the
 plain PyTorch version `flash_attention_ref` on CPU tensors; anything else
 raises. `flash_attention.launches` counts kernel launches.
 
+Limits of the CUDA kernels, narrower than the Pallas kernel's (which
+takes any dtype and head dim): q, k and v must be float32 or bfloat16,
+the head dim D at most 128 (`MAX_HEAD_DIM`; the kernels pad D to 64 or
+128), and B * H at most 65,535. Anything else (float16, D 192, ...)
+raises ValueError on CUDA tensors; the plain version on CPU tensors has
+no such limit. Nothing in either package calls this outside the tests
+and the kernel entry point, so the limits stay until a caller needs more.
+
 `F32_TILES` and `f32_smem_bytes` mirror the float32 kernel's tile sizes
 and shared memory (a CPU test holds them against the .cu constants and
 the card's 227 KB limit).
@@ -63,7 +71,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v, float32 or bfloat16, D <= 128."""
+    """softmax(q k^T / sqrt(D)) v. On CUDA tensors: float32 or bfloat16
+    only, head dim D <= 128, B * H <= 65,535 (ValueError otherwise)."""
     if _build.all_on_cpu("flash_attention", q, k, v):
         return flash_attention_ref(q, k, v, causal=causal)
     _build.require(q.dim() == 4, "flash_attention: q must be (B, H, S, D)")

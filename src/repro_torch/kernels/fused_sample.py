@@ -210,6 +210,16 @@ def fused_smem_bytes(window: int, r_sigma: int, r_color: int) -> int:
     return 4 * (pb + lb + comp + basis + points) + 8
 
 
+def fused_fits(window: int, r_sigma: int, r_color: int,
+               app_dim: int) -> bool:
+    """Whether the sample kernel can take a field of this window, ranks
+    and app_dim: its shared memory (`fused_smem_bytes`) within the limit
+    a block may use, and app_dim within MAX_APP_DIM. Pure; a False sends
+    the field down the per-op gathers (`core/tensorf.hybrid_dispatch`)."""
+    return (app_dim <= MAX_APP_DIM and fused_smem_bytes(
+        window, r_sigma, r_color) <= MAX_SMEM_BYTES)
+
+
 def check_smem_fit(window: int, r_sigma: int, r_color: int) -> int:
     """The sample kernel's shared memory in bytes; raises ValueError when
     one (cube, mode) window does not fit beside the rest."""

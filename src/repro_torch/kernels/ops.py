@@ -93,7 +93,10 @@ def volume_render(sigma, rgb, *, delta: float, term_eps: float = 1e-4,
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     force: Optional[str] = None) -> torch.Tensor:
-    """Forward attention (B, H, S, D), causal from the top left."""
+    """Forward attention (B, H, S, D), causal from the top left. The CUDA
+    kernels take float32 or bfloat16 and a head dim D <= 128 only, and
+    raise ValueError on anything else; the plain version (CPU tensors, or
+    `force="ref"`) takes any dtype and head dim."""
     if force in _REF:
         return flash_mod.flash_attention_ref(q, k, v, causal=causal)
     return flash_mod.flash_attention(q, k, v, causal=causal)

@@ -921,3 +921,167 @@ def test_flash_f32_unaligned_pointer_is_staged_by_threads(cuda):
     got = tflash.flash_attention(*shifted, causal=True)
     want = tflash.flash_attention_ref(q, k, v, causal=True)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------ the serving tier on card ---
+def _oversized_cfg():
+    """A small config whose fused window (30 at R 16 + 48) is past the
+    sample kernel's shared memory: 2 x 2 x 2 cubes of 4 voxels."""
+    cfg = NeRFConfig(grid_res=32, occ_res=8, cube_size=4, max_cubes=8,
+                     mlp_hidden=16)
+    assert not fused_sample.fused_fits(ttensorf.fused_window(cfg),
+                                       cfg.r_sigma, cfg.r_color, cfg.app_dim)
+    return cfg
+
+
+def test_oversized_window_renders_through_the_per_op_gathers(cuda):
+    """The card serves a field whose fused window does not fit through the
+    per-op gather kernels (no fused launch), as the CPU serves it through
+    the plain fused version."""
+    cfg = _oversized_cfg()
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(3),
+                                 device="cpu")
+    field = tfield.DenseField(params, cfg).prune(sparsity=0.85).encode()
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 9.6, 8, 8,
+                                 device="cpu")
+    cpu = RenderEngine(cfg, field, device="cpu", ray_chunk=64)
+    kernels = (fused_sample.fused_sigma_app, bitmap_decode.bitmap_gather,
+               coo_gather.coo_gather)
+    before = [k.launches for k in kernels]
+    gpu = RenderEngine(cfg, field, device=cuda, ray_chunk=64)
+    assert gpu.field.dispatch_path() == "per-op"
+    got = gpu.submit(cam).result(timeout=120)
+    torch.cuda.synchronize()
+    after = [k.launches for k in kernels]
+    want = cpu.submit(cam).result(timeout=120)
+    assert got.stats["dispatch_path"] == "per-op"
+    assert want.stats["dispatch_path"] == "fused_ref"
+    assert after[0] == before[0]
+    fmts = {f for fs in field.formats().values() for f in fs}
+    for k, fmt, b, a in zip(kernels[1:], ("bitmap", "coo"), before[1:],
+                            after[1:]):
+        assert (a > b) == (fmt in fmts), (k.__name__, fmts)
+    assert got.stats["active_pairs_max"] == want.stats["active_pairs_max"] > 0
+    assert got.stats["processed_samples"] == want.stats["processed_samples"]
+    np.testing.assert_allclose(got.img, want.img, atol=1e-4)
+    with pytest.raises(ValueError, match="shared memory"):
+        spec, streams = ttensorf.fused_field_inputs(gpu.field)
+        pts = torch.zeros(4, 3, device=cuda)
+        fused_sample.fused_sigma_app(
+            spec, streams, gpu.field.extras["basis"], pts,
+            torch.zeros(1, 3, dtype=torch.int32, device=cuda),
+            torch.zeros(4, dtype=torch.int32, device=cuda),
+            grid_res=cfg.grid_res, scene_bound=cfg.scene_bound,
+            window=ttensorf.fused_window(cfg), app_dim=cfg.app_dim)
+
+
+def test_occupancy_and_rays_on_card_equal_the_cpus(cuda):
+    """Grid coordinates, occupancy and cube set built on the card equal
+    the CPU's bit for bit (the divisions are by 0-dim device tensors);
+    camera rays differ by at most an ulp of the direction, and no hit or
+    sample count moves."""
+    cfg = demo_config()
+    assert torch.equal(tocc.grid_coords(cfg, cuda).cpu(),
+                       tocc.grid_coords(cfg, "cpu"))
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(4),
+                                 device="cpu")
+    field = tfield.DenseField(params, cfg).prune(sparsity=0.9).encode()
+    occ_c = tocc.build_occupancy(field, cfg)
+    occ_g = tocc.build_occupancy(field.to(cuda), cfg)
+    assert torch.equal(occ_g.cpu(), occ_c)
+    cubes_c = tocc.extract_cubes(occ_c, cfg)
+    cubes_g = tocc.extract_cubes(occ_g, cfg)
+    assert cubes_g.count == cubes_c.count > 0
+    assert torch.equal(cubes_g.centers.cpu(), cubes_c.centers)
+    cpu = RenderEngine(cfg, field, cubes_c, device="cpu", ray_chunk=256)
+    gpu = RenderEngine(cfg, field, cubes_g, device=cuda, ray_chunk=256)
+    for i, origin in enumerate(([3.0, 2.0, 1.5], [-2.5, 3.0, 0.7])):
+        cams = [trender.look_at_camera(origin, [0, 0, 0], 19.2, 16, 16,
+                                       device=d) for d in ("cpu", cuda)]
+        (oc, dc), (og, dg) = (trender.camera_rays(c) for c in cams)
+        assert torch.equal(og.cpu(), oc)
+        assert float((dg.cpu() - dc).abs().max()) <= 2.5e-7
+        want = cpu.submit(cams[0]).result(timeout=120)
+        got = gpu.submit(cams[1]).result(timeout=120)
+        assert got.stats["processed_samples"] == \
+            want.stats["processed_samples"]
+        assert got.stats["active_pairs_max"] == \
+            want.stats["active_pairs_max"]
+
+
+def test_store_evict_frees_card_memory_and_revives_bitwise(cuda, tmp_path):
+    """Evicting a scene drops every device reference to it (the card's
+    allocated bytes fall by at least its factor bytes); revival rebuilds
+    equal streams and cube set, and the same image."""
+    import gc
+
+    from repro_torch.serving import SceneStore
+    cfg = demo_config()
+    store = SceneStore(cfg, device=cuda, spill_dir=str(tmp_path))
+    for s in ("a", "b"):
+        params = ttensorf.init_field(cfg, torch.Generator().manual_seed(
+            ord(s)), device="cpu")
+        store.register(s, tfield.DenseField(params, cfg).prune(
+            sparsity=0.9))
+    eng = RenderEngine(cfg, store=store, ray_chunk=256)
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 19.2, 16, 16,
+                                 device=cuda)
+    img = eng.submit(cam, scene="a").result(timeout=120).img
+    spec, arrays = tfield.field_state(store.get_field("a"))
+    cubes = store.snapshot("a").cubes
+    cubes = [t.cpu() for t in (cubes.centers, cubes.valid, cubes.occ)]
+    nbytes = store.stats("a")["factor_bytes"]
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    store.evict("a")
+    gc.collect()
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+    assert m0 - m1 >= nbytes, (m0, m1, nbytes)
+    assert store.resident_scenes() == ["b"]
+    spec2, arrays2 = tfield.field_state(store.get_field("a"))
+    assert spec2 == spec and sorted(arrays2) == sorted(arrays)
+    for k in arrays:
+        np.testing.assert_array_equal(arrays2[k], arrays[k])
+    back = store.snapshot("a").cubes
+    for a, b in zip((back.centers, back.valid, back.occ), cubes):
+        assert torch.equal(a.cpu(), b)
+    again = eng.submit(cam, scene="a").result(timeout=120).img
+    np.testing.assert_allclose(again, img, atol=1e-6)
+
+
+def test_auto_flush_result_timeout_on_card(cuda):
+    cfg = demo_config(tiny=True)
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(5),
+                                 device="cpu")
+    field = tfield.DenseField(params, cfg).prune(sparsity=0.9)
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 19.2, 16, 16,
+                                 device=cuda)
+    import threading
+
+    eng = RenderEngine(cfg, field, scene_name="a", device=cuda,
+                       ray_chunk=256, max_batch_views=3,
+                       auto_flush_interval=0.01)
+    try:
+        eng.register_scene("b", field)
+        futs = []
+
+        def producer():
+            for s in ("a", "b"):
+                futs.append(eng.submit(cam, scene=s))
+
+        threads = [threading.Thread(target=producer) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+            assert not t.is_alive()
+        results = [f.result(timeout=60) for f in futs]
+        flusher = eng._flusher
+    finally:
+        eng.close(timeout=60)
+    assert not flusher.is_alive()
+    assert len(results) == 4 and not any(r.timed_out for r in results)
+    for r in results[1:]:       # index_add_ on the card is atomic: 1e-6
+        np.testing.assert_allclose(r.img, results[0].img, atol=1e-6)

@@ -152,3 +152,72 @@ def test_validation_builds_messages_only_on_failure():
         _build.require(False, "as {is}")          # no args: taken as is
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         _build.require_cuda("t", torch.ones(2), torch.float32)
+
+
+@pytest.mark.parametrize("window,app_dim,fits", [
+    (10, 27, True), (23, 27, True), (24, 27, False), (31, 27, False),
+    (10, 32, True), (10, 33, False)])
+def test_fused_fits_is_the_smem_and_app_dim_limit(window, app_dim, fits):
+    """The predicate the dispatch consults: shared memory within the
+    limit (W 23 needs 222,760 bytes, W 24 235,048 at R 16 + 48) and
+    app_dim within MAX_APP_DIM."""
+    assert fused_sample.fused_fits(window, 16, 48, app_dim) is fits
+    assert fits == (app_dim <= fused_sample.MAX_APP_DIM and
+                    fused_sample.fused_smem_bytes(window, 16, 48)
+                    <= fused_sample.MAX_SMEM_BYTES)
+
+
+@pytest.mark.parametrize("cube_size,route", [(4, "fused"), (16, "per-op")])
+def test_dispatch_routes_oversized_windows_to_per_op_on_the_card(
+        monkeypatch, cube_size, route):
+    """On the card (mode "fused") a field whose window does not fit takes
+    the per-op gathers, which `dispatch_path` reports; the CPU keeps the
+    plain fused version, which has no such limit; "per-op" and "ref"
+    forces still win."""
+    cfg = NeRFConfig(cube_size=cube_size)
+    W = ttensorf.fused_window(cfg)
+    assert fused_sample.fused_fits(W, cfg.r_sigma, cfg.r_color,
+                                   cfg.app_dim) is (route == "fused")
+    spec = ((("bitmap", cfg.r_sigma, 1),) * 6
+            + (("coo", cfg.r_color, 1),) * 6)
+    cuda = torch.device("cuda")
+    assert ttensorf._route(cfg, spec, None, cuda) == route
+    assert ttensorf._route(cfg, spec, "fused", cuda) == route
+    assert ttensorf._route(cfg, spec, None, "cpu") == "fused_ref"
+    assert ttensorf._route(cfg, spec, "per-op", "cpu") == "per-op"
+    assert ttensorf._route(cfg, spec, "ref", cuda) == "fused_ref"
+    assert ttensorf._route(cfg, None, None, cuda) == "per-op"
+
+
+def test_hybrid_dispatch_and_eval_take_the_route(monkeypatch):
+    """hybrid_dispatch reports the route, and eval_sigma_app_hybrid takes
+    the per-op gathers for a field the kernel cannot hold (the kernel
+    route and the limit faked on the CPU): the same values as the fused
+    plain version, within 1e-5."""
+    cfg = demo_config(tiny=True)
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(0),
+                                 device="cpu")
+    cf = tfield.DenseField(params, cfg).prune(sparsity=0.6).encode(0.99)
+    assert cf.dispatch_path() == "fused_ref"
+    g = torch.Generator().manual_seed(1)
+    pts = (torch.rand(200, 3, generator=g) - 0.5) * 0.4
+    centers = torch.zeros(1, 3)
+    cid = torch.zeros(200, dtype=torch.int32)
+    base = ttensorf.window_base(cfg, centers)
+    want = ttensorf.eval_sigma_app_hybrid(cf, cfg, pts, base, cid)
+    calls = []
+    real_gather = ttensorf.gather_factor
+
+    def spy(ef, cols, force=None):
+        calls.append(force)
+        return real_gather(ef, cols, force)
+
+    monkeypatch.setattr(ttensorf, "gather_factor", spy)
+    monkeypatch.setattr(fused_sample, "fused_fits", lambda *a: False)
+    monkeypatch.setattr(ttensorf.ops, "fused_mode",
+                        lambda force=None, device=None: "fused")
+    assert ttensorf.hybrid_dispatch(cf) == "per-op"
+    got = ttensorf.eval_sigma_app_hybrid(cf, cfg, pts, base, cid)
+    assert len(calls) == 12 and set(calls) == {None}
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)

@@ -16,7 +16,10 @@ from repro_torch.configs.rtnerf import demo_config
 from repro_torch.core import field as tfield
 from repro_torch.core import rendering as trender
 from repro_torch.core import tensorf as ttensorf
-from repro_torch.serving import RenderEngine
+from repro_torch.ckpt import checkpoint as tckpt
+from repro_torch.serving import RenderEngine, SceneStore
+from repro_torch.serving import engine as tengine
+from repro_torch.serving import store as tstore
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -43,6 +46,20 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
 
+NEW_MODULES = ("obs/lockdebug.py", "obs/registry.py", "obs/tracing.py",
+               "obs/exposition.py", "ckpt/checkpoint.py", "serving/store.py",
+               "serving/temporal.py", "serving/engine.py")
+
+
+def test_the_checks_cover_the_serving_tier_modules():
+    """The import checks below walk every file of the port; the serving
+    tier's subpackages are among them."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(NEW_MODULES) <= files
+    assert {"obs/__init__.py", "ckpt/__init__.py"} <= files
+
+
 def test_no_port_file_imports_jax_or_the_reference():
     bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
            for p in _port_files() for root, line in _imported_roots(p)
@@ -67,7 +84,7 @@ def test_importing_the_port_loads_no_jax_or_reference_module():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-def test_entry_points_without_device_and_card_raise(monkeypatch):
+def test_entry_points_without_device_and_card_raise(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = demo_config(tiny=True)
     gen = torch.Generator().manual_seed(0)
@@ -84,4 +101,12 @@ def test_entry_points_without_device_and_card_raise(monkeypatch):
         RenderEngine(cfg, params)
     with pytest.raises(RuntimeError):
         tdevice.resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        SceneStore(cfg)
+    with pytest.raises(RuntimeError):
+        tckpt.restore_checkpoint(str(tmp_path), 0, {})
+    with pytest.raises(RuntimeError):
+        tstore.load_cubes(str(tmp_path))
+    with pytest.raises(RuntimeError):
+        tengine.prepare_field(cfg, "lego", ckpt_dir=None)
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
