@@ -21,6 +21,19 @@ line each:
            rendered on the CPU through the plain versions;
   profile  one 64 x 64 view (one ray chunk) under torch.profiler: the
            device's busy share and the kernels taking the most time;
+  store, delta, auto_flush, per_op_route, geometry  the serving tier:
+           scenes spilled and revived, delta frames, the flush thread,
+           a field past the fused kernel's shared memory, and occupancy
+           and rays built on the card against the CPU;
+  eval     the evaluation path at the paper's 800 x 800 view of the
+           serve phase's field and cube set: the ground truth of "lego",
+           render_rtnerf (eval_view, 8 cubes a scan step, the fused
+           kernel) and the uniform baseline (eval_view, 640,000 rays x
+           512 samples in passes, the gather kernels), each timed, with
+           its launches, stats and the paper's ratio of occupancy
+           accesses; each held against the port's CPU path
+           (render_rtnerf at 64 x 64, the baseline on 1,024 strided rays
+           of the view, the ground truth at 800 x 800 under a tie rule);
   kernel_ops  the kernel entry points `repro_torch.kernels.ops` offers
            beside the serve path, driven at full width: bitmap_matmul on
            Fig. 14's operand (app_planes slice 0 of the field, times x
@@ -47,7 +60,11 @@ line each:
            includes the wrapper's host time; the fused row's `host_ms` is
            that host time alone), the time of one PyTorch call
            computing the same function where there is one, and the least
-           time the card could take.
+           time the card could take. Rows 1 to 3 carry an `eval`
+           entry: the same at the eval path's shapes (the fused kernel
+           at a render_rtnerf scan step, the gathers at a quarter of one
+           uniform pass's appearance-plane call), with the launches of
+           one 800 x 800 view.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -124,6 +141,25 @@ PER_OP_CUBE_SIZE = 16
 # above any step's hitting pairs (about 400), so none is dropped
 GEO_RAY_CHUNK = 40960
 GEO_PAIR_BUDGET = 4096
+# the eval phase: the paper's render_800 view (focal 960, tile 80, 15
+# samples a segment) of the serve phase's field and cube set, on the
+# store phase's orbit angle; render_rtnerf composites EVAL_CHUNK cubes a
+# scan step. Its CPU parity: render_rtnerf at EVAL_PARITY_RES, the
+# uniform baseline on every EVAL_UNIFORM_STRIDE-th ray of the view
+# (1,024 rays), the ground truth at the full view
+EVAL_RES = 800
+EVAL_ANGLE = 0.3
+EVAL_CHUNK = 8
+EVAL_SCENE = "lego"
+EVAL_PARITY_RES = 64
+EVAL_UNIFORM_STRIDE = 625
+GT_TOL = 1e-4         # ground-truth colours off the tie pixels
+GT_TIE = 1e-5         # a final SDF this close to the hit threshold is a tie
+GT_TIE_SHARE = 1e-3   # ... and at most this share of pixels may flip
+# the gather rows' eval timing: the first EVAL_GATHER_ROWS of the 48 rows
+# of one render_uniform pass's appearance-plane call (its plain version
+# over the whole call would hold about 38 GB of int64 temporaries)
+EVAL_GATHER_ROWS = 12
 
 
 def emit(obj) -> None:
@@ -759,9 +795,9 @@ def per_op_route_phase(torch, m, cfg, field, dev, kernels) -> dict:
 
 def geometry_phase(torch, m, cfg, field, cams, dev) -> dict:
     """Occupancy and camera rays built on the card and on the CPU for the
-    serve phase's field and views: the grid and cube set bit for bit, and
-    the card's renders from either side's geometry with the same sample
-    and pair counts; the largest ray-direction difference is reported."""
+    serve phase's field and views: the grid, cube set and ray directions
+    bit for bit, and the card's renders from either side's geometry with
+    the same sample and pair counts."""
     t_phase = time.perf_counter()
     xs_equal = bool(torch.equal(m.occ_lib.grid_coords(cfg, dev).cpu(),
                                 m.occ_lib.grid_coords(cfg, "cpu")))
@@ -812,11 +848,373 @@ def geometry_phase(torch, m, cfg, field, cams, dev) -> dict:
     check(cubes_card.count == cubes_cpu.count and torch.equal(
         cubes_card.centers.cpu(), cubes_cpu.centers), "cube sets differ")
     check(origin_equal, "ray origins differ")
+    check(dir_diff == 0.0, f"ray directions differ by {dir_diff}")
     for i, v in enumerate(views):
         for k in ("processed_samples", "active_pairs_max", "dropped_pairs"):
             check(v[k][0] == v[k][1], f"view {i} {k}: card geometry "
                   f"{v[k][0]}, CPU geometry {v[k][1]}")
     return line
+
+
+class EvalCapture:
+    """Wraps the dispatch of the field kernels while a render runs: the
+    fused kernel's inputs at call number `fused_call` (cloned, no host
+    sync), the largest bitmap and COO gather call (held, not copied),
+    and, with `staged`, every COO launch counting its staged tiles into
+    that device counter while `tiles` adds up its query tiles."""
+
+    def __init__(self, ops, coo_gather, fused_call=None, staged=None):
+        self.ops, self.coo_gather = ops, coo_gather
+        self.orig = (ops.fused_sigma_app, ops.bitmap_gather, ops.coo_gather)
+        self.fused_call, self.fused_calls, self.fused = fused_call, 0, None
+        self.staged, self.tiles = staged, 0
+        self.gathers = {}       # fmt -> (args, kwargs, nq)
+
+    def __enter__(self):
+        self.ops.fused_sigma_app = self.fused_wrap
+        self.ops.bitmap_gather = self.gather_wrap("bitmap", self.orig[1])
+        self.ops.coo_gather = self.gather_wrap("coo", self.orig[2])
+        return self
+
+    def __exit__(self, *exc):
+        (self.ops.fused_sigma_app, self.ops.bitmap_gather,
+         self.ops.coo_gather) = self.orig
+
+    def fused_wrap(self, *args, **kw):
+        if self.fused_calls == self.fused_call:
+            self.fused = (tuple(a.clone() if hasattr(a, "clone") else a
+                                for a in args), kw)
+        self.fused_calls += 1
+        return self.orig[0](*args, **kw)
+
+    def gather_wrap(self, fmt, fn):
+        def wrapped(*args, **kw):
+            q = args[3] if fmt == "bitmap" else args[2]
+            prev = self.gathers.get(fmt)
+            if self.fused_call is None and (prev is None
+                                            or q.shape[0] > prev[2]):
+                self.gathers[fmt] = (args, kw, q.shape[0])
+            if fmt == "coo" and self.staged is not None \
+                    and kw.get("force") is None:
+                self.tiles += self.coo_gather.coo_plan(q.shape[0]).blocks
+                return self.coo_gather.coo_gather(*args,
+                                                  staged=self.staged)
+            return fn(*args, **kw)
+        return wrapped
+
+
+def gt_compare(torch, rays, got, want) -> dict:
+    """The ground truth's tie rule on (image, t, dist) from two devices:
+    hit masks equal except at pixels whose final SDF lies within GT_TIE of
+    the hit threshold on either side (at most GT_TIE_SHARE of the pixels),
+    colours within GT_TOL on every pixel whose hit agrees."""
+    (gi, gt_, gd), (wi, wt, wd) = ([x.cpu() for x in r] for r in (got, want))
+    hit_g = (gd < rays.HIT_DIST) & (gt_ < rays.HIT_T_MAX)
+    hit_w = (wd < rays.HIT_DIST) & (wt < rays.HIT_T_MAX)
+    tie = (((gd - rays.HIT_DIST).abs() <= GT_TIE)
+           | ((wd - rays.HIT_DIST).abs() <= GT_TIE))
+    differ = hit_g != hit_w
+    agree = ~differ
+    col = float((gi[agree] - wi[agree]).abs().max()) if agree.any() else 0.0
+    return {"pixels": int(differ.numel()), "hits": int(hit_w.sum()),
+            "hit_flips": int(differ.sum()),
+            "hit_flips_off_tie": int((differ & ~tie).sum()),
+            "tie_pixels": int(tie.sum()),
+            "max_abs_color_diff": col,
+            "bitwise_equal": bool(torch.equal(gi, wi)),
+            "tol": GT_TOL, "tie": GT_TIE, "max_flip_share": GT_TIE_SHARE}
+
+
+def count_mismatch(name, got, want, where) -> None:
+    """Fail on an exact count that differs, naming how many samples differ
+    and where (`where()` locates them)."""
+    if got != want:
+        raise SystemExit(f"chip_smoke: FAILED: eval {name}: card {got}, CPU "
+                         f"{want}: {abs(got - want)} samples differ; where: "
+                         f"{where()}")
+
+
+def eval_phase(torch, m, cfg, field, cubes, dev, kernels) -> tuple:
+    """The evaluation path on the card at the paper's render_800 view: the
+    ground truth of EVAL_SCENE, render_rtnerf (through eval_view, chunk
+    EVAL_CHUNK, box, octant) and the uniform baseline (eval_view, 640,000
+    rays x 512 samples in passes), each timed with CUDA synchronisation
+    and with its launches counted; then each held against the port's own
+    CPU path. Returns (phase line, captured kernel inputs)."""
+    t_phase = time.perf_counter()
+    cam = orbit_camera(m, EVAL_ANGLE, EVAL_RES, dev)
+    scene = m.rays.make_scene(EVAL_SCENE)
+    n_pix = EVAL_RES * EVAL_RES
+    ns = m.pipeline.samples_per_segment(cfg)
+    tile = m.pipeline.auto_tile(cfg, cam)
+    steps = -(-cubes.count // EVAL_CHUNK)
+    rays_per_pass = m.rendering.UNIFORM_PASS_SAMPLES // cfg.max_samples_per_ray
+    passes = -(-n_pix // rays_per_pass)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    trace, gt_s = timed(lambda: m.rays.trace_gt(scene, cam))
+    gt = trace[0]
+    rt_kw = dict(pipeline="rtnerf", chunk=EVAL_CHUNK, intersect="box",
+                 order_mode="octant")
+    zero_counts(kernels)
+    with EvalCapture(m.ops, m.coo_gather, fused_call=steps // 2) as cap_rt:
+        (p_rt, st_rt, img_rt), rt_s = timed(lambda: m.train.eval_view(
+            field, cfg, cubes, cam, gt, **rt_kw))
+    launches_rt = launch_counts(kernels)
+
+    staged = torch.zeros(1, dtype=torch.int32, device=dev)
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with EvalCapture(m.ops, m.coo_gather, staged=staged) as cap_uni:
+        (p_uni, st_uni, img_uni), uni_s = timed(lambda: m.train.eval_view(
+            field, cfg, cubes, cam, gt, pipeline="uniform"))
+    peak = torch.cuda.max_memory_allocated()
+    launches_uni = launch_counts(kernels)
+    staged_share = int(staged.item()) / max(cap_uni.tiles, 1)
+
+    occ_uni_exact = n_pix * cfg.max_samples_per_ray          # int64 count
+    line = {"phase": "eval", "res": EVAL_RES, "focal": cam.focal,
+            "tile": tile, "samples_per_segment": ns, "chunk": EVAL_CHUNK,
+            "cubes": cubes.count, "scene": EVAL_SCENE,
+            "ground_truth_s": gt_s, "rtnerf_s": rt_s, "uniform_s": uni_s,
+            "rtnerf_scan_steps": steps, "uniform_passes": passes,
+            "uniform_rays_per_pass": rays_per_pass,
+            "launches": {"rtnerf": launches_rt, "uniform": launches_uni},
+            "stats": {"rtnerf": st_rt, "uniform": st_uni},
+            "occ_access_ratio_uniform_over_rtnerf":
+                st_uni["occ_accesses"] / st_rt["occ_accesses"],
+            "psnr_untrained_field_db": {"rtnerf": p_rt, "uniform": p_uni},
+            "uniform_peak_memory_bytes": peak,
+            "uniform_peak_memory_over_start_bytes": peak - mem0,
+            "uniform_coo_staged_tile_share": staged_share,
+            "uniform_coo_tiles": cap_uni.tiles}
+    check(launches_rt["fused_sigma_app"] == steps
+          and launches_rt["bitmap_gather"] == 0
+          and launches_rt["coo_gather"] == 0,
+          f"render_rtnerf launches {launches_rt}, not {steps} fused")
+    check(launches_uni["fused_sigma_app"] == 0
+          and launches_uni["bitmap_gather"] > 0
+          and launches_uni["coo_gather"] > 0,
+          f"render_uniform launches {launches_uni}")
+    for name, img in (("rtnerf", img_rt), ("uniform", img_uni), ("gt", gt)):
+        check(tuple(img.shape) == (n_pix, 3)
+              and bool(torch.isfinite(img).all()), f"eval {name} image")
+    check(st_rt["occ_accesses"] == cubes.count
+          and st_rt["candidate_samples"] == cubes.count * tile * tile * ns,
+          f"render_rtnerf stats {st_rt}")
+    check(int(st_uni["occ_accesses"]) == occ_uni_exact
+          and int(st_uni["candidate_samples"]) == occ_uni_exact,
+          f"render_uniform occ_accesses {st_uni['occ_accesses']}, not "
+          f"{occ_uni_exact}")
+    check(0 < st_uni["processed_samples"] <= st_uni["preexisting_samples"]
+          < occ_uni_exact, f"render_uniform stats {st_uni}")
+
+    # -- parity against the port's own CPU path ---------------------------
+    cpu_field = field.to("cpu")
+    cpu_cubes = m.occ_lib.cubes_from_arrays(
+        cubes.centers, cubes.valid, cubes.count, cubes.radius, cubes.occ,
+        device="cpu")
+
+    def on(c, device):
+        return m.rendering.Camera(c.c2w.to(device), c.origin.to(device),
+                                  c.focal, c.h, c.w)
+
+    # render_rtnerf at EVAL_PARITY_RES: the same camera on both sides
+    small = orbit_camera(m, EVAL_ANGLE, EVAL_PARITY_RES, "cpu")
+    kw = {k: v for k, v in rt_kw.items() if k != "pipeline"}
+    t0 = time.perf_counter()
+    got_img, got = m.pipeline.render_rtnerf(field, cfg, cubes,
+                                            on(small, dev), **kw)
+    torch.cuda.synchronize()
+    want_img, want = m.pipeline.render_rtnerf(cpu_field, cfg, cpu_cubes,
+                                              small, **kw)
+    rt_par_s = time.perf_counter() - t0
+    rt_err = float((got_img.cpu() - want_img).abs().max())
+
+    def rt_where():
+        a = m.pipeline.rtnerf_scan(field, cfg, cubes, on(small, dev),
+                                   per_pixel=True, **kw)[4].cpu()
+        b = m.pipeline.rtnerf_scan(cpu_field, cfg, cpu_cubes, small,
+                                   per_pixel=True, **kw)[4]
+        ids = torch.nonzero(a != b).flatten()[:20].tolist()
+        return {i: (int(a[i]), int(b[i])) for i in ids}
+    for k in want:
+        count_mismatch(f"render_rtnerf {k}", float(got[k]), float(want[k]),
+                       rt_where)
+    check(rt_err <= PARITY_TOL, f"render_rtnerf card vs CPU {rt_err}")
+    check(float(want["processed_samples"]) > 0, "rtnerf parity view empty")
+
+    # render_uniform on a strided subset of the view's rays, the same
+    # rays on both sides
+    o, d = m.rendering.camera_rays(cam)
+    idx = torch.arange(0, n_pix, EVAL_UNIFORM_STRIDE, device=dev)
+    o_s, d_s = o[idx].contiguous(), d[idx].contiguous()
+    t0 = time.perf_counter()
+    got_img, got = m.rendering.render_uniform(field, cfg, cubes, o_s, d_s)
+    torch.cuda.synchronize()
+    want_img, want = m.rendering.render_uniform(
+        cpu_field, cfg, cpu_cubes, o_s.cpu(), d_s.cpu())
+    uni_par_s = time.perf_counter() - t0
+    uni_err = float((got_img.cpu() - want_img).abs().max())
+
+    def uni_where():
+        a = m.rendering.uniform_pass(field, cfg, cubes.occ, o_s, d_s)
+        b = m.rendering.uniform_pass(cpu_field, cfg, cpu_cubes.occ,
+                                     o_s.cpu(), d_s.cpu())
+        out = {}
+        for name, x, y in (("occupied", a[1], b[1]),
+                           ("visible", a[2], b[2])):
+            ids = torch.nonzero(x.cpu() != y).flatten()[:20].tolist()
+            out[name] = {int(idx[i]): (int(x[i]), int(y[i])) for i in ids}
+        return out
+    for k in want:
+        count_mismatch(f"render_uniform {k}", float(got[k]), float(want[k]),
+                       uni_where)
+    check(uni_err <= PARITY_TOL, f"render_uniform card vs CPU {uni_err}")
+
+    # the ground truth at the full view on the CPU
+    t0 = time.perf_counter()
+    gt_cpu = m.rays.trace_gt(scene, on(cam, "cpu"))
+    gt_par_s = time.perf_counter() - t0
+    gt_cmp = gt_compare(torch, m.rays, trace, gt_cpu)
+    check(gt_cmp["hit_flips_off_tie"] == 0
+          and gt_cmp["hit_flips"] <= GT_TIE_SHARE * n_pix
+          and gt_cmp["max_abs_color_diff"] <= GT_TOL,
+          f"ground truth card vs CPU {gt_cmp}")
+    line["parity"] = {
+        "rtnerf": {"res": EVAL_PARITY_RES, "max_abs_err": rt_err,
+                   "tol": PARITY_TOL, "counts_equal": True,
+                   "processed_samples": float(want["processed_samples"]),
+                   "seconds": rt_par_s},
+        "uniform": {"rays": int(idx.numel()), "stride": EVAL_UNIFORM_STRIDE,
+                    "max_abs_err": uni_err, "tol": PARITY_TOL,
+                    "counts_equal": True,
+                    "stats": {k: float(v) for k, v in want.items()},
+                    "seconds": uni_par_s},
+        "ground_truth": {**gt_cmp, "seconds": gt_par_s}}
+    line["seconds"] = time.perf_counter() - t_phase
+    del trace, gt, img_rt, img_uni, gt_cpu, cpu_field
+    captured = {"fused": cap_rt.fused, "launches_rt": launches_rt,
+                "launches_uni": launches_uni}
+    check(captured["fused"] is not None, "no fused step captured")
+
+    # one render_uniform pass (the middle one) with its gather calls held
+    # for the kernels' eval timings
+    i0 = (passes // 2) * rays_per_pass
+    with EvalCapture(m.ops, m.coo_gather) as cap_pass:
+        m.rendering.render_uniform(field, cfg, cubes,
+                                   o[i0:i0 + rays_per_pass],
+                                   d[i0:i0 + rays_per_pass])
+    torch.cuda.synchronize()
+    captured["gathers"] = cap_pass.gathers
+    captured["pass_samples"] = rays_per_pass * cfg.max_samples_per_ray
+    return line, captured
+
+
+def eval_kernel_entries(torch, mods, captured, cfg) -> dict:
+    """The `eval` sub-entry of kernel rows 1 to 3: the fused kernel at a
+    render_rtnerf scan step of the 800 x 800 view, the two gathers at one
+    render_uniform pass's appearance-plane call (its first
+    EVAL_GATHER_ROWS rows); each checked against its plain version, timed
+    as the rows are, with the rows' byte and operation models."""
+    fused_sample, bitmap_decode, coo_gather = mods
+    out = {}
+    args, kw = captured["fused"]
+    kw = {k: v for k, v in kw.items() if k != "force"}
+    spec, streams, basis, pts, base, cid = args
+    got = fused_sample.fused_sigma_app(*args, **kw)
+    want = fused_sample.fused_sigma_app_ref(*args, **kw)
+    torch.cuda.synchronize()
+    ea, er = errors(torch, got, want)
+    for g, w in zip(got, want):
+        check(torch.allclose(g, w, rtol=FUSED_TOL, atol=FUSED_TOL),
+              f"fused kernel vs plain at the eval step: abs {ea} rel {er}")
+    del got, want
+    N, C, W = pts.shape[0], base.shape[0], kw["window"]
+    Rs, Rc, A = spec[0][1], spec[6][1], kw["app_dim"]
+    R = Rs + Rc
+    f_bytes = (nbytes(pts, cid, base, basis) + C * 3 * (W * W + W) * R * 4
+               + N * 4 + N * A * 4)
+    f_ops = N * (3 * (R * 11 + Rs + Rc * A * 2) + 40)
+    b_ms, b_by = bound(f_bytes, f_ops)
+    out["fused_sigma_app"] = {
+        "path": "render_rtnerf scan step, 800 x 800, chunk 8",
+        "launches_per_view": captured["launches_rt"]["fused_sigma_app"],
+        "max_abs_err": ea, "max_rel_err": er, "tol": FUSED_TOL,
+        **timing_keys(torch, lambda: fused_sample.fused_sigma_app(
+            *args, **kw), lambda: fused_sample.fused_sigma_app_ref(
+            *args, **kw), plain_iters=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"N": N, "C": C, "W": W, "R": R, "app_dim": A,
+                  "cube_runs": cube_runs(cid)},
+        "bytes": f_bytes, "ops": f_ops}
+
+    S = captured["pass_samples"]
+    for name, fmt in (("bitmap_gather", "bitmap"), ("coo_gather", "coo")):
+        g = captured["gathers"].get(fmt)
+        check(g is not None, f"no {fmt} gather captured in the uniform pass")
+        fargs, fkw, nq = g
+        rows = nq // (4 * S)
+        check(nq == rows * 4 * S and rows == cfg.r_color,
+              f"{fmt} call of {nq} queries is not an appearance plane's "
+              f"({cfg.r_color} rows x 4 x {S})")
+        q_full = fargs[3] if fmt == "bitmap" else fargs[2]
+        q = q_full[: EVAL_GATHER_ROWS * 4 * S]
+        entry = {"path": "render_uniform pass, appearance-plane call",
+                 "launches_per_view": captured["launches_uni"][name],
+                 "call_queries": nq, "call_rows": rows,
+                 "timed_rows": EVAL_GATHER_ROWS, "timed_queries": q.shape[0]}
+        if fmt == "bitmap":
+            words, rowptr, values = fargs[:3]
+            cols, rank = fkw["cols"], fkw["rank"]
+
+            def run_k():
+                return bitmap_decode.bitmap_gather(words, rowptr, values, q,
+                                                   cols=cols, rank=rank)
+
+            def run_p():
+                return bitmap_decode.bitmap_gather_ref(words, rowptr, values,
+                                                       q, cols, rank=rank)
+            stream_bytes = nbytes(words, rowptr, values, rank)
+            g_ops = q.shape[0] * 12
+        else:
+            coords, values = fargs[:2]
+
+            def run_k():
+                return coo_gather.coo_gather(coords, values, q)
+
+            def run_p():
+                return coo_gather.coo_gather_ref(coords, values, q)
+            _, staged = coo_gather.coo_gather_staged(coords, values, q)
+            win = coo_gather.tile_windows(coords, q)
+            predicted = int((win <= coo_gather.CAPACITY).sum())
+            check(staged == predicted, f"coo_gather staged {staged} tiles "
+                  f"at the eval shape, the windows predict {predicted}")
+            entry.update({"staged_tile_share": staged / win.shape[0],
+                          "window_mean": float(win.double().mean()),
+                          "window_max": int(win.max())})
+            stream_bytes = nbytes(coords, values)
+            g_ops = q.shape[0] * 4 * coo_gather.search_steps(coords.shape[0])
+        got, want = run_k(), run_p()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{name} differs from plain at the "
+              f"eval shape")
+        del got, want
+        g_bytes = q.shape[0] * 8 + stream_bytes
+        b_ms, b_by = bound(g_bytes, g_ops)
+        entry.update({"max_abs_err": 0.0, "tol": 0.0,
+                      **timing_keys(torch, run_k, run_p),
+                      "bound_ms": b_ms, "bound_by": b_by,
+                      "library_ms": None, "bytes": g_bytes, "ops": g_ops})
+        out[name] = entry
+    return out
 
 
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
@@ -1196,7 +1594,8 @@ def main() -> int:
     from repro_torch.configs.rtnerf import NeRFConfig
     from repro_torch.core import field as field_lib
     from repro_torch.core import occupancy as occ_lib
-    from repro_torch.core import pipeline, rendering, sparse, tensorf
+    from repro_torch.core import pipeline, rendering, sparse, tensorf, train
+    from repro_torch.data import rays
     from repro_torch.kernels import (_build, bitmap_decode, coo_gather,
                                      flash_attention, fused_sample, ops,
                                      volume_render)
@@ -1352,7 +1751,8 @@ def main() -> int:
     # -- the serving tier: store, delta, auto-flush, per-op route, geometry
     m = types.SimpleNamespace(
         field_lib=field_lib, occ_lib=occ_lib, rendering=rendering,
-        tensorf=tensorf, fused_sample=fused_sample,
+        tensorf=tensorf, fused_sample=fused_sample, pipeline=pipeline,
+        train=train, rays=rays, ops=ops, coo_gather=coo_gather,
         RenderEngine=RenderEngine)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
         line, store_engine = store_phase(torch, m, cfg, args.seed, dev, spill,
@@ -1364,6 +1764,17 @@ def main() -> int:
         del store_engine
     emit(per_op_route_phase(torch, m, cfg, field, dev, kernels))
     emit(geometry_phase(torch, m, cfg, field, cams, dev))
+
+    # -- eval: render_rtnerf, the uniform baseline and the ground truth at
+    # 800 x 800, each against the CPU; the kernels at the eval shapes ----
+    line, captured = eval_phase(torch, m, cfg, field, engine.cubes, dev,
+                                kernels)
+    t0 = time.perf_counter()
+    eval_entries = eval_kernel_entries(
+        torch, (fused_sample, bitmap_decode, coo_gather), captured, cfg)
+    line["kernel_timing_s"] = time.perf_counter() - t0
+    emit(line)
+    del captured
 
     # -- kernel_ops: the ops entry points beside the serve path -----------
     t0 = time.perf_counter()
@@ -1466,6 +1877,8 @@ def main() -> int:
                                   launches["bitmap_gather"]))
     rows.append(coo_gather_row(torch, coo_gather, cap, launches["coo_gather"],
                                args.seed))
+    for row in rows:
+        row["eval"] = eval_entries[row["name"]]
     rows += ops_rows
     check(len(rows) == 6, f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}), flush=True)

@@ -10,6 +10,7 @@ sets. The port of `repro/core/field.py`.
   decode()            -> DenseField (exact inverse)
   prune(...)          magnitude pruning (tol- or target-sparsity-based)
   to(device)          the same field on another device
+  sparsity_report()   per-factor format / sparsity / bytes
 
 `as_backend` is the one place that inspects a field's concrete type.
 `field_state`/`field_from_state` carry a field between this package and
@@ -88,6 +89,12 @@ class FieldBackend:
     def compression_ratio(self) -> float:
         return self.dense_factor_bytes() / max(self.factor_bytes(), 1)
 
+    def sparsity_report(self) -> Dict[str, Dict]:
+        """{"<key>[<mode>]": {"format", "sparsity", "bytes",
+        "dense_bytes"}} per VM factor slice: the reference's dict, equal
+        to it under `==`."""
+        raise NotImplementedError
+
 
 @dataclasses.dataclass(eq=False)
 class DenseField(FieldBackend):
@@ -149,6 +156,19 @@ class DenseField(FieldBackend):
 
     def dense_factor_bytes(self) -> int:
         return self.factor_bytes()
+
+    def sparsity_report(self):
+        out = {}
+        for k in sparse.FACTOR_KEYS:
+            w = self.params[k].detach().cpu().numpy()
+            for m in range(3):
+                wm = w[m].reshape(w.shape[1], -1)
+                b = sparse.storage_bytes(wm.shape, int((wm != 0).sum()),
+                                         "dense")
+                out[f"{k}[{m}]"] = {"format": "dense",
+                                    "sparsity": sparse.sparsity(wm),
+                                    "bytes": b, "dense_bytes": b}
+        return out
 
 
 @dataclasses.dataclass(eq=False)
@@ -219,6 +239,13 @@ class CompressedField(FieldBackend):
     def dense_factor_bytes(self) -> int:
         return sum(ef.dense_storage() for efs in self.factors.values()
                    for ef in efs)
+
+    def sparsity_report(self):
+        return {f"{k}[{m}]": {"format": ef.fmt, "sparsity": ef.sparsity,
+                              "bytes": ef.storage(),
+                              "dense_bytes": ef.dense_storage()}
+                for k, efs in self.factors.items()
+                for m, ef in enumerate(efs)}
 
     def formats(self) -> Dict[str, Tuple[str, ...]]:
         """Per factor key, the format of each mode slice."""

@@ -96,3 +96,20 @@ def cubes_from_arrays(centers, valid, count: int, radius: float, occ, *,
 
     return CubeSet(t(centers, np.float32), t(valid, bool), int(count),
                    float(radius), t(occ, bool))
+
+
+def occupancy_query(occ: torch.Tensor, cfg: NeRFConfig,
+                    pts: torch.Tensor) -> torch.Tensor:
+    """Baseline Step 2-1: quantize points (..., 3) to the binary grid and
+    look them up; False outside the scene bound. The bound divides as a
+    0-dim device tensor (a true quotient on the card too), and the cell
+    index is clamped to [0, G-1] before it truncates: the reference's
+    truncate-then-clip for every finite point, with no float-to-int
+    conversion out of range. The grid is indexed with int64."""
+    g = cfg.occ_res
+    bound = torch.full((), float(cfg.scene_bound), dtype=torch.float32,
+                       device=pts.device)
+    x = (pts / bound * 0.5 + 0.5) * g
+    ijk = x.clamp(0.0, g - 1.0).to(torch.int64)
+    inside = torch.all(pts.abs() <= cfg.scene_bound, dim=-1)
+    return occ[ijk[..., 0], ijk[..., 1], ijk[..., 2]] & inside

@@ -1,7 +1,8 @@
 """RT-NeRF's efficient rendering pipeline (paper Sec. 3.1) and the
-coarse-grained view-dependent ordering (Sec. 3.2): the serving path of
+coarse-grained view-dependent ordering (Sec. 3.2). The port of
 `repro/core/pipeline.py`.
 
+`render_rtnerf` renders one view image-space, the paper's own algorithm;
 `make_ray_renderer` builds the ray-centric renderer the serving engine
 runs; `order_cubes` / `octant_rank` / `ordering_key` implement the Sec. 3.2
 ordering and its exact reuse key; `OrderingCache` memoises per-view
@@ -32,7 +33,9 @@ from torch.profiler import record_function
 from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.core import field as field_lib
 from repro_torch.core.occupancy import CubeSet
-from repro_torch.core.rendering import step_world
+from repro_torch.core.rendering import (Camera, dot3, norm3, pixel_rays,
+                                        sqrt_rn, step_world)
+from repro_torch.device import common_device
 
 
 def _host(x) -> np.ndarray:
@@ -202,7 +205,7 @@ def order_cubes(cubes: CubeSet, origin, mode: str = "octant") -> torch.Tensor:
             n, dtype=torch.float32, device=c.device)
     else:
         o = torch.as_tensor(_host(origin), dtype=torch.float32).to(c.device)
-        key = torch.linalg.norm(c - o[None], dim=-1)
+        key = norm3(c - o[None])
     key = torch.where(cubes.valid, key, torch.full_like(key, math.inf))
     return torch.argsort(key, stable=True)
 
@@ -212,9 +215,94 @@ def order_cubes(cubes: CubeSet, origin, mode: str = "octant") -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
+def auto_tile(cfg: NeRFConfig, cam: Camera) -> int:
+    """Static tile size covering the projected ball at the near plane."""
+    r_pix = cam.focal * cfg.cube_ball_radius() / max(
+        cfg.near - cfg.scene_bound * 0.0 - cfg.cube_ball_radius(), 0.5)
+    t = int(math.ceil(2.0 * r_pix / 8.0) * 8 + 8)
+    return max(8, min(t, 128))
+
+
 def samples_per_segment(cfg: NeRFConfig) -> int:
     """Static bound on samples inside one ball: ceil(2r / step) + 1."""
     return int(math.ceil(2.0 * cfg.cube_ball_radius() / step_world(cfg))) + 1
+
+
+def _cube_samples(cfg: NeRFConfig, cam: Camera, center: torch.Tensor,
+                  tile: int, intersect: str = "box"):
+    """Steps 2-1-b/c/d for cubes `center` (C, 3), or one cube (3,):
+    per-tile-pixel sample geometry (pix_id (C, P), d (C, P, 3), pts
+    (C, P, ns, 3), ts (C, P, ns), s_mask (C, P, ns)), P = tile * tile.
+
+    Step 2-1-b projects the cube's bounding ball, 2-1-c takes the static
+    tile x tile pixel window around its projected center (origin rounded
+    half to even, as `jnp.round`) with an in-circle mask, 2-1-d
+    intersects each pixel's ray with the ball ("ball", the paper's) or
+    with the cube's slabs ("box", which removes the double counting of
+    overlapping balls). Where the tile is wider than the image, pixel
+    ids run past it: `in_img` masks their samples, and the caller clamps
+    the ids before indexing."""
+    one = center.dim() == 1
+    center = center.reshape(-1, 3)
+    dev = center.device
+    # project the centers: (center - origin) @ c2w, camera coordinates
+    rel = torch.stack([dot3(center - cam.origin, cam.c2w[:, j])
+                       for j in range(3)], dim=-1)              # (C, 3)
+    depth = -rel[:, 2]
+    r = cfg.cube_ball_radius()
+    safe_depth = torch.clamp(depth - r, min=0.1)
+    cx = rel[:, 0] / safe_depth * cam.focal + cam.w / 2.0
+    cy = -rel[:, 1] / safe_depth * cam.focal + cam.h / 2.0
+    # a true quotient (a Python scalar over a tensor is a reciprocal)
+    r_pix = torch.full((), cam.focal * r, dtype=torch.float32,
+                       device=dev) / safe_depth
+
+    # the static tile x tile window around the projected center
+    half = tile // 2
+    x0 = torch.clamp(torch.round(cx).to(torch.int64) - half, 0,
+                     max(cam.w - tile, 0))
+    y0 = torch.clamp(torch.round(cy).to(torch.int64) - half, 0,
+                     max(cam.h - tile, 0))
+    dx = torch.arange(tile, device=dev)
+    px = (x0[:, None, None] + dx[None, None, :]).expand(-1, tile, tile)
+    py = (y0[:, None, None] + dx[None, :, None]).expand(-1, tile, tile)
+    px = px.reshape(-1, tile * tile)
+    py = py.reshape(-1, tile * tile)
+    ex, ey = px - cx[:, None], py - cy[:, None]
+    rp = r_pix[:, None] + 1.0
+    in_oval = ex * ex + ey * ey <= rp * rp
+    in_img = (px < cam.w) & (py < cam.h)
+    pix_id = py * cam.w + px
+
+    # Step 2-1-d: analytic intersection (line-sphere or line-slab)
+    d = pixel_rays(cam, px.to(torch.float32).reshape(-1),
+                   py.to(torch.float32).reshape(-1)).reshape(*px.shape, 3)
+    if intersect == "ball":
+        oc = cam.origin - center                                # (C, 3)
+        b = dot3(d, oc[:, None])
+        disc = b * b - (dot3(oc, oc)[:, None] - r * r)
+        hit_geo = disc > 0.0
+        sq = sqrt_rn(torch.clamp(disc, min=0.0))
+        t0 = -b - sq
+        t1 = -b + sq
+    else:                                   # exact cube slabs
+        hw = cfg.cube_world() / 2.0
+        safe_d = torch.where(d.abs() < 1e-9, torch.full_like(d, 1e-9), d)
+        ta = (center[:, None] - hw - cam.origin) / safe_d
+        tb = (center[:, None] + hw - cam.origin) / safe_d
+        t0 = torch.minimum(ta, tb).amax(dim=-1)
+        t1 = torch.maximum(ta, tb).amin(dim=-1)
+        hit_geo = t1 > t0
+    hit = hit_geo & in_oval & in_img & (depth > cfg.near * 0.5)[:, None]
+    t0 = torch.clamp(t0, min=cfg.near)
+
+    ns = samples_per_segment(cfg)
+    delta = step_world(cfg)
+    ts = t0[..., None] + (torch.arange(ns, device=dev) + 0.5) * delta
+    s_mask = hit[..., None] & (ts < t1[..., None])              # (C, P, ns)
+    pts = cam.origin + d[..., None, :] * ts[..., None]
+    out = (pix_id, d, pts, ts, s_mask)
+    return tuple(o[0] for o in out) if one else out
 
 
 def compact_select(flat_hit: torch.Tensor, budget: int) -> torch.Tensor:
@@ -356,3 +444,121 @@ def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
                        "active_pairs_max": pairs_max}
 
     return render
+
+
+def rtnerf_scan(f, cfg: NeRFConfig, cubes: CubeSet, cam: Camera, *,
+                order_mode: str = "octant", chunk: int = 1,
+                intersect: str = "box", white_bg: bool = True,
+                per_pixel: bool = False):
+    """The scan of `render_rtnerf` over a FieldBackend `f`: (rgb (H*W, 3),
+    processed samples as an int64 0-dim tensor, tile, chunks scanned,
+    and with `per_pixel` the processed samples of each pixel, else None).
+
+    Invalid cubes sort last (`order_cubes`), so only the first
+    ceil(count / chunk) chunks hold a valid cube; the reference scans all
+    max_cubes // chunk of them with the rest masked, which adds exact
+    zeros. The chunk partition of the valid cubes is the reference's, so
+    the image and the counts are too."""
+    dev = common_device(cam.c2w, cam.origin, cubes.centers, f.device,
+                        what="render_rtnerf's field, cube set and camera")
+    tile = auto_tile(cfg, cam)
+    perm = order_cubes(cubes, cam.origin, order_mode)
+    centers = cubes.centers[perm]
+    valid = cubes.valid[perm]
+    n_pix = cam.h * cam.w
+    delta = step_world(cfg)
+    n_chunks = min(-(-cubes.count // chunk), centers.shape[0] // chunk)
+    ctr_all = centers[: n_chunks * chunk].reshape(n_chunks, chunk, 3)
+    vld_all = valid[: n_chunks * chunk].reshape(n_chunks, chunk)
+
+    log_t = torch.zeros((n_pix,), dtype=torch.float32, device=dev)
+    color = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
+    processed = torch.zeros((), dtype=torch.int64, device=dev)
+    pix_count = (torch.zeros((n_pix,), dtype=torch.int64, device=dev)
+                 if per_pixel else None)
+    for s in range(n_chunks):
+        ctr, vld = ctr_all[s], vld_all[s]
+
+        with _stage("rtnerf.intersect"):
+            pix_id, d, pts, _, s_mask = _cube_samples(cfg, cam, ctr, tile,
+                                                      intersect)
+            s_mask = s_mask & vld[:, None, None]
+            # ids past the image (a tile wider than it) read a clamped
+            # pixel, as the reference's gather does; `in_img` has masked
+            # their samples, and their scatters are dropped below
+            in_range = pix_id < n_pix
+            ids = torch.clamp(pix_id, max=n_pix - 1)
+            # Sec. 3.2 early termination: skip points on opaque rays
+            t_here = torch.exp(log_t[ids])                      # (chunk, P)
+            s_mask = s_mask & (t_here > cfg.term_eps)[..., None]
+            # points grouped by source cube for the fused streaming path
+            cid = torch.arange(chunk, dtype=torch.int32,
+                               device=dev).repeat_interleave(
+                                   s_mask[0].numel())
+        with _stage("rtnerf.field_eval"):
+            sigma, feats = f.sigma_app(pts.reshape(-1, 3), ctr, cid)
+            sigma = torch.where(s_mask, sigma.reshape(s_mask.shape), 0.0)
+            dirs = d[:, :, None].expand(pts.shape).reshape(-1, 3)
+            rgb = f.color(feats, dirs).reshape(*s_mask.shape, 3)
+
+        # per-(cube, pixel) compositing along the segment
+        tau = sigma * delta
+        cum = torch.cumsum(tau, dim=-1)
+        w = torch.exp(-(cum - tau)) * (1.0 - torch.exp(-tau))
+        seg_rgb = torch.sum(w[..., None] * rgb, dim=-2)         # (chunk, P, 3)
+        seg_tau = cum[..., -1]
+
+        # scatter into the running per-pixel (T, color) accumulators
+        keep = in_range.reshape(-1)
+        ids = ids.reshape(-1)
+        contrib = (t_here[..., None] * seg_rgb).reshape(-1, 3)
+        color.index_add_(0, ids, torch.where(keep[:, None], contrib, 0.0))
+        log_t.index_add_(0, ids, torch.where(keep, -seg_tau.reshape(-1),
+                                             0.0))
+        n_proc = s_mask.sum(dim=-1)
+        processed += n_proc.sum()
+        if per_pixel:
+            pix_count.index_add_(0, ids, torch.where(keep, n_proc.reshape(-1),
+                                                     0))
+    t_final = torch.exp(log_t)
+    if white_bg:
+        color = color + t_final[:, None]
+    return color, processed, tile, n_chunks, pix_count
+
+
+def render_rtnerf(field, cfg: NeRFConfig, cubes: CubeSet, cam: Camera, *,
+                  order_mode: str = "octant", chunk: int = 1,
+                  intersect: str = "box", white_bg: bool = True):
+    """Full-image render via the RT-NeRF pipeline: (rgb (H*W, 3), stats).
+
+    `field` is anything `field.as_backend` accepts: a DenseField / params
+    dict evaluates the raw factor tensors; a CompressedField evaluates
+    its hybrid bitmap/COO streams in place (the fused kernel on the card,
+    or the per-op gathers where its window does not fit). The camera, the
+    cube set and the field share one device, where it runs. `chunk` cubes
+    are composited per scan step (exact at 1, the default); stats are
+    float32 0-dim tensors with the reference's keys, processed samples
+    counted in int64 until the final conversion.
+    """
+    f = field_lib.as_backend(field, cfg)
+    color, processed, tile, _, _ = rtnerf_scan(
+        f, cfg, cubes, cam, order_mode=order_mode, chunk=chunk,
+        intersect=intersect, white_bg=white_bg)
+    ns = samples_per_segment(cfg)
+    dev = color.device
+
+    def f32(x):
+        return torch.as_tensor(x, device=dev).to(torch.float32)
+    n = float(cubes.count)
+    stats = {
+        # the pipeline touches the occupancy structure once per cube
+        "occ_accesses": f32(n),
+        "candidate_samples": f32(n * tile * tile * ns),
+        "processed_samples": f32(processed),
+        "n_cubes": f32(n),
+        "tile": f32(float(tile)),
+        # field-memory footprint of the hot loop (paper Sec. 4.2.2)
+        "factor_bytes": f32(float(f.factor_bytes())),
+        "factor_bytes_dense": f32(float(f.dense_factor_bytes())),
+    }
+    return color, stats

@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 PAD_COORD = int(np.iinfo(np.int32).max)
 FACTOR_KEYS = ("sigma_planes", "sigma_lines", "app_planes", "app_lines")
@@ -95,8 +95,10 @@ def _pad_len(nnz: int, pad_to: Optional[int]) -> int:
 
 
 def encode_bitmap(w, pad_to: Optional[int] = None, *,
-                  device: DeviceLike = "cpu") -> BitmapEncoded:
-    """Bitmap-encode a (rows, cols) matrix (host numpy, then tensors)."""
+                  device: DeviceLike = None) -> BitmapEncoded:
+    """Bitmap-encode a (rows, cols) matrix (host numpy, then tensors on
+    `device`; None: the card)."""
+    device = resolve_device(device)
     w = np.asarray(w)
     if w.ndim != 2:
         raise ValueError(f"bitmap codec takes matrices, got shape {w.shape}")
@@ -122,8 +124,10 @@ def encode_bitmap(w, pad_to: Optional[int] = None, *,
 
 
 def encode_coo(w, pad_to: Optional[int] = None, *,
-               device: DeviceLike = "cpu") -> CooEncoded:
-    """COO-encode an array: sorted int32 linear coordinates + values."""
+               device: DeviceLike = None) -> CooEncoded:
+    """COO-encode an array: sorted int32 linear coordinates + values, on
+    `device` (None: the card)."""
+    device = resolve_device(device)
     w = np.asarray(w)
     flat = w.reshape(-1)
     idx = np.nonzero(flat)[0].astype(np.int32)
@@ -223,10 +227,12 @@ class EncodedFactor:
 
 
 def encode_factor(wm, threshold: float = 0.80, *,
-                  device: DeviceLike = "cpu") -> EncodedFactor:
+                  device: DeviceLike = None) -> EncodedFactor:
     """Encode one (R, ncols) factor matrix per the 80% rule. A factor whose
     encoded form would not beat its dense bytes stays dense; otherwise
-    bitmap below the sparsity threshold, COO at/above it."""
+    bitmap below the sparsity threshold, COO at/above it. The streams
+    go to `device` (None: the card)."""
+    device = resolve_device(device)
     if isinstance(wm, torch.Tensor):
         wm = wm.detach().cpu().numpy()
     wm = np.asarray(wm)

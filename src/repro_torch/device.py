@@ -27,3 +27,20 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
     return dev
 
+
+
+def common_device(*args, what: str = "arguments") -> torch.device:
+    """The one device of `args` (tensors and torch.devices; None is
+    skipped). An entry point takes its device from its tensor arguments;
+    a mix of devices raises instead of copying one side over."""
+    devs = []
+    for a in args:
+        if a is None:
+            continue
+        d = a.device if isinstance(a, torch.Tensor) else torch.device(a)
+        if d not in devs:
+            devs.append(d)
+    if len(devs) != 1:
+        raise ValueError(f"{what} must lie on one device, got "
+                         f"{[str(d) for d in devs] or 'none'}")
+    return devs[0]

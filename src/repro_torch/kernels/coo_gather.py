@@ -17,7 +17,7 @@ kernel itself staged.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -80,7 +80,8 @@ def coo_gather_ref(coords: torch.Tensor, values: torch.Tensor,
 
 
 def _launch(coords: torch.Tensor, values: torch.Tensor,
-            queries: torch.Tensor, staged: int) -> torch.Tensor:
+            queries: torch.Tensor, staged: Optional[torch.Tensor]
+            ) -> torch.Tensor:
     n = coords.shape[0]
     _build.require(coords.dim() == 1 and n > 0,
                    "coo_gather: coords must be a non-empty vector")
@@ -88,6 +89,8 @@ def _launch(coords: torch.Tensor, values: torch.Tensor,
     _build.require_cuda("coo_gather values", values, torch.float32, (n,))
     _build.require_cuda("coo_gather queries", queries, torch.int32)
     _build.require(queries.dim() == 1, "coo_gather: queries must be 1-D")
+    if staged is not None:
+        _build.require_cuda("coo_gather staged", staged, torch.int32, (1,))
     nq = queries.shape[0]
     plan = coo_plan(nq)
     out = torch.empty(queries.shape, dtype=torch.float32,
@@ -99,7 +102,8 @@ def _launch(coords: torch.Tensor, values: torch.Tensor,
                        _build.P, _build.P))
     code = fn(coords.data_ptr(), values.data_ptr(), n, plan.tile,
               plan.capacity, plan.blocks, vec, queries.data_ptr(),
-              out.data_ptr(), nq, staged or None,
+              out.data_ptr(), nq,
+              None if staged is None else staged.data_ptr(),
               _build.stream_ptr(queries.device))
     _build.check("coo_gather", code)
     coo_gather.launches += 1
@@ -107,12 +111,16 @@ def _launch(coords: torch.Tensor, values: torch.Tensor,
 
 
 def coo_gather(coords: torch.Tensor, values: torch.Tensor,
-               queries: torch.Tensor) -> torch.Tensor:
+               queries: torch.Tensor, *,
+               staged: Optional[torch.Tensor] = None) -> torch.Tensor:
     """values at `queries` (int32 linear coords) from a sorted int32
-    `coords` stream padded with PAD_COORD; 0 where absent."""
+    `coords` stream padded with PAD_COORD; 0 where absent. On the card,
+    `staged` (a one-element int32 CUDA tensor) gains the number of query
+    tiles whose window the kernel staged in shared memory, without a
+    wait for the launch."""
     if queries.device.type == "cpu":
         return coo_gather_ref(coords, values, queries)
-    return _launch(coords, values, queries, 0)
+    return _launch(coords, values, queries, staged)
 
 
 def coo_gather_staged(coords: torch.Tensor, values: torch.Tensor,
@@ -124,7 +132,7 @@ def coo_gather_staged(coords: torch.Tensor, values: torch.Tensor,
                    "coo_gather_staged: the count comes from the kernel, "
                    "which runs on CUDA tensors")
     staged = torch.zeros(1, dtype=torch.int32, device=queries.device)
-    out = _launch(coords, values, queries, staged.data_ptr())
+    out = _launch(coords, values, queries, staged)
     return out, int(staged.item())
 
 

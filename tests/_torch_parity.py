@@ -16,6 +16,7 @@ from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.core import field as tfield
 from repro_torch.core import occupancy as tocc
 from repro_torch.core import rendering as trender
+from repro_torch.data import rays as trays
 
 CPU = torch.device("cpu")
 # the tier-1 run has several test processes per machine: one intra-op
@@ -120,3 +121,10 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def carry_scene(scene):
+    """The reference's Scene as the port's: the same arrays, copied."""
+    return trays.Scene(scene.name, np.array(scene.prim_type),
+                       np.array(scene.center), np.array(scene.size),
+                       np.array(scene.color))

@@ -116,6 +116,26 @@ def test_coo_gather_kernel_on_occupancy_queries(cuda, monkeypatch, order):
     assert order == "occupancy" or wide_streams > 0
 
 
+def test_coo_gather_adds_staged_tiles_to_a_counter_without_waiting(cuda):
+    """`staged=` accumulates the kernel's staged-tile count across calls,
+    the same count `coo_gather_staged` reads back for each."""
+    rng = np.random.RandomState(11)
+    flat = rng.randn(50000).astype(np.float32)
+    flat[rng.rand(50000) < 0.9] = 0
+    enc = tsparse.encode_coo(flat.reshape(1, -1), device=cuda)
+    qs = [torch.from_numpy(np.sort(rng.randint(0, 50000, nq)).astype(
+        np.int32)).to(cuda) for nq in (10000, 4096 * 3 + 1)]
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    want = 0
+    for q in qs:
+        got = coo_gather.coo_gather(enc.coords, enc.values, q,
+                                    staged=counter)
+        ref, staged = coo_gather.coo_gather_staged(enc.coords, enc.values, q)
+        assert torch.equal(got, ref)
+        want += staged
+    assert int(counter.item()) == want > 0
+
+
 def _gapped_stream(device, n=20000, first=1000):
     """Coordinates first, first + 3, ... (n entries) padded to a multiple
     of 8 with PAD_COORD, values 1, 2, ..."""
@@ -978,8 +998,8 @@ def test_oversized_window_renders_through_the_per_op_gathers(cuda):
 def test_occupancy_and_rays_on_card_equal_the_cpus(cuda):
     """Grid coordinates, occupancy and cube set built on the card equal
     the CPU's bit for bit (the divisions are by 0-dim device tensors);
-    camera rays differ by at most an ulp of the direction, and no hit or
-    sample count moves."""
+    so do camera rays (dots and norms through `dot3` / `sqrt_rn`), and no
+    hit or sample count moves."""
     cfg = demo_config()
     assert torch.equal(tocc.grid_coords(cfg, cuda).cpu(),
                        tocc.grid_coords(cfg, "cpu"))
@@ -1000,7 +1020,7 @@ def test_occupancy_and_rays_on_card_equal_the_cpus(cuda):
                                        device=d) for d in ("cpu", cuda)]
         (oc, dc), (og, dg) = (trender.camera_rays(c) for c in cams)
         assert torch.equal(og.cpu(), oc)
-        assert float((dg.cpu() - dc).abs().max()) <= 2.5e-7
+        assert torch.equal(dg.cpu(), dc)
         want = cpu.submit(cams[0]).result(timeout=120)
         got = gpu.submit(cams[1]).result(timeout=120)
         assert got.stats["processed_samples"] == \
@@ -1085,3 +1105,153 @@ def test_auto_flush_result_timeout_on_card(cuda):
     assert len(results) == 4 and not any(r.timed_out for r in results)
     for r in results[1:]:       # index_add_ on the card is atomic: 1e-6
         np.testing.assert_allclose(r.img, results[0].img, atol=1e-6)
+
+
+# ---------------------------------------------------- the evaluation path ---
+def _eval_inputs(cfg, seed, device):
+    """(CPU field, its cube set on the CPU, the same on `device`): a
+    pruned field with its sigma planes and appearance lines encoded as
+    bitmaps and the rest as COO."""
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(seed),
+                                 device="cpu")
+    dense = tfield.DenseField(params, cfg).prune(sparsity=0.75)
+    bm, co = dense.encode(0.99), dense.encode(0.0)
+    field = tfield.CompressedField(
+        {k: (bm if k in ("sigma_planes", "app_lines") else co).factors[k]
+         for k in tsparse.FACTOR_KEYS}, bm.extras, cfg, bm.threshold)
+    cubes = tocc.extract_cubes(tocc.build_occupancy(field, cfg), cfg)
+    assert cubes.count > 0
+    on_dev = tocc.cubes_from_arrays(cubes.centers, cubes.valid, cubes.count,
+                                    cubes.radius, cubes.occ, device=device)
+    return field, cubes, field.to(device), on_dev
+
+
+def _camera_on(cam, device):
+    return trender.Camera(cam.c2w.to(device), cam.origin.to(device),
+                          cam.focal, cam.h, cam.w)
+
+
+def _launches():
+    return {k.__name__: k.launches for k in (
+        fused_sample.fused_sigma_app, bitmap_decode.bitmap_gather,
+        coo_gather.coo_gather)}
+
+
+def _grown(before, after):
+    return {k: after[k] - before[k] for k in before}
+
+
+@pytest.mark.parametrize("chunk,intersect,order_mode", [
+    (8, "box", "octant"), (1, "ball", "distance")])
+def test_render_rtnerf_on_card_matches_cpu(cuda, chunk, intersect,
+                                           order_mode):
+    """render_rtnerf on the card launches the fused kernel once a scan
+    step and no gather; image within 1e-4 of the CPU's plain path, every
+    count equal."""
+    from repro_torch.core import pipeline as tpipe
+    cfg = demo_config(tiny=True)
+    field, cubes, gfield, gcubes = _eval_inputs(cfg, 5, cuda)
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 19.2, 16, 16,
+                                 device="cpu")
+    kw = dict(chunk=chunk, intersect=intersect, order_mode=order_mode)
+    want_img, want = tpipe.render_rtnerf(field, cfg, cubes, cam, **kw)
+    before = _launches()
+    got_img, got = tpipe.render_rtnerf(gfield, cfg, gcubes,
+                                       _camera_on(cam, cuda), **kw)
+    torch.cuda.synchronize()
+    grown = _grown(before, _launches())
+    assert grown == {"fused_sigma_app": -(-cubes.count // chunk),
+                     "bitmap_gather": 0, "coo_gather": 0}
+    assert got_img.device.type == "cuda"
+    np.testing.assert_allclose(got_img.cpu().numpy(), want_img.numpy(),
+                               atol=1e-4)
+    for k in want:
+        assert float(got[k]) == float(want[k]), k
+    assert float(want["processed_samples"]) > 0
+    with pytest.raises(ValueError, match="one device"):
+        tpipe.render_rtnerf(gfield, cfg, gcubes, cam, **kw)
+
+
+def test_render_uniform_on_card_matches_cpu(cuda, monkeypatch):
+    """render_uniform on an encoded field gathers every sample through
+    the bitmap and COO kernels (no fused launch), in several passes;
+    colours within 1e-4 of the CPU's, counts equal."""
+    cfg = demo_config(tiny=True)
+    field, cubes, gfield, gcubes = _eval_inputs(cfg, 6, cuda)
+    fmts = {f for fs in field.formats().values() for f in fs}
+    assert {"bitmap", "coo"} <= fmts
+    cam = trender.look_at_camera([-2.5, 3.0, 0.7], [0, 0, 0], 19.2, 16, 16,
+                                 device="cpu")
+    o, d = trender.camera_rays(cam)
+    monkeypatch.setattr(trender, "UNIFORM_PASS_SAMPLES",
+                        100 * cfg.max_samples_per_ray)
+    want_img, want = trender.render_uniform(field, cfg, cubes, o, d)
+    before = _launches()
+    got_img, got = trender.render_uniform(gfield, cfg, gcubes, o.to(cuda),
+                                          d.to(cuda))
+    torch.cuda.synchronize()
+    grown = _grown(before, _launches())
+    assert grown["fused_sigma_app"] == 0
+    assert grown["bitmap_gather"] > 0 and grown["coo_gather"] > 0
+    np.testing.assert_allclose(got_img.cpu().numpy(), want_img.numpy(),
+                               atol=1e-4)
+    for k in want:
+        assert float(got[k]) == float(want[k]), k
+
+
+def test_eval_view_on_card_matches_cpu(cuda):
+    from repro_torch.core import train as ttrain
+    from repro_torch.data import rays as trays
+    cfg = demo_config(tiny=True)
+    field, cubes, gfield, gcubes = _eval_inputs(cfg, 7, cuda)
+    cam = trays.make_cameras(3, 16, 16, device="cpu")[1]
+    gt = trays.render_gt(trays.make_scene("lego"), cam)
+    for pipeline in ("rtnerf", "uniform"):
+        want = ttrain.eval_view(field, cfg, cubes, cam, gt, pipeline=pipeline,
+                                chunk=8)
+        got = ttrain.eval_view(gfield, cfg, gcubes, _camera_on(cam, cuda),
+                               gt.to(cuda), pipeline=pipeline, chunk=8)
+        assert abs(got[0] - want[0]) < 1e-3
+        assert got[1] == want[1]
+
+
+@pytest.mark.parametrize("name", ["lego", "ficus", "drums"])
+def test_render_gt_on_card_equals_cpu(cuda, name):
+    """The ground truth's camera, rays and sphere trace are elementwise
+    ops that round alike on both devices: the same bits on the card."""
+    from repro_torch.data import rays as trays
+    scene = trays.make_scene(name)
+    cams = [trays.make_cameras(4, 32, 40, device=d)[1] for d in ("cpu", cuda)]
+    assert torch.equal(cams[1].c2w.cpu(), cams[0].c2w)
+    want = trays.render_gt(scene, cams[0])
+    got = trays.render_gt(scene, cams[1])
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    assert float(want.min()) < 0.95
+
+
+def test_render_rtnerf_oversized_window_takes_the_per_op_gathers(cuda):
+    """A field whose fused window does not fit the kernel's shared memory
+    renders through the bitmap / COO gathers on the card (no fused
+    launch), as the CPU renders it through the plain fused version."""
+    from repro_torch.core import pipeline as tpipe
+    cfg = _oversized_cfg()
+    field, cubes, gfield, gcubes = _eval_inputs(cfg, 8, cuda)
+    assert gfield.dispatch_path() == "per-op"
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 9.6, 8, 8,
+                                 device="cpu")
+    want_img, want = tpipe.render_rtnerf(field, cfg, cubes, cam, chunk=2)
+    before = _launches()
+    got_img, got = tpipe.render_rtnerf(gfield, cfg, gcubes,
+                                       _camera_on(cam, cuda), chunk=2)
+    torch.cuda.synchronize()
+    grown = _grown(before, _launches())
+    assert grown["fused_sigma_app"] == 0
+    fmts = {f for fs in field.formats().values() for f in fs}
+    for k, fmt in (("bitmap_gather", "bitmap"), ("coo_gather", "coo")):
+        assert (grown[k] > 0) == (fmt in fmts), (k, fmts)
+    np.testing.assert_allclose(got_img.cpu().numpy(), want_img.numpy(),
+                               atol=1e-4)
+    for k in want:
+        assert float(got[k]) == float(want[k]), k
+    assert float(want["processed_samples"]) > 0

@@ -8,6 +8,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +17,7 @@ from repro_torch.configs.rtnerf import demo_config
 from repro_torch.core import field as tfield
 from repro_torch.core import rendering as trender
 from repro_torch.core import tensorf as ttensorf
+from repro_torch.data import rays as trays
 from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.serving import RenderEngine, SceneStore
 from repro_torch.serving import engine as tengine
@@ -49,6 +51,51 @@ def _imported_roots(path: Path):
 NEW_MODULES = ("obs/lockdebug.py", "obs/registry.py", "obs/tracing.py",
                "obs/exposition.py", "ckpt/checkpoint.py", "serving/store.py",
                "serving/temporal.py", "serving/engine.py")
+
+
+EVAL_MODULES = ("data/rays.py", "data/__init__.py", "core/train.py",
+                "core/pipeline.py", "core/rendering.py")
+
+
+def test_the_checks_cover_the_evaluation_modules():
+    """The import checks walk the evaluation path's modules too."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(EVAL_MODULES) <= files
+
+
+def test_eval_entry_points_without_device_and_card_raise(monkeypatch):
+    """make_cameras, build_dataset and RayDataset.batches build tensors
+    from nothing: with no device and no card they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trays.make_cameras(2, 8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trays.build_dataset(trays.make_scene("mic"), 1, 8, 8)
+    z = np.zeros((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        next(trays.RayDataset(z, z, z).batches(2))
+    with pytest.raises(RuntimeError):
+        trays.make_cameras(2, 8, 8, device="cuda")
+    cams = trays.make_cameras(2, 8, 8, device="cpu")
+    assert cams[0].c2w.device.type == "cpu"
+    batch = next(trays.RayDataset(z, z, z, device="cpu").batches(2))
+    assert all(b.device.type == "cpu" for b in batch)
+
+
+def test_codec_encoders_without_device_and_card_raise(monkeypatch):
+    """The hybrid codec's encoders build stream tensors from host arrays:
+    like every entry point, with no device they go to the card, and with
+    no card they raise instead of landing on the CPU."""
+    from repro_torch.core import sparse as tsparse
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    w = np.eye(4, dtype=np.float32)
+    for enc in (tsparse.encode_bitmap, tsparse.encode_coo,
+                tsparse.encode_factor):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            enc(w)
+    assert tsparse.encode_factor(w, device="cpu").fmt in ("bitmap", "coo",
+                                                          "dense")
 
 
 def test_the_checks_cover_the_serving_tier_modules():

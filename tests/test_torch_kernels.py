@@ -78,7 +78,7 @@ def test_bitmap_gather_plain_matches_reference(rows, cols, nq, density):
     rng = np.random.RandomState(rows + cols + nq)
     w = rng.randn(rows, cols).astype(np.float32)
     w[rng.rand(rows, cols) >= density] = 0
-    enc = tsparse.encode_bitmap(w)
+    enc = tsparse.encode_bitmap(w, device="cpu")
     jenc = jsparse.encode_bitmap(w)
     q = rng.randint(0, rows * cols, nq).astype(np.int32)
     want = np.asarray(jref.bitmap_gather_ref(jenc.words, jenc.rowptr,
@@ -100,7 +100,7 @@ def test_coo_gather_plain_matches_reference(size, nq, sparsity):
     rng = np.random.RandomState(size + nq)
     flat = rng.randn(size).astype(np.float32)
     flat[rng.rand(size) < sparsity] = 0
-    enc = tsparse.encode_coo(flat.reshape(1, -1))
+    enc = tsparse.encode_coo(flat.reshape(1, -1), device="cpu")
     jenc = jsparse.encode_coo(flat.reshape(1, -1))
     q = rng.randint(0, size, nq).astype(np.int32)
     want = np.asarray(jref.coo_gather_ref(jenc.coords, jenc.values, q))

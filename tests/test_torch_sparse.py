@@ -28,7 +28,7 @@ DENSITIES = [0.0, 0.1, 0.5, 1.0]
 @pytest.mark.parametrize("density", DENSITIES)
 def test_encode_bitmap_matches_reference(rows, cols, density):
     w = _matrix(rows, cols, density, rows * cols)
-    got = tsparse.encode_bitmap(w)
+    got = tsparse.encode_bitmap(w, device="cpu")
     want = jsparse.encode_bitmap(w)
     assert got.shape == want.shape and got.nnz == want.nnz
     np.testing.assert_array_equal(n(got.words).view(np.uint32),
@@ -45,7 +45,7 @@ def test_encode_bitmap_matches_reference(rows, cols, density):
 @pytest.mark.parametrize("density", DENSITIES)
 def test_encode_coo_matches_reference(rows, cols, density):
     w = _matrix(rows, cols, density, rows + cols)
-    got = tsparse.encode_coo(w)
+    got = tsparse.encode_coo(w, device="cpu")
     want = jsparse.encode_coo(w)
     assert got.shape == want.shape and got.nnz == want.nnz
     np.testing.assert_array_equal(n(got.coords), np.asarray(want.coords))
@@ -77,7 +77,7 @@ def test_bitmap_rank_and_popcount_match_reference(seed):
     (0.05, 0.80), (0.5, 0.80), (0.99, 0.80), (0.5, 0.3), (0.0, 0.80)])
 def test_encode_factor_matches_reference(density, threshold):
     w = _matrix(12, 200, density, 7)
-    got = tsparse.encode_factor(w, threshold)
+    got = tsparse.encode_factor(w, threshold, device="cpu")
     want = jsparse.encode_factor(w, threshold)
     assert (got.fmt, got.shape, got.nnz) == (want.fmt, want.shape, want.nnz)
     assert got.sparsity == want.sparsity
