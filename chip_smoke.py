@@ -43,8 +43,21 @@ line each:
            they terminate), flash_attention at Llama 3.2 1B's widths (32
            heads, head dim 64, 8 kv heads repeated) over 4096 tokens,
            causal;
-  kernels  {"kernels": [...]}: per kernel its launches on its path (serve
-           or kernel_ops), the largest error against its plain version
+  train    training and online fine-tuning on the card: NerfTrainer on
+           "lego" at NeRFConfig() (12 views of 64 x 64, 4096 rays x 512
+           samples a step), resumed from the serve phase's encoded field,
+           20 steps across a re-encode at step 10 (ms a step, forward and
+           backward of one step, peak memory, loss and PSNR per step,
+           formats around the re-encode, the launches of the gathers'
+           forward and backward kernels), 3 steps of a fresh dense field;
+           one step's loss and every trainable leaf's gradient against
+           the CPU on 256 rays; the trained field's cube set from
+           final(), published to the serve engine and served; a
+           FineTuneLoop on the engine's store publishing while the engine
+           serves;
+  kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
+           kernel_ops or train), the largest error against its plain
+           version
            (the fused kernel on the captured step's cube order, two
            ascending runs, and on a shuffled copy; the COO gather on the
            occupancy build's first and middle chunk and on a shuffled
@@ -64,7 +77,12 @@ line each:
            entry: the same at the eval path's shapes (the fused kernel
            at a render_rtnerf scan step, the gathers at a quarter of one
            uniform pass's appearance-plane call), with the launches of
-           one 800 x 800 view.
+           one 800 x 800 view; rows 2 and 3 a `train` entry, the same at
+           a training step's appearance-plane call with the training
+           run's launches. Rows 7 and 8 are the gathers' backward
+           kernels at that call, held against their plain versions
+           within the reordering bound of fp32 sums, with `index_add_`
+           on the precomputed slots as the library call.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -160,6 +178,28 @@ GT_TIE_SHARE = 1e-3   # ... and at most this share of pixels may flip
 # of one render_uniform pass's appearance-plane call (its plain version
 # over the whole call would hold about 38 GB of int64 temporaries)
 EVAL_GATHER_ROWS = 12
+# the train phase: NerfTrainer on "lego" at NeRFConfig() (12 views of
+# 64 x 64, train_rays 4096 x 512 samples: one render_uniform pass a
+# step), resumed from the serve phase's encoded field, TRAIN_STEPS steps
+# across one re-encode at TRAIN_OCC_EVERY; DENSE_STEPS steps of a fresh
+# dense field; one step's loss and gradients on the card against the CPU
+# on CPU_RAYS rays; FT_STEPS fine-tune steps publishing every FT_PUBLISH
+TRAIN_SCENE = "lego"
+TRAIN_STEPS = 20
+TRAIN_OCC_EVERY = 10
+TRAIN_VIEWS, TRAIN_RES = 12, 64
+DENSE_STEPS = 3
+CPU_RAYS = 256
+# card against CPU: the loss within LOSS_RTOL relative; each gradient
+# within GRAD_TOL of its leaf's largest |gradient| (sums in other orders:
+# GEMM blocking, the backward kernels' atomics, the card's exp and log)
+LOSS_RTOL = 1e-5
+GRAD_TOL = 1e-4
+# one adamw update on the same gradients and state, card against CPU:
+# elementwise and rounded alike but for the card's pow (1 - b2 ** step),
+# so within UPDATE_RTOL relative and UPDATE_ATOL_LR x lr
+UPDATE_RTOL, UPDATE_ATOL_LR = 1e-6, 1e-5
+FT_STEPS, FT_PUBLISH, FT_VIEWS, FT_MAX_REQUESTS = 4, 2, 4, 8
 
 
 def emit(obj) -> None:
@@ -861,7 +901,9 @@ class EvalCapture:
     fused kernel's inputs at call number `fused_call` (cloned, no host
     sync), the largest bitmap and COO gather call (held, not copied),
     and, with `staged`, every COO launch counting its staged tiles into
-    that device counter while `tiles` adds up its query tiles."""
+    that device counter while `tiles` adds up its query tiles. Where the
+    held call's output is differentiated, `grads[fmt]` is the gradient
+    its backward kernel receives."""
 
     def __init__(self, ops, coo_gather, fused_call=None, staged=None):
         self.ops, self.coo_gather = ops, coo_gather
@@ -869,6 +911,7 @@ class EvalCapture:
         self.fused_call, self.fused_calls, self.fused = fused_call, 0, None
         self.staged, self.tiles = staged, 0
         self.gathers = {}       # fmt -> (args, kwargs, nq)
+        self.grads = {}         # fmt -> gradient of the held call's output
 
     def __enter__(self):
         self.ops.fused_sigma_app = self.fused_wrap
@@ -891,15 +934,22 @@ class EvalCapture:
         def wrapped(*args, **kw):
             q = args[3] if fmt == "bitmap" else args[2]
             prev = self.gathers.get(fmt)
-            if self.fused_call is None and (prev is None
-                                            or q.shape[0] > prev[2]):
+            held = self.fused_call is None and (prev is None
+                                                or q.shape[0] > prev[2])
+            if held:
                 self.gathers[fmt] = (args, kw, q.shape[0])
             if fmt == "coo" and self.staged is not None \
                     and kw.get("force") is None:
                 self.tiles += self.coo_gather.coo_plan(q.shape[0]).blocks
                 return self.coo_gather.coo_gather(*args,
                                                   staged=self.staged)
-            return fn(*args, **kw)
+            out = fn(*args, **kw)
+            if held and out.requires_grad:
+                def keep(g):
+                    if self.gathers[fmt][0] is args:
+                        self.grads[fmt] = g
+                out.register_hook(keep)
+            return out
         return wrapped
 
 
@@ -1160,61 +1210,446 @@ def eval_kernel_entries(torch, mods, captured, cfg) -> dict:
     for name, fmt in (("bitmap_gather", "bitmap"), ("coo_gather", "coo")):
         g = captured["gathers"].get(fmt)
         check(g is not None, f"no {fmt} gather captured in the uniform pass")
-        fargs, fkw, nq = g
-        rows = nq // (4 * S)
-        check(nq == rows * 4 * S and rows == cfg.r_color,
-              f"{fmt} call of {nq} queries is not an appearance plane's "
-              f"({cfg.r_color} rows x 4 x {S})")
-        q_full = fargs[3] if fmt == "bitmap" else fargs[2]
-        q = q_full[: EVAL_GATHER_ROWS * 4 * S]
-        entry = {"path": "render_uniform pass, appearance-plane call",
-                 "launches_per_view": captured["launches_uni"][name],
-                 "call_queries": nq, "call_rows": rows,
-                 "timed_rows": EVAL_GATHER_ROWS, "timed_queries": q.shape[0]}
-        if fmt == "bitmap":
-            words, rowptr, values = fargs[:3]
-            cols, rank = fkw["cols"], fkw["rank"]
-
-            def run_k():
-                return bitmap_decode.bitmap_gather(words, rowptr, values, q,
-                                                   cols=cols, rank=rank)
-
-            def run_p():
-                return bitmap_decode.bitmap_gather_ref(words, rowptr, values,
-                                                       q, cols, rank=rank)
-            stream_bytes = nbytes(words, rowptr, values, rank)
-            g_ops = q.shape[0] * 12
-        else:
-            coords, values = fargs[:2]
-
-            def run_k():
-                return coo_gather.coo_gather(coords, values, q)
-
-            def run_p():
-                return coo_gather.coo_gather_ref(coords, values, q)
-            _, staged = coo_gather.coo_gather_staged(coords, values, q)
-            win = coo_gather.tile_windows(coords, q)
-            predicted = int((win <= coo_gather.CAPACITY).sum())
-            check(staged == predicted, f"coo_gather staged {staged} tiles "
-                  f"at the eval shape, the windows predict {predicted}")
-            entry.update({"staged_tile_share": staged / win.shape[0],
-                          "window_mean": float(win.double().mean()),
-                          "window_max": int(win.max())})
-            stream_bytes = nbytes(coords, values)
-            g_ops = q.shape[0] * 4 * coo_gather.search_steps(coords.shape[0])
-        got, want = run_k(), run_p()
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"{name} differs from plain at the "
-              f"eval shape")
-        del got, want
-        g_bytes = q.shape[0] * 8 + stream_bytes
-        b_ms, b_by = bound(g_bytes, g_ops)
-        entry.update({"max_abs_err": 0.0, "tol": 0.0,
-                      **timing_keys(torch, run_k, run_p),
-                      "bound_ms": b_ms, "bound_by": b_by,
-                      "library_ms": None, "bytes": g_bytes, "ops": g_ops})
-        out[name] = entry
+        out[name] = {"path": "render_uniform pass, appearance-plane call",
+                     "launches_per_view": captured["launches_uni"][name],
+                     **gather_call_entry(torch, mods, fmt, g, S, cfg)}
     return out
+
+
+def gather_call_entry(torch, mods, fmt, call, samples, cfg) -> dict:
+    """A forward gather kernel on a captured appearance-plane call of a
+    render_uniform pass of `samples` samples (48 rows x 4 corners x
+    samples queries), timed on its first EVAL_GATHER_ROWS rows (the plain
+    version over the whole call would hold about 38 GB of int64
+    temporaries); checked bit-exact against its plain version first."""
+    _, bitmap_decode, coo_gather = mods
+    fargs, fkw, nq = call
+    rows = nq // (4 * samples)
+    check(nq == rows * 4 * samples and rows == cfg.r_color,
+          f"{fmt} call of {nq} queries is not an appearance plane's "
+          f"({cfg.r_color} rows x 4 x {samples})")
+    q_full = fargs[3] if fmt == "bitmap" else fargs[2]
+    q = q_full[: EVAL_GATHER_ROWS * 4 * samples]
+    entry = {"call_queries": nq, "call_rows": rows,
+             "timed_rows": EVAL_GATHER_ROWS, "timed_queries": q.shape[0]}
+    if fmt == "bitmap":
+        words, rowptr, values = fargs[:3]
+        cols, rank = fkw["cols"], fkw["rank"]
+
+        def run_k():
+            return bitmap_decode.bitmap_gather(words, rowptr, values, q,
+                                               cols=cols, rank=rank)
+
+        def run_p():
+            return bitmap_decode.bitmap_gather_ref(words, rowptr, values, q,
+                                                   cols, rank=rank)
+        stream_bytes = nbytes(words, rowptr, values, rank)
+        g_ops = q.shape[0] * 12
+    else:
+        coords, values = fargs[:2]
+
+        def run_k():
+            return coo_gather.coo_gather(coords, values, q)
+
+        def run_p():
+            return coo_gather.coo_gather_ref(coords, values, q)
+        _, staged = coo_gather.coo_gather_staged(coords, values, q)
+        win = coo_gather.tile_windows(coords, q)
+        predicted = int((win <= coo_gather.CAPACITY).sum())
+        check(staged == predicted, f"coo_gather staged {staged} tiles on "
+              f"the appearance-plane call, the windows predict {predicted}")
+        entry.update({"staged_tile_share": staged / win.shape[0],
+                      "window_mean": float(win.double().mean()),
+                      "window_max": int(win.max())})
+        stream_bytes = nbytes(coords, values)
+        g_ops = q.shape[0] * 4 * coo_gather.search_steps(coords.shape[0])
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"{fmt} gather differs from plain on the "
+          f"appearance-plane call")
+    del got, want
+    g_bytes = q.shape[0] * 8 + stream_bytes
+    b_ms, b_by = bound(g_bytes, g_ops)
+    entry.update({"max_abs_err": 0.0, "tol": 0.0,
+                  **timing_keys(torch, run_k, run_p),
+                  "bound_ms": b_ms, "bound_by": b_by,
+                  "library_ms": None, "bytes": g_bytes, "ops": g_ops})
+    return entry
+
+
+def bwd_tol(torch, slot, hit, grad, nvalues) -> tuple:
+    """(tolerance per value slot, queries per slot): two fp32 sums of the
+    same k terms in different orders (the kernel's atomics, the plain
+    version's index_add_) differ by at most about 2 k 2^-24 times the sum
+    of the terms' magnitudes. Slots no query reads must be exactly 0."""
+    w = torch.where(hit, 1.0, 0.0).double()
+    k = torch.zeros(nvalues, dtype=torch.float64,
+                    device=grad.device).index_add_(0, slot, w)
+    a = torch.zeros(nvalues, dtype=torch.float64,
+                    device=grad.device).index_add_(0, slot,
+                                                   grad.abs().double() * w)
+    return 2.0 * k * 2.0 ** -24 * a, k
+
+
+def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
+    """The backward kernel of one gather on the training step's captured
+    appearance-plane call (its first EVAL_GATHER_ROWS rows, as the
+    forward entries): held against its plain version within `bwd_tol`,
+    exact zeros where no query reads; timed as the forward rows are, with
+    `index_add_` on the precomputed slots as the library call. The bound
+    counts the incoming gradient (4 bytes a query), the queries of nonzero
+    gradient (4 bytes each: the kernel skips the rest), the stream's
+    metadata and each value's read-modify-write (8 bytes)."""
+    bitmap_decode, coo_gather = mods
+    args, kw, nq = call
+    rows = nq // (4 * samples)
+    check(nq == rows * 4 * samples and rows == cfg.r_color,
+          f"{fmt} backward call of {nq} queries is not an appearance "
+          f"plane's")
+    n = EVAL_GATHER_ROWS * 4 * samples
+    if fmt == "bitmap":
+        words, rowptr, q_full, g_full = args
+        nvalues, cols, rank = kw["nvalues"], kw["cols"], kw["rank"]
+        q, g = q_full[:n], g_full[:n]
+
+        def run_k():
+            return bitmap_decode.bitmap_gather_bwd(
+                words, rowptr, q, g, nvalues=nvalues, cols=cols, rank=rank)
+
+        def run_p():
+            return bitmap_decode.bitmap_gather_bwd_ref(
+                words, rowptr, q, g, nvalues, cols, rank=rank)
+        slot, hit = bitmap_decode.bitmap_slots(words, rowptr, nvalues, q,
+                                               cols, rank)
+        meta = nbytes(words, rowptr, rank)
+        name, source = ("bitmap_gather_bwd",
+                        "src/repro_torch/kernels/csrc/bitmap_gather.cu")
+        replaces, oracle = ("src/repro/kernels/bitmap_decode.py:68",
+                            "src/repro/kernels/ref.py:28")
+    else:
+        coords, q_full, g_full = args
+        nvalues = coords.shape[0]
+        q, g = q_full[:n], g_full[:n]
+
+        def run_k():
+            return coo_gather.coo_gather_bwd(coords, q, g)
+
+        def run_p():
+            return coo_gather.coo_gather_bwd_ref(coords, q, g)
+        slot, hit = coo_gather.coo_slots(coords, q)
+        meta = nbytes(coords)
+        name, source = ("coo_gather_bwd",
+                        "src/repro_torch/kernels/csrc/coo_gather.cu")
+        replaces, oracle = ("src/repro/kernels/coo_gather.py:40",
+                            "src/repro/kernels/ref.py:41")
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    tol, k = bwd_tol(torch, slot, hit, g, nvalues)
+    diff = (got.double() - want.double()).abs()
+    over = float((diff - tol).max())
+    unread = k == 0
+    check(over <= 0.0, f"{name} differs from plain beyond the reordering "
+          f"bound by {over}")
+    check(bool((got[unread] == 0).all()) and bool((want[unread] == 0).all()),
+          f"{name}: a value slot no query reads is not 0")
+    ea = float(diff.max())
+    vals = torch.where(hit, g, torch.zeros_like(g))
+
+    def run_lib():
+        return torch.zeros(nvalues, dtype=torch.float32,
+                           device=g.device).index_add_(0, slot, vals)
+    nz = int((g != 0).sum())
+    b_bytes = 4 * n + 4 * nz + meta + 8 * nvalues
+    b_ms, b_by = bound(b_bytes, 2 * nz)
+    row = {"name": name, "route": "cuda", "source": source,
+           "replaces": replaces,
+           "replaces_note": f"the gradient of that kernel's function with "
+                            f"respect to the values, which the reference "
+                            f"takes by differentiating its jnp oracle "
+                            f"({oracle}); no Pallas backward exists",
+           "launches": launches, "max_abs_err": ea,
+           "max_over_tol": over, "tol": "2 k 2^-24 sum|g| per slot",
+           **timing_keys(torch, run_k, run_p),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": time_ms(torch, run_lib, 50)[0],
+           "library_call": "torch.zeros(n).index_add_ on precomputed slots",
+           "shape": {"Q": n, "call_queries": nq, "timed_rows":
+                     EVAL_GATHER_ROWS, "nonzero_grad_queries": nz,
+                     "hit_queries": int(hit.sum()), "values": nvalues,
+                     "slots_read": int((~unread).sum()),
+                     "max_queries_a_slot": int(k.max())},
+           "bytes": b_bytes}
+    del got, want, diff, tol, k, slot, hit, vals
+    return row
+
+
+def train_phase(torch, m, cfg, field, engine, dev, mods) -> tuple:
+    """Training and fine-tuning on the card. (b) NerfTrainer resumed from
+    the serve phase's encoded field, TRAIN_STEPS steps across a
+    re-encode, every launch of the gathers' forward and backward kernels
+    counted, and DENSE_STEPS steps of a fresh dense field; one extra
+    step split into forward and backward, with its gather calls captured
+    for (a) the kernels at the training shape; (c) one step's loss and
+    gradients on the card against the CPU; (d) the trained field's cube
+    set from final(), published to the serve engine and served; (e) a
+    FineTuneLoop on the engine's store while the engine serves. Returns
+    (phase line, forward train entries, backward rows)."""
+    ops, bitmap_decode, coo_gather = mods
+    t_phase = time.perf_counter()
+    counted = {"bitmap_gather": bitmap_decode.bitmap_gather,
+               "coo_gather": coo_gather.coo_gather,
+               "bitmap_gather_bwd": bitmap_decode.bitmap_gather_bwd,
+               "coo_gather_bwd": coo_gather.coo_gather_bwd}
+    scene = m.rays.make_scene(TRAIN_SCENE)
+
+    # -- (b) training on the card -----------------------------------------
+    t0 = time.perf_counter()
+    trainer = m.train.NerfTrainer(cfg, TRAIN_SCENE, field=field,
+                                  n_views=TRAIN_VIEWS, image_hw=TRAIN_RES,
+                                  occ_every=TRAIN_OCC_EVERY, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    formats = {"start": trainer.field.formats()}
+    # the MLP and basis keep their shapes across a re-encode
+    extras0 = {k: v.clone() for k, v in trainer.snapshot().trainable().items()
+               if k.startswith("extras/")}
+    steps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero_counts(counted)
+    t_train = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        reenc = i > 0 and i % TRAIN_OCC_EVERY == 0
+        before = trainer.field.formats()
+        t0 = time.perf_counter()
+        rec = trainer.step()
+        torch.cuda.synchronize()
+        rec.update(ms=(time.perf_counter() - t0) * 1e3, reencode=reenc)
+        steps.append(rec)
+        if reenc:
+            formats[f"step_{i}"] = {
+                "before": before, "after": trainer.field.formats(),
+                "nnz": {k: [ef.nnz for ef in efs]
+                        for k, efs in trainer.field.factors.items()}}
+    train_s = time.perf_counter() - t_train
+    launches = launch_counts(counted)
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched while training")
+    for rec in steps:
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["psnr"]),
+              f"training step {rec['step']}: {rec}")
+    extras = trainer.snapshot().trainable()
+    moved = {k: float((extras[k] - v).abs().max()) for k, v in extras0.items()}
+    check(len(moved) > 0 and all(d > 0 for d in moved.values()),
+          f"training left a trainable leaf unchanged: {moved}")
+    del extras, extras0
+    fmts = {f for fs in trainer.field.formats().values() for f in fs}
+    check({"bitmap", "coo"} <= fmts, f"re-encoded formats {fmts}")
+    plain = [r["ms"] for r in steps[1:] if not r["reencode"]]
+
+    # one more step, split into forward and backward, its gather calls
+    # captured (not counted: the launches above are the training run's)
+    small = m.rays.build_dataset(scene, 2, TRAIN_RES, TRAIN_RES, device=dev)
+    ro, rd, tgt = next(small.batches(cfg.train_rays, seed=1))
+    f = trainer.snapshot()
+    tv = {k: v.detach().requires_grad_(True)
+          for k, v in f.trainable().items()}
+    with EvalCapture(ops, coo_gather) as cap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = m.train.nerf_loss(f.with_trainable(tv), cfg, ro, rd, tgt)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.autograd.grad(loss, list(tv.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    split_ms = {"forward": 1e3 * (t1 - t0), "backward": 1e3 * (t2 - t1)}
+    del loss, tv, f
+
+    # -- (a) the kernels at the training shape ------------------------------
+    S = cfg.train_rays * cfg.max_samples_per_ray
+    fwd_entries, bwd_rows = {}, []
+    for name, fmt in (("bitmap_gather", "bitmap"), ("coo_gather", "coo")):
+        check(fmt in cap.gathers and fmt in cap.grads,
+              f"no {fmt} gather captured in the training step")
+        args, kw, nq = cap.gathers[fmt]
+        g = cap.grads[fmt].contiguous()
+        vi = 2 if fmt == "bitmap" else 1       # the values, detached
+        values = args[vi].detach()
+        args = args[:vi] + (values,) + args[vi + 1:]
+        # the backward kernel's call, as the autograd Function makes it
+        if fmt == "bitmap":
+            bwd_call = ((args[0], args[1], args[3], g),
+                        {"nvalues": values.shape[0], "cols": kw["cols"],
+                         "rank": kw["rank"]}, nq)
+        else:
+            bwd_call = ((args[0], args[2], g), {}, nq)
+        fwd_entries[name] = {
+            "path": "NerfTrainer step: render_uniform pass, appearance-"
+                    "plane call", "launches": launches[name],
+            "launches_per_step": launches[name] / TRAIN_STEPS,
+            **gather_call_entry(torch, mods, fmt, (args, kw, nq), S, cfg)}
+        bwd_rows.append(gather_bwd_row(
+            torch, (bitmap_decode, coo_gather), fmt, bwd_call, S, cfg,
+            launches[name + "_bwd"]))
+        bwd_rows[-1]["launches_per_step"] = launches[name + "_bwd"] / \
+            TRAIN_STEPS
+    del cap
+
+    # a fresh dense field: the field=None path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = m.train.NerfTrainer(cfg, TRAIN_SCENE, n_views=2,
+                                image_hw=TRAIN_RES, compressed=False,
+                                device=dev)
+    dense_steps = []
+    for _ in range(DENSE_STEPS):
+        t1 = time.perf_counter()
+        rec = dense.step()
+        torch.cuda.synchronize()
+        rec["ms"] = (time.perf_counter() - t1) * 1e3
+        dense_steps.append(rec)
+        check(math.isfinite(rec["loss"]), f"dense step {rec}")
+    check(dense.field.kind == "dense", "the fresh field is not dense")
+    dense_s = time.perf_counter() - t0
+    del dense
+
+    # -- (c) one step on the card against the CPU ----------------------------
+    t0 = time.perf_counter()
+    f_card = trainer.snapshot()
+    ro, rd, tgt = next(small.batches(CPU_RAYS, seed=2))
+    got = m.train.loss_and_grads(f_card, cfg, ro, rd, tgt)
+    want = m.train.loss_and_grads(f_card.to("cpu"), cfg, ro.cpu(), rd.cpu(),
+                                  tgt.cpu())
+    loss_rel = abs(float(got[0]) - float(want[0])) / float(want[0])
+    check(loss_rel <= LOSS_RTOL, f"card loss {float(got[0])} vs CPU "
+          f"{float(want[0])}")
+    check(got[2].keys() == want[2].keys(), "trainable leaves differ")
+    grad_err = {}
+    for k, w in want[2].items():
+        scale = float(w.abs().max())
+        err = float((got[2][k].cpu() - w).abs().max())
+        grad_err[k] = err / scale if scale > 0 else err
+        check(err <= GRAD_TOL * scale, f"gradient {k}: card vs CPU {err}, "
+              f"{GRAD_TOL} x {scale} allowed")
+    # the trainer's update from its own state on the card's gradients
+    opt, state, tv = trainer.opt, trainer._opt_state, trainer._tvals
+    new_card = opt.update(got[2], state, tv)[0]
+    new_cpu = opt.update(
+        {k: g.cpu() for k, g in got[2].items()},
+        {"step": state["step"].cpu(),
+         "m": {k: v.cpu() for k, v in state["m"].items()},
+         "v": {k: v.cpu() for k, v in state["v"].items()}},
+        {k: v.cpu() for k, v in tv.items()})[0]
+    update_err = 0.0
+    for k, w in new_cpu.items():
+        c = new_card[k].cpu()
+        over = (c - w).abs() - (UPDATE_RTOL * w.abs()
+                                + UPDATE_ATOL_LR * cfg.lr_grid)
+        check(float(over.max()) <= 0.0, f"adamw update of {k}: card vs "
+              f"CPU beyond the tolerance by {float(over.max())}")
+        check(not torch.equal(c, tv[k].cpu()) or not bool(got[2][k].any()),
+              f"adamw left {k} unchanged though its gradient is not 0")
+        update_err = max(update_err, float((c - w).abs().max()))
+    cpu_s = time.perf_counter() - t0
+    del got, want, f_card, new_card, new_cpu
+
+    # -- (d) train, then serve -----------------------------------------------
+    t0 = time.perf_counter()
+    res = trainer.final()
+    final_s = time.perf_counter() - t0
+    cam = m.rays.make_cameras(TRAIN_VIEWS, TRAIN_RES, TRAIN_RES,
+                              device=dev)[1]
+    gt = m.rays.render_gt(scene, cam).cpu().numpy()
+
+    def psnr(img):
+        mse = float(np.mean((np.clip(img, 0, 1) - gt) ** 2))
+        return -10.0 * math.log10(max(mse, 1e-10))
+    before = engine.submit(cam).result(timeout=RESULT_TIMEOUT_S)
+    engine.swap_field(res.field, res.cubes)
+    t0 = time.perf_counter()
+    after = engine.submit(cam).result(timeout=RESULT_TIMEOUT_S)
+    serve_s = time.perf_counter() - t0
+    check(after.img.shape == (TRAIN_RES * TRAIN_RES, 3)
+          and bool(np.isfinite(after.img).all()), "trained view image")
+    check(after.stats["dispatch_path"] == "fused",
+          f"trained view took {after.stats['dispatch_path']}")
+    check(res.cubes.count > 0, "the trained field has no cube")
+
+    # -- (e) fine-tuning while the engine serves -------------------------------
+    t0 = time.perf_counter()
+    loop = m.FineTuneLoop.attach(
+        engine.store, engine.default_scene, data_scene=TRAIN_SCENE,
+        steps=FT_STEPS, publish_every=FT_PUBLISH, n_views=FT_VIEWS,
+        image_hw=TRAIN_RES)
+    small_cam = orbit_camera(m, 1.0, AF_RES, dev)
+    zero_counts(counted)
+    t_loop = time.perf_counter()
+    loop.start()
+    futs, windows = [], []
+    while loop.running() and len(futs) < FT_MAX_REQUESTS:
+        t_sub = time.perf_counter() - t_loop
+        futs.append(engine.submit(small_cam))
+        engine.flush()
+        windows.append((t_sub, time.perf_counter() - t_loop))
+    served = [fu.result(timeout=RESULT_TIMEOUT_S) for fu in futs]
+    loop.join(timeout=RESULT_TIMEOUT_S)
+    ft_launches = launch_counts(counted)
+    ft_s = time.perf_counter() - t0
+    # publications that landed while a view was queued or rendering (the
+    # loop's t_wall counts from its start, a moment after t_loop)
+    during = sum(any(a <= sw["t_wall"] <= b for a, b in windows)
+                 for sw in loop.swaps)
+    check(len(loop.history) == FT_STEPS
+          and len(loop.swaps) == FT_STEPS // FT_PUBLISH,
+          f"fine-tune history {len(loop.history)}, swaps {len(loop.swaps)}")
+    check(len(served) > 0 and all(np.isfinite(r.img).all() for r in served),
+          "views served during fine-tuning")
+    check(during >= 1, f"no publication landed while a view was served "
+          f"(swaps {loop.swaps}, views {windows})")
+    check(ft_launches["bitmap_gather_bwd"] + ft_launches["coo_gather_bwd"]
+          > 0, f"fine-tuning launched no backward kernel: {ft_launches}")
+
+    line = {
+        "phase": "train", "seconds": time.perf_counter() - t_phase,
+        "scene": TRAIN_SCENE, "views": TRAIN_VIEWS, "res": TRAIN_RES,
+        "train_rays": cfg.train_rays,
+        "samples_per_step": cfg.train_rays * cfg.max_samples_per_ray,
+        "occ_every": TRAIN_OCC_EVERY, "setup_s": setup_s,
+        "train_s": train_s, "launches": launches,
+        "step_ms_median": float(np.median(plain)),
+        "step_ms_first": steps[0]["ms"],
+        "reencode_step_ms": [r["ms"] for r in steps if r["reencode"]],
+        "split_step_ms": split_ms,
+        "peak_memory_bytes": peak,
+        "peak_memory_over_start_bytes": peak - mem0,
+        "steps": [{k: r[k] for k in ("step", "loss", "psnr", "ms",
+                                     "reencode")} for r in steps],
+        "formats": formats,
+        "dense_fresh_init": {"steps": dense_steps, "seconds": dense_s},
+        "card_vs_cpu": {"rays": CPU_RAYS, "loss_rel_err": loss_rel,
+                        "loss_rtol": LOSS_RTOL,
+                        "grad_err_over_leaf_max": grad_err,
+                        "grad_tol": GRAD_TOL,
+                        "update_max_abs_err": update_err,
+                        "update_rtol": UPDATE_RTOL,
+                        "update_atol": UPDATE_ATOL_LR * cfg.lr_grid,
+                        "seconds": cpu_s},
+        "extras_moved_max": moved,
+        "served": {"final_s": final_s, "cubes": res.cubes.count,
+                   "formats": res.field.formats(),
+                   "psnr_before_db": psnr(before.img),
+                   "psnr_after_db": psnr(after.img), "serve_s": serve_s,
+                   "res": TRAIN_RES},
+        "finetune": {"steps": FT_STEPS, "publish_every": FT_PUBLISH,
+                     "swaps": loop.swaps, "history": loop.history,
+                     "views_served": len(served),
+                     "swaps_while_serving": during,
+                     "launches": ft_launches,
+                     "seconds": ft_s}}
+    return line, fwd_entries, bwd_rows
 
 
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
@@ -1599,7 +2034,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, bitmap_decode, coo_gather,
                                      flash_attention, fused_sample, ops,
                                      volume_render)
-    from repro_torch.serving import RenderEngine
+    from repro_torch.serving import FineTuneLoop, RenderEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1753,7 +2188,7 @@ def main() -> int:
         field_lib=field_lib, occ_lib=occ_lib, rendering=rendering,
         tensorf=tensorf, fused_sample=fused_sample, pipeline=pipeline,
         train=train, rays=rays, ops=ops, coo_gather=coo_gather,
-        RenderEngine=RenderEngine)
+        RenderEngine=RenderEngine, FineTuneLoop=FineTuneLoop)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
         line, store_engine = store_phase(torch, m, cfg, args.seed, dev, spill,
                                          kernels)
@@ -1814,6 +2249,12 @@ def main() -> int:
                                        flash_attention), op_inputs, cfg,
                                rendering, ops_launches, hgmma)
     del op_inputs, bitmap_in, volume_in, flash_in
+
+    # -- train: NerfTrainer, the backward kernels, card against CPU, train
+    # then serve, FineTuneLoop ---------------------------------------------
+    line, train_entries, bwd_rows = train_phase(
+        torch, m, cfg, field, engine, dev, (ops, bitmap_decode, coo_gather))
+    emit(line)
 
     # -- kernels: each against its plain version on captured inputs ------
     rows = []
@@ -1879,8 +2320,10 @@ def main() -> int:
                                args.seed))
     for row in rows:
         row["eval"] = eval_entries[row["name"]]
-    rows += ops_rows
-    check(len(rows) == 6, f"{len(rows)} kernel rows")
+        if row["name"] in train_entries:
+            row["train"] = train_entries[row["name"]]
+    rows += ops_rows + bwd_rows
+    check(len(rows) == 8, f"{len(rows)} kernel rows")
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"total_s {time.perf_counter() - t_start:.1f}", file=sys.stderr)
     print(nvidia_smi(), flush=True)

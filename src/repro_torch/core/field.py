@@ -11,6 +11,9 @@ sets. The port of `repro/core/field.py`.
   prune(...)          magnitude pruning (tol- or target-sparsity-based)
   to(device)          the same field on another device
   sparsity_report()   per-factor format / sparsity / bytes
+  trainable()         {name: float payload} the optimizer owns
+  with_trainable(t)   the same structure with new payloads
+  l1(), tv()          the training regularisers
 
 `as_backend` is the one place that inspects a field's concrete type.
 `field_state`/`field_from_state` carry a field between this package and
@@ -78,6 +81,18 @@ class FieldBackend:
         raise NotImplementedError
 
     def to(self, device: DeviceLike) -> "FieldBackend":
+        raise NotImplementedError
+
+    def trainable(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def with_trainable(self, t: Dict[str, torch.Tensor]) -> "FieldBackend":
+        raise NotImplementedError
+
+    def l1(self) -> torch.Tensor:
+        raise NotImplementedError
+
+    def tv(self) -> torch.Tensor:
         raise NotImplementedError
 
     def factor_bytes(self) -> int:
@@ -150,6 +165,48 @@ class DenseField(FieldBackend):
     def to(self, device: DeviceLike) -> "DenseField":
         return DenseField({k: v.to(device) for k, v in self.params.items()},
                           self.cfg)
+
+    def trainable(self):
+        return dict(self.params)
+
+    def with_trainable(self, t):
+        return DenseField(dict(t), self.cfg)
+
+    def revive(self, grads: Dict[str, torch.Tensor], *, frac: float,
+               eps: float) -> "DenseField":
+        """Support revival at a re-encode boundary (RigL-style regrowth):
+        entries pruned to exact zero get no gradient between encodes, so
+        per VM factor the top `frac` (of all entries) zero entries by
+        |dense loss gradient| are seeded with a step of magnitude `eps`
+        against the gradient; `eps` above the prune tolerance keeps them
+        through the next prune. Runs on the host in numpy, as the
+        reference does, so that the same gradients pick the same entries.
+        The MLP and basis are untouched."""
+        if frac <= 0.0:
+            return self
+        out = dict(self.params)
+        for k in sparse.FACTOR_KEYS:
+            w = _np(self.params[k])
+            g = _np(grads[k])
+            zero = w == 0
+            score = np.where(zero, np.abs(g), -1.0).reshape(-1)
+            k_top = min(int(frac * score.size), int(zero.sum()))
+            if k_top <= 0:
+                continue
+            top = np.argpartition(-score, k_top - 1)[:k_top]
+            top = top[score[top] > 0.0]        # never revive grad-free zeros
+            seed = np.zeros(score.size, w.dtype)
+            seed[top] = -eps * np.sign(g.reshape(-1)[top])
+            out[k] = torch.from_numpy(
+                (w.reshape(-1) + seed).reshape(w.shape)).to(
+                    self.params[k].device)
+        return DenseField(out, self.cfg)
+
+    def l1(self):
+        return tensorf.field_l1(self.params)
+
+    def tv(self):
+        return tensorf.field_tv(self.params)
 
     def factor_bytes(self) -> int:
         return sum(self.params[k].numel() * 4 for k in sparse.FACTOR_KEYS)
@@ -231,6 +288,45 @@ class CompressedField(FieldBackend):
              for k, efs in self.factors.items()},
             {k: v.to(device) for k, v in self.extras.items()},
             self.cfg, self.threshold)
+
+    def trainable(self):
+        """Float payloads only: `extras/<k>` and the packed values of each
+        factor slice, `factors/<k>/<m>`. The codec's integer streams are
+        not trainable: gradients land on the values through the gathers'
+        backward, and the support stays fixed until the next re-encode."""
+        out = {f"extras/{k}": v for k, v in self.extras.items()}
+        for k, efs in self.factors.items():
+            for m, ef in enumerate(efs):
+                out[f"factors/{k}/{m}"] = ef.value_array
+        return out
+
+    def with_trainable(self, t):
+        extras = {k: t[f"extras/{k}"] for k in self.extras}
+        factors = {k: tuple(ef.with_value_array(t[f"factors/{k}/{m}"])
+                            for m, ef in enumerate(efs))
+                   for k, efs in self.factors.items()}
+        return CompressedField(factors, extras, self.cfg, self.threshold)
+
+    def l1(self):
+        """tensorf.field_l1 of the decoded field: the packed values hold
+        every non-zero, and zeros add nothing to a mean of |w|."""
+        tot = 0.0
+        for efs in self.factors.values():
+            num = sum(tensorf.abs_grad1(ef.value_array).sum()
+                      for ef in efs)
+            den = sum(int(np.prod(ef.shape)) for ef in efs)
+            tot = tot + num / den
+        return tot
+
+    def tv(self):
+        """TV needs each plane's neighbourhood, so it decodes the planes,
+        differentiably in their values (loss only: renders never
+        materialise the grids)."""
+        def planes(key):
+            return torch.stack([ef.decode().reshape(ef.nd_shape)
+                                for ef in self.factors[key]])
+        return tensorf.field_tv({"sigma_planes": planes("sigma_planes"),
+                                 "app_planes": planes("app_planes")})
 
     def factor_bytes(self) -> int:
         return sum(ef.storage() for efs in self.factors.values()

@@ -142,7 +142,8 @@ def encode_coo(w, pad_to: Optional[int] = None, *,
 
 
 def decode_bitmap(enc: BitmapEncoded) -> torch.Tensor:
-    """Reconstruct the dense (rows, cols) matrix."""
+    """Reconstruct the dense (rows, cols) matrix; differentiable in
+    `enc.values` (`CompressedField.tv` decodes through it)."""
     rows, cols = enc.shape
     words = enc.words.to(torch.int64) & _MASK32
     bpos = torch.arange(cols, device=words.device)
@@ -154,7 +155,8 @@ def decode_bitmap(enc: BitmapEncoded) -> torch.Tensor:
 
 
 def decode_coo(enc: CooEncoded) -> torch.Tensor:
-    """Reconstruct the dense array."""
+    """Reconstruct the dense array; differentiable in `enc.values`, pad
+    entries getting a zero gradient."""
     n = int(np.prod(enc.shape))
     flat = torch.zeros((n,), dtype=enc.values.dtype, device=enc.values.device)
     ok = enc.coords != PAD_COORD
@@ -203,6 +205,18 @@ class EncodedFactor:
         if self.fmt == "bitmap":
             return self.bitmap.values
         return self.coo.values
+
+    def with_value_array(self, v: torch.Tensor) -> "EncodedFactor":
+        """The same structure with a new float payload (an optimizer
+        step). The streams, and the bitmap's rank table, are kept: the
+        values change, the support does not."""
+        if self.fmt == "dense":
+            return dataclasses.replace(self, dense=v)
+        if self.fmt == "bitmap":
+            return dataclasses.replace(
+                self, bitmap=dataclasses.replace(self.bitmap, values=v))
+        return dataclasses.replace(
+            self, coo=dataclasses.replace(self.coo, values=v))
 
     def storage(self) -> int:
         return storage_bytes(self.shape, self.nnz, self.fmt)

@@ -308,6 +308,33 @@ def eval_color(params, cfg: NeRFConfig, feats: torch.Tensor,
     return torch.sigmoid(h @ params["mlp_w3"] + params["mlp_b3"])
 
 
+def abs_grad1(x: torch.Tensor) -> torch.Tensor:
+    """|x|, with the reference's gradient: +1 at x = 0 (`jnp.abs`
+    differentiates as x >= 0 ? 1 : -1), where `torch.abs` gives 0. The
+    L1 term then pulls every zero entry and pad slot, as in the
+    reference, and revival ranks zero entries by the same scores."""
+    return torch.where(x >= 0, x, -x)
+
+
+def field_l1(params) -> torch.Tensor:
+    """L1 sparsity regulariser: the mean |w| of each factor tensor,
+    summed; it induces the factor sparsity the hybrid encoding uses."""
+    return (abs_grad1(params["sigma_planes"]).mean()
+            + abs_grad1(params["sigma_lines"]).mean()
+            + abs_grad1(params["app_planes"]).mean()
+            + abs_grad1(params["app_lines"]).mean())
+
+
+def field_tv(params) -> torch.Tensor:
+    """Total variation of the planes (smoothness): the mean squared
+    difference of neighbours along each plane axis."""
+    def tv(p):
+        d1 = torch.square(p[..., 1:, :] - p[..., :-1, :]).mean()
+        d2 = torch.square(p[..., :, 1:] - p[..., :, :-1]).mean()
+        return d1 + d2
+    return tv(params["sigma_planes"]) + tv(params["app_planes"])
+
+
 def prune_factors(params, tol: float = 1e-3):
     """Hard-threshold tiny factor entries to exact zeros."""
     out = dict(params)

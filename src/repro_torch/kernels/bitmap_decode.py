@@ -2,13 +2,15 @@
 `repro/kernels/bitmap_decode.py`:
 
   * `bitmap_gather`: random access, the matrix's values at linear
-    indices (0 at zeros);
+    indices (0 at zeros), and `bitmap_gather_bwd`, its gradient with
+    respect to the packed values;
   * `bitmap_matmul`: y = W @ x for a dense x (cols, n), W decoded on the
     fly and never expanded to dense.
 
 Each launches its CUDA kernel (`csrc/bitmap_gather.cu`,
 `csrc/bitmap_matmul.cu`) on CUDA tensors and runs its plain PyTorch
-version (`bitmap_gather_ref`, `bitmap_matmul_ref`) on CPU tensors;
+version (`bitmap_gather_ref`, `bitmap_gather_bwd_ref`,
+`bitmap_matmul_ref`) on CPU tensors;
 anything else raises. `<wrapper>.launches` counts kernel launches.
 """
 from __future__ import annotations
@@ -22,13 +24,14 @@ from repro_torch.core.sparse import bitmap_rank, popcount32
 from repro_torch.kernels import _build
 
 
-def bitmap_gather_ref(words: torch.Tensor, rowptr: torch.Tensor,
-                      values: torch.Tensor, queries: torch.Tensor, cols: int,
-                      rank: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain version. queries are linear row-major indices; the address of
-    a set bit is rank[r, wi] + popcount(word & below). Without `rank` the
-    table is derived from (words, rowptr) first: the same address as the
-    reference's masked popcount over the row."""
+def bitmap_slots(words: torch.Tensor, rowptr: torch.Tensor, nvalues: int,
+                 queries: torch.Tensor, cols: int,
+                 rank: Optional[torch.Tensor] = None) -> tuple:
+    """(slot, set) of each query: the int64 address of its packed value,
+    rank[r, wi] + popcount(word & below), clamped to [0, nvalues), and
+    whether its bit is set. Without `rank` the table is derived from
+    (words, rowptr) first: the same address as the reference's masked
+    popcount over the row."""
     if rank is None:
         rank = bitmap_rank(words, rowptr)
     rows, nwords = words.shape
@@ -41,9 +44,34 @@ def bitmap_gather_ref(words: torch.Tensor, rowptr: torch.Tensor,
     w = words[r, wi].to(torch.int64) & 0xFFFFFFFF
     below = (torch.ones_like(bi) << bi) - 1
     addr = rank[r, wi].to(torch.int64) + popcount32(w & below)
-    bit = (w >> bi) & 1
-    vals = values[addr.clamp(0, values.shape[0] - 1)]
-    return torch.where(bit > 0, vals, torch.zeros_like(vals))
+    return addr.clamp(0, nvalues - 1), ((w >> bi) & 1) > 0
+
+
+def bitmap_gather_ref(words: torch.Tensor, rowptr: torch.Tensor,
+                      values: torch.Tensor, queries: torch.Tensor, cols: int,
+                      rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version. queries are linear row-major indices; a query whose
+    bit is set reads its slot (`bitmap_slots`), any other reads 0."""
+    slot, bit = bitmap_slots(words, rowptr, values.shape[0], queries, cols,
+                             rank)
+    vals = values[slot]
+    return torch.where(bit, vals, torch.zeros_like(vals))
+
+
+def bitmap_gather_bwd_ref(words: torch.Tensor, rowptr: torch.Tensor,
+                          queries: torch.Tensor, grad: torch.Tensor,
+                          nvalues: int, cols: int,
+                          rank: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Plain version of the backward: the gradient of `bitmap_gather`
+    with respect to its `nvalues` packed values, given the gradient
+    `grad` of its output. Each query whose bit is set adds its gradient
+    to the slot it reads; pad slots and queries on zeros add nothing."""
+    slot, bit = bitmap_slots(words, rowptr, nvalues, queries, cols, rank)
+    out = torch.zeros(nvalues, dtype=grad.dtype, device=grad.device)
+    # a query on a zero adds an exact 0 (no boolean mask: no host sync)
+    return out.index_add_(0, slot, torch.where(bit, grad,
+                                               torch.zeros_like(grad)))
 
 
 def bitmap_gather(words: torch.Tensor, rowptr: torch.Tensor,
@@ -87,6 +115,57 @@ def bitmap_gather(words: torch.Tensor, rowptr: torch.Tensor,
 
 
 bitmap_gather.launches = 0
+
+
+def bitmap_gather_bwd(words: torch.Tensor, rowptr: torch.Tensor,
+                      queries: torch.Tensor, grad: torch.Tensor, *,
+                      nvalues: int, cols: int,
+                      rank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gradient of `bitmap_gather` with respect to its values: a
+    float32 vector of `nvalues` with grad[i] added at the slot query i
+    reads, for each query whose bit is set (`csrc/bitmap_gather.cu`
+    `bitmap_gather_bwd_kernel`, fp32 atomics: the sum's order changes
+    from run to run). Plain version `bitmap_gather_bwd_ref` on CPU
+    tensors."""
+    tensors = (words, rowptr, queries, grad)
+    if _build.all_on_cpu("bitmap_gather_bwd", *tensors):
+        return bitmap_gather_bwd_ref(words, rowptr, queries, grad, nvalues,
+                                     cols, rank=rank)
+    _build.require(words.dim() == 2, "bitmap_gather_bwd: words must be 2-D")
+    rows, nwords = words.shape
+    _build.require(rows > 0 and nwords == (cols + 31) // 32,
+                   f"bitmap_gather_bwd: words {tuple(words.shape)} do not "
+                   f"fit {cols} columns")
+    _build.require(nvalues > 0, "bitmap_gather_bwd: no values")
+    _build.require_cuda("bitmap_gather_bwd words", words, torch.int32)
+    _build.require_cuda("bitmap_gather_bwd rowptr", rowptr, torch.int32,
+                        (rows,))
+    if rank is not None:
+        _build.require_cuda("bitmap_gather_bwd rank", rank, torch.int32,
+                            (rows, nwords))
+    _build.require(queries.dim() == 1,
+                   "bitmap_gather_bwd: queries must be 1-D")
+    _build.require_cuda("bitmap_gather_bwd queries", queries, torch.int32)
+    _build.require_cuda("bitmap_gather_bwd grad", grad, torch.float32,
+                        tuple(queries.shape))
+    dev = queries.device
+    _build.require(all(t.device == dev for t in tensors),
+                   "bitmap_gather_bwd: tensors on different devices")
+    out = torch.zeros(nvalues, dtype=torch.float32, device=dev)
+    fn = _build.entry("bitmap_gather_bwd_launch",
+                      (_build.P, _build.P, _build.P, _build.I32, _build.I32,
+                       _build.I32, _build.I32, _build.P, _build.P, _build.P,
+                       _build.I64, _build.P))
+    code = fn(words.data_ptr(), rowptr.data_ptr(),
+              None if rank is None else rank.data_ptr(), nvalues, rows,
+              nwords, cols, queries.data_ptr(), grad.data_ptr(),
+              out.data_ptr(), queries.shape[0], _build.stream_ptr(dev))
+    _build.check("bitmap_gather_bwd", code)
+    bitmap_gather_bwd.launches += 1
+    return out
+
+
+bitmap_gather_bwd.launches = 0
 
 
 MATMUL_DTYPES = (torch.float32, torch.float16)

@@ -1,10 +1,11 @@
 """COO gather: values of a sorted COO stream at linear coordinates (0 where
-absent). The port of `repro/kernels/coo_gather.py` `coo_gather`.
+absent). The port of `repro/kernels/coo_gather.py` `coo_gather`, and its
+gradient with respect to the values, `coo_gather_bwd`.
 
-`coo_gather` launches the CUDA kernel (`csrc/coo_gather.cu`) on CUDA
-tensors and runs the plain PyTorch version `coo_gather_ref` on CPU
-tensors; anything else raises. `coo_gather.launches` counts kernel
-launches.
+`coo_gather` and `coo_gather_bwd` launch their CUDA kernels
+(`csrc/coo_gather.cu`) on CUDA tensors and run their plain PyTorch
+versions `coo_gather_ref` / `coo_gather_bwd_ref` on CPU tensors;
+anything else raises. `<wrapper>.launches` counts kernel launches.
 
 The kernel gives a CTA a tile of `TILE` consecutive queries and stages
 the tile's window of the stream (the entries between its least and
@@ -67,16 +68,36 @@ def search_steps(n: int) -> int:
     return max(int(math.ceil(math.log2(n))), 1) + 1
 
 
-def coo_gather_ref(coords: torch.Tensor, values: torch.Tensor,
-                   queries: torch.Tensor) -> torch.Tensor:
-    """Plain version: `searchsorted` over the sorted coordinates."""
+def coo_slots(coords: torch.Tensor, queries: torch.Tensor) -> tuple:
+    """(slot, found) of each query: the int64 index of its lower bound in
+    the sorted coordinates, clamped into the stream, and whether the
+    coordinate there is the query."""
     n = coords.shape[0]
     q = queries.to(coords.dtype)
     lo = torch.searchsorted(coords, q)
     safe = lo.clamp(0, n - 1)
-    found = (lo < n) & (coords[safe] == q)
-    vals = values[safe]
+    return safe, (lo < n) & (coords[safe] == q)
+
+
+def coo_gather_ref(coords: torch.Tensor, values: torch.Tensor,
+                   queries: torch.Tensor) -> torch.Tensor:
+    """Plain version: `searchsorted` over the sorted coordinates."""
+    slot, found = coo_slots(coords, queries)
+    vals = values[slot]
     return torch.where(found, vals, torch.zeros_like(vals))
+
+
+def coo_gather_bwd_ref(coords: torch.Tensor, queries: torch.Tensor,
+                       grad: torch.Tensor) -> torch.Tensor:
+    """Plain version of the backward: the gradient of `coo_gather` with
+    respect to its values (one per coordinate), given the gradient `grad`
+    of its output. Each query found in the stream adds its gradient to
+    the entry it reads; pad entries and absent queries add nothing."""
+    slot, found = coo_slots(coords, queries)
+    out = torch.zeros(coords.shape[0], dtype=grad.dtype, device=grad.device)
+    # an absent query adds an exact 0 (no boolean mask: no host sync)
+    return out.index_add_(0, slot, torch.where(found, grad,
+                                               torch.zeros_like(grad)))
 
 
 def _launch(coords: torch.Tensor, values: torch.Tensor,
@@ -137,3 +158,38 @@ def coo_gather_staged(coords: torch.Tensor, values: torch.Tensor,
 
 
 coo_gather.launches = 0
+
+
+def coo_gather_bwd(coords: torch.Tensor, queries: torch.Tensor,
+                   grad: torch.Tensor) -> torch.Tensor:
+    """The gradient of `coo_gather` with respect to its values: a float32
+    vector as long as `coords`, with grad[i] added at the entry query i
+    reads, for each query found in the stream (`csrc/coo_gather.cu`
+    `coo_gather_bwd_kernel`, fp32 atomics: the sum's order changes from
+    run to run). Plain version `coo_gather_bwd_ref` on CPU tensors."""
+    tensors = (coords, queries, grad)
+    if _build.all_on_cpu("coo_gather_bwd", *tensors):
+        return coo_gather_bwd_ref(coords, queries, grad)
+    n = coords.shape[0]
+    _build.require(coords.dim() == 1 and n > 0,
+                   "coo_gather_bwd: coords must be a non-empty vector")
+    _build.require_cuda("coo_gather_bwd coords", coords, torch.int32)
+    _build.require(queries.dim() == 1, "coo_gather_bwd: queries must be 1-D")
+    _build.require_cuda("coo_gather_bwd queries", queries, torch.int32)
+    _build.require_cuda("coo_gather_bwd grad", grad, torch.float32,
+                        tuple(queries.shape))
+    dev = queries.device
+    _build.require(all(t.device == dev for t in tensors),
+                   "coo_gather_bwd: tensors on different devices")
+    out = torch.zeros(n, dtype=torch.float32, device=dev)
+    fn = _build.entry("coo_gather_bwd_launch",
+                      (_build.P, _build.I32, _build.P, _build.P, _build.P,
+                       _build.I64, _build.P))
+    code = fn(coords.data_ptr(), n, queries.data_ptr(), grad.data_ptr(),
+              out.data_ptr(), queries.shape[0], _build.stream_ptr(dev))
+    _build.check("coo_gather_bwd", code)
+    coo_gather_bwd.launches += 1
+    return out
+
+
+coo_gather_bwd.launches = 0

@@ -19,10 +19,44 @@
 // reference's form. Both give the same address, so the result is
 // bit-exact against the plain version either way. Row and word indices
 // are clamped as the reference's gathers clamp them.
+//
+// The backward (`bitmap_gather_bwd_kernel`) is the gradient of the same
+// function with respect to the values: the reference takes it by
+// differentiating its jnp oracle (src/repro/kernels/ref.py
+// `bitmap_gather_ref`), a scatter-add into the value slots. It is bound
+// by memory too: each query reads its gradient and query (8 bytes) and
+// adds into one value, whose read-modify-write stays in L2.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+// The value slot query q reads: sets *addr and returns whether q's bit is
+// set. Row and word indices are clamped as the reference's gathers clamp
+// them, and so is the address.
+__device__ __forceinline__ bool bitmap_slot(const uint32_t* __restrict__ words,
+                                            const int* __restrict__ rowptr,
+                                            const int* __restrict__ rank,
+                                            int nvalues, int rows, int nwords,
+                                            int cols, int q, int* addr) {
+  const int r = min(max(q / cols, 0), rows - 1);
+  const int c = q - (q / cols) * cols;
+  const int wi = min(max(c >> 5, 0), nwords - 1);
+  const unsigned bi = static_cast<unsigned>(c) & 31u;
+  const long long row_off = static_cast<long long>(r) * nwords;
+  const uint32_t w = __ldg(words + row_off + wi);
+  const uint32_t below = (1u << bi) - 1u;
+  int a;
+  if (rank != nullptr) {
+    a = __ldg(rank + row_off + wi) + __popc(w & below);
+  } else {
+    int prefix = 0;
+    for (int k = 0; k < wi; ++k) prefix += __popc(__ldg(words + row_off + k));
+    a = __ldg(rowptr + r) + prefix + __popc(w & below);
+  }
+  *addr = min(max(a, 0), nvalues - 1);
+  return (w >> bi) & 1u;
+}
 
 __global__ void bitmap_gather_kernel(const uint32_t* __restrict__ words,
                                      const int* __restrict__ rowptr,
@@ -33,24 +67,37 @@ __global__ void bitmap_gather_kernel(const uint32_t* __restrict__ words,
                                      float* __restrict__ out, long long nq) {
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= nq) return;
-  const int q = queries[i];
-  const int r = min(max(q / cols, 0), rows - 1);
-  const int c = q - (q / cols) * cols;
-  const int wi = min(max(c >> 5, 0), nwords - 1);
-  const unsigned bi = static_cast<unsigned>(c) & 31u;
-  const long long row_off = static_cast<long long>(r) * nwords;
-  const uint32_t w = __ldg(words + row_off + wi);
-  const uint32_t below = (1u << bi) - 1u;
   int addr;
-  if (rank != nullptr) {
-    addr = __ldg(rank + row_off + wi) + __popc(w & below);
-  } else {
-    int prefix = 0;
-    for (int k = 0; k < wi; ++k) prefix += __popc(__ldg(words + row_off + k));
-    addr = __ldg(rowptr + r) + prefix + __popc(w & below);
-  }
-  addr = min(max(addr, 0), nvalues - 1);
-  out[i] = ((w >> bi) & 1u) ? __ldg(values + addr) : 0.0f;
+  const bool set = bitmap_slot(words, rowptr, rank, nvalues, rows, nwords,
+                               cols, queries[i], &addr);
+  out[i] = set ? __ldg(values + addr) : 0.0f;
+}
+
+// The gradient of the gather with respect to the packed values:
+// dvalues[slot(q_i)] += grad[i] for each query whose bit is set, slot
+// being the address the forward reads. One thread a query; a zero
+// gradient adds nothing and skips its loads. Neighbouring queries are
+// neighbouring samples of one row and stencil corner and often share a
+// slot, so the fp32 atomics of a warp may meet on one address (a warp
+// merge of equal slots is the next design step). The sum's order, and its
+// last bits, change from run to run.
+__global__ void bitmap_gather_bwd_kernel(const uint32_t* __restrict__ words,
+                                         const int* __restrict__ rowptr,
+                                         const int* __restrict__ rank,
+                                         int nvalues, int rows, int nwords,
+                                         int cols,
+                                         const int* __restrict__ queries,
+                                         const float* __restrict__ grad,
+                                         float* __restrict__ dvalues,
+                                         long long nq) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nq) return;
+  const float g = __ldg(grad + i);
+  if (g == 0.0f) return;
+  int addr;
+  if (bitmap_slot(words, rowptr, rank, nvalues, rows, nwords, cols,
+                  __ldg(queries + i), &addr))
+    atomicAdd(dvalues + addr, g);
 }
 
 }  // namespace
@@ -69,6 +116,26 @@ extern "C" int bitmap_gather_launch(const void* words, const void* rowptr,
         static_cast<const int*>(rank), static_cast<const float*>(values),
         nvalues, rows, nwords, cols, static_cast<const int*>(queries),
         static_cast<float*>(out), nq);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dvalues: nvalues floats, zeroed by the caller; the kernel adds into it.
+extern "C" int bitmap_gather_bwd_launch(const void* words, const void* rowptr,
+                                        const void* rank, int nvalues,
+                                        int rows, int nwords, int cols,
+                                        const void* queries, const void* grad,
+                                        void* dvalues, long long nq,
+                                        void* stream) {
+  if (nq > 0) {
+    const int threads = 256;
+    const long long blocks = (nq + threads - 1) / threads;
+    bitmap_gather_bwd_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(words), static_cast<const int*>(rowptr),
+        static_cast<const int*>(rank), nvalues, rows, nwords, cols,
+        static_cast<const int*>(queries), static_cast<const float*>(grad),
+        static_cast<float*>(dvalues), nq);
   }
   return static_cast<int>(cudaGetLastError());
 }

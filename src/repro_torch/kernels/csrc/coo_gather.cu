@@ -31,6 +31,12 @@
 // the exact lower bound of the query, so the result is bit-exact with the
 // reference: coordinates below lo are smaller than every query of the
 // tile and those from hi on larger, and pad entries (INT32_MAX) sort last.
+//
+// The backward (`coo_gather_bwd_kernel`) is the gradient with respect to
+// the values, which the reference takes by differentiating its jnp oracle
+// (src/repro/kernels/ref.py `coo_gather_ref`): a scatter-add of each
+// query's gradient into the slot it read. Bound by memory: 8 bytes a query
+// (its gradient and coordinate) and the values' read-modify-write.
 #include <climits>
 #include <cuda_runtime.h>
 
@@ -223,6 +229,30 @@ coo_gather_kernel(const int* __restrict__ coords,
   }
 }
 
+// The gradient of the gather with respect to the values:
+// dvalues[slot(q_i)] += grad[i] for each query whose coordinate is in the
+// stream, slot being the entry the forward reads (the query's lower
+// bound). One thread a query, a branchless binary search of the whole
+// stream through L1 (the first design of the forward), then one fp32
+// atomic; a zero gradient adds nothing and skips its search. Neighbouring
+// queries often share a slot, so a warp's atomics may meet on one
+// address; the sum's order, and its last bits, change from run to run.
+__global__ void __launch_bounds__(kThreads)
+coo_gather_bwd_kernel(const int* __restrict__ coords, int n,
+                      const int* __restrict__ queries,
+                      const float* __restrict__ grad,
+                      float* __restrict__ dvalues, long long nq) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads
+                      + threadIdx.x;
+  if (i >= nq) return;
+  const float g = __ldg(grad + i);
+  if (g == 0.0f) return;
+  const int q = __ldg(queries + i);
+  int idx;
+  lower_bounds<1>([&](int k) { return __ldg(coords + k); }, n, &q, &idx);
+  if (idx < n && __ldg(coords + idx) == q) atomicAdd(dvalues + idx, g);
+}
+
 }  // namespace
 
 // tile, capacity, blocks: the wrapper's plan (`coo_plan`), which must
@@ -243,5 +273,21 @@ extern "C" int coo_gather_launch(const void* coords, const void* values,
         static_cast<const int*>(coords), static_cast<const float*>(values), n,
         static_cast<const int*>(queries), static_cast<float*>(out), nq, vec,
         static_cast<int*>(staged));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dvalues: n floats, zeroed by the caller; the kernel adds into it.
+extern "C" int coo_gather_bwd_launch(const void* coords, int n,
+                                     const void* queries, const void* grad,
+                                     void* dvalues, long long nq,
+                                     void* stream) {
+  const long long blocks = (nq + kThreads - 1) / kThreads;
+  if (n < 1 || blocks > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nq > 0)
+    coo_gather_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(coords), n, static_cast<const int*>(queries),
+        static_cast<const float*>(grad), static_cast<float*>(dvalues), nq);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,11 @@
 """Dispatch for the kernel layer. The port of `repro/kernels/ops.py`.
 
 The device of the tensors decides: the CUDA kernels run on CUDA tensors,
-their plain PyTorch versions on CPU tensors (inside each wrapper). A
-`force` string overrides the default as in the reference:
+their plain PyTorch versions on CPU tensors (inside each wrapper). The
+two gathers are differentiable in their values, through hand-written
+backward kernels (plain versions on the CPU); the reference gets the
+same gradient by differentiating its jnp gathers. A `force` string
+overrides the default as in the reference:
 
   * "ref" / "fused_ref"  the plain version, on whatever device;
   * "kernel" / "pallas" / "fused"  the kernel wrapper (which still runs
@@ -34,21 +37,78 @@ def bitmap_matmul(words, rowptr, values, x, *, cols: int,
     return bitmap_decode.bitmap_matmul(words, rowptr, values, x, cols=cols)
 
 
+class _BitmapGather(torch.autograd.Function):
+    """`bitmap_gather`, differentiable in `values`: the forward is the
+    gather kernel, the backward `bitmap_gather_bwd` (their plain
+    versions on CPU tensors, or both with `plain`). No gradient goes to
+    the streams or the queries."""
+
+    @staticmethod
+    def forward(ctx, values, words, rowptr, rank, queries, cols, plain):
+        if plain:
+            out = bitmap_decode.bitmap_gather_ref(words, rowptr, values,
+                                                  queries, cols, rank=rank)
+        else:
+            out = bitmap_decode.bitmap_gather(words, rowptr, values, queries,
+                                              cols=cols, rank=rank)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(words, rowptr, rank, queries)
+            ctx.meta = (values.shape[0], cols, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        words, rowptr, rank, queries = ctx.saved_tensors
+        nvalues, cols, plain = ctx.meta
+        grad = grad.contiguous()
+        if plain:
+            dv = bitmap_decode.bitmap_gather_bwd_ref(
+                words, rowptr, queries, grad, nvalues, cols, rank=rank)
+        else:
+            dv = bitmap_decode.bitmap_gather_bwd(
+                words, rowptr, queries, grad, nvalues=nvalues, cols=cols,
+                rank=rank)
+        return dv, None, None, None, None, None, None
+
+
+class _CooGather(torch.autograd.Function):
+    """`coo_gather`, differentiable in `values` (as `_BitmapGather`)."""
+
+    @staticmethod
+    def forward(ctx, values, coords, queries, plain):
+        if plain:
+            out = coo_mod.coo_gather_ref(coords, values, queries)
+        else:
+            out = coo_mod.coo_gather(coords, values, queries)
+        if ctx.needs_input_grad[0]:
+            ctx.save_for_backward(coords, queries)
+            ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        coords, queries = ctx.saved_tensors
+        grad = grad.contiguous()
+        bwd = coo_mod.coo_gather_bwd_ref if ctx.plain else \
+            coo_mod.coo_gather_bwd
+        return bwd(coords, queries, grad), None, None, None
+
+
 def bitmap_gather(words, rowptr, values, queries, *, cols: int,
                   rank: Optional[torch.Tensor] = None,
                   force: Optional[str] = None) -> torch.Tensor:
-    if force in _REF:
-        return bitmap_decode.bitmap_gather_ref(words, rowptr, values,
-                                               queries, cols, rank=rank)
-    return bitmap_decode.bitmap_gather(words, rowptr, values, queries,
-                                       cols=cols, rank=rank)
+    """values of a bitmap-encoded (rows, cols) matrix at int32 linear
+    `queries`, 0 at zeros; differentiable in `values` (backward:
+    `bitmap_gather_bwd`)."""
+    return _BitmapGather.apply(values, words, rowptr, rank, queries, cols,
+                               force in _REF)
 
 
 def coo_gather(coords, values, queries, *,
                force: Optional[str] = None) -> torch.Tensor:
-    if force in _REF:
-        return coo_mod.coo_gather_ref(coords, values, queries)
-    return coo_mod.coo_gather(coords, values, queries)
+    """values of a sorted COO stream at int32 linear `queries`, 0 where
+    absent; differentiable in `values` (backward: `coo_gather_bwd`)."""
+    return _CooGather.apply(values, coords, queries, force in _REF)
 
 
 def fused_mode(force: Optional[str] = None,

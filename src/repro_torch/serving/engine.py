@@ -34,8 +34,8 @@ the shared metrics registry; `stage_breakdown()` reads the per-request
 span histograms (`obs.tracing`). All entry points are thread-safe; renders
 run outside the engine lock. With `auto_flush_interval` set a background
 thread flushes on a full queue or when the interval expires; `close()`
-(or the context manager) joins it. `from_scene` / `from_scenes` restore
-fields from checkpoints (`prepare_field`); training is not ported yet.
+(or the context manager) joins it. `from_scene` / `from_scenes` train
+each field once or restore it from its checkpoint (`prepare_field`).
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ from repro_torch.core import field as field_lib
 from repro_torch.core import occupancy as occ_lib
 from repro_torch.core import pipeline as rt_pipe
 from repro_torch.core import rendering, tensorf
+from repro_torch.core import train as train_lib
 from repro_torch.core.occupancy import CubeSet
 from repro_torch.core.rendering import Camera
 from repro_torch.device import DeviceLike, resolve_device
@@ -173,28 +174,25 @@ LOCK_ATTR_CLASSES = {
     "RenderEngine._m_latency": "Histogram",
 }
 
-TRAIN_NOT_PORTED = ("training a field is not ported yet (ROADMAP.md Queue 1 "
-                    "item 4, training); give a checkpoint directory that "
-                    "holds the scene")
-
-
 def prepare_field(cfg: NeRFConfig, scene: str, *, ckpt_dir: Optional[str],
-                  verbose: bool = True,
+                  train_steps: int = 200, n_views: int = 8,
+                  image_hw: int = 64, seed: int = 0, verbose: bool = True,
                   device: DeviceLike = None) -> field_lib.FieldBackend:
-    """Restore the field of `scene` from `ckpt_dir` onto `device`: the
-    restore branch of the reference's `prepare_field`. The checkpoint is
+    """Load the trained field of `scene` from `ckpt_dir` onto `device`, or
+    train it once (compressed-native, `core.train.train_nerf`) and
+    checkpoint it there in its encoded representation, with the
+    reference's meta file, so that the next call restores. A restore is
     checked against the scene (`FIELD_META`) and the cfg shapes
     (`field.cfg_mismatches`); a field checkpoint (`ckpt.save_field`)
-    restores in its encoded representation, a legacy params-dict
-    checkpoint (no state keys) restores dense. Where no checkpoint exists
-    the reference trains one (and takes its training arguments); the port
-    raises NotImplementedError."""
+    restores encoded, a legacy params-dict checkpoint (no state keys)
+    restores dense."""
     dev = resolve_device(device)
     step = ckpt_lib.latest_step(ckpt_dir) if ckpt_dir else None
     if step is None:
-        raise NotImplementedError(
-            f"no checkpoint of scene '{scene}' in {ckpt_dir!r}: "
-            f"{TRAIN_NOT_PORTED}")
+        return _train_field(cfg, scene, ckpt_dir=ckpt_dir,
+                            train_steps=train_steps, n_views=n_views,
+                            image_hw=image_hw, seed=seed, verbose=verbose,
+                            device=dev)
     meta_path = os.path.join(ckpt_dir, FIELD_META)
     if not os.path.exists(meta_path):
         raise ValueError(
@@ -229,6 +227,28 @@ def prepare_field(cfg: NeRFConfig, scene: str, *, ckpt_dir: Optional[str],
             f"checkpoint at {ckpt_dir} was trained with a different "
             f"NeRFConfig: {'; '.join(bad)}")
     return restored
+
+
+def _train_field(cfg: NeRFConfig, scene: str, *, ckpt_dir: Optional[str],
+                 train_steps: int, n_views: int, image_hw: int, seed: int,
+                 verbose: bool, device: torch.device
+                 ) -> field_lib.FieldBackend:
+    """prepare_field's train branch: train, then checkpoint (meta first:
+    dying between the writes leaves meta and no step, which retrains on
+    the next call rather than serving blind)."""
+    res = train_lib.train_nerf(cfg, scene, steps=train_steps,
+                               n_views=n_views, image_hw=image_hw,
+                               log_every=max(train_steps // 2, 1), seed=seed,
+                               verbose=verbose, device=device)
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with open(os.path.join(ckpt_dir, FIELD_META), "w") as f:
+            json.dump({"scene": scene, "steps": train_steps, "seed": seed,
+                       "grid_res": cfg.grid_res}, f)
+        path = ckpt_lib.save_field(ckpt_dir, train_steps, res.field)
+        if verbose:
+            print(f"[engine] checkpointed field to {path}")
+    return res.field
 
 
 class RenderEngine:
@@ -478,13 +498,17 @@ class RenderEngine:
 
     @classmethod
     def from_scene(cls, cfg: NeRFConfig, scene: str, *,
-                   ckpt_dir: Optional[str] = None,
-                   prune_sparsity: float = 0.0, verbose: bool = True,
-                   device: DeviceLike = None, **kw) -> "RenderEngine":
-        """Restore (`prepare_field`), prune, rebuild occupancy, go
-        resident under the scene's own name."""
+                   ckpt_dir: Optional[str] = None, train_steps: int = 200,
+                   n_views: int = 8, image_hw: int = 64,
+                   prune_sparsity: float = 0.0, seed: int = 0,
+                   verbose: bool = True, device: DeviceLike = None,
+                   **kw) -> "RenderEngine":
+        """Train once or restore (`prepare_field`), prune, rebuild
+        occupancy, go resident under the scene's own name."""
         field = prepare_field(cfg, scene, ckpt_dir=ckpt_dir,
-                              verbose=verbose, device=device)
+                              train_steps=train_steps, n_views=n_views,
+                              image_hw=image_hw, seed=seed, verbose=verbose,
+                              device=device)
         if prune_sparsity > 0.0:
             field = field.prune(sparsity=prune_sparsity)
         occ = occ_lib.build_occupancy(field, cfg)
@@ -493,20 +517,24 @@ class RenderEngine:
 
     @classmethod
     def from_scenes(cls, cfg: NeRFConfig, scenes: Sequence[str], *,
-                    ckpt_root: Optional[str] = None,
-                    prune_sparsity: float = 0.0, verbose: bool = True,
-                    device: DeviceLike = None, **kw) -> "RenderEngine":
-        """One engine serving several named scenes, each restored from its
-        subdirectory of `ckpt_root` and registered; with a
-        `max_resident_bytes` budget the store evicts cold scenes as warmer
-        ones register."""
+                    ckpt_root: Optional[str] = None, train_steps: int = 200,
+                    n_views: int = 8, image_hw: int = 64,
+                    prune_sparsity: float = 0.0, seed: int = 0,
+                    verbose: bool = True, device: DeviceLike = None,
+                    **kw) -> "RenderEngine":
+        """One engine serving several named scenes, each trained once or
+        restored from its subdirectory of `ckpt_root` and registered; with
+        a `max_resident_bytes` budget the store evicts cold scenes as
+        warmer ones register."""
         if not scenes:
             raise ValueError("from_scenes needs at least one scene")
         engine: Optional[RenderEngine] = None
         for s in scenes:
             ckpt = os.path.join(ckpt_root, s) if ckpt_root else None
-            field = prepare_field(cfg, s, ckpt_dir=ckpt, verbose=verbose,
-                                  device=device)
+            field = prepare_field(cfg, s, ckpt_dir=ckpt,
+                                  train_steps=train_steps, n_views=n_views,
+                                  image_hw=image_hw, seed=seed,
+                                  verbose=verbose, device=device)
             if prune_sparsity > 0.0:
                 field = field.prune(sparsity=prune_sparsity)
             if engine is None:

@@ -25,6 +25,7 @@ from repro.serving import engine as jengine
 from repro_torch.ckpt import checkpoint as tckpt
 from repro_torch.core import field as tfield
 from repro_torch.core import tensorf as ttensorf
+from repro_torch.core import train as ttrain
 from repro_torch.serving import RenderEngine
 from repro_torch.serving import engine as tengine
 
@@ -362,14 +363,24 @@ def test_prepare_field_restores_both_formats(tmp_path, case):
                       jfield.DenseField)
 
 
-def test_prepare_field_checks(tmp_path, case):
+def test_prepare_field_checks(tmp_path, case, monkeypatch):
     cfg, cf, _ = case
     tcfg = torch_cfg(cfg)
     d = str(tmp_path / "c")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tengine.prepare_field(tcfg, "lego", ckpt_dir=d, device=CPU)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tengine.prepare_field(tcfg, "lego", ckpt_dir=None, device=CPU)
+    # no checkpoint: train (stubbed here; tests/test_torch_train.py runs
+    # the real branch), checkpoint, and restore on the next call
+    calls = []
+
+    def fake_train(cfg_, scene, **kw):
+        calls.append((scene, kw["steps"], kw["seed"], kw["device"]))
+        return ttrain.TrainResult(carry_field(cf, cfg), None, [])
+    monkeypatch.setattr(tengine.train_lib, "train_nerf", fake_train)
+    t = str(tmp_path / "t")
+    for ckpt in (t, None, t):
+        _same_state(tengine.prepare_field(tcfg, "lego", ckpt_dir=ckpt,
+                                          train_steps=3, seed=5, device=CPU,
+                                          verbose=False), cf)
+    assert calls == [("lego", 3, 5, CPU)] * 2
     jckpt.save_field(d, 3, cf)
     with pytest.raises(ValueError, match="field_meta.json"):
         tengine.prepare_field(tcfg, "lego", ckpt_dir=d, device=CPU)

@@ -1255,3 +1255,165 @@ def test_render_rtnerf_oversized_window_takes_the_per_op_gathers(cuda):
     for k in want:
         assert float(got[k]) == float(want[k]), k
     assert float(want["processed_samples"]) > 0
+
+
+# -- the gathers' backward kernels and a training step ------------------
+
+def _bwd_tol(slot, found, grad, nvalues):
+    """Per value slot, the bound on the difference of two fp32 sums of the
+    same k terms in different orders (the kernel's atomics against the
+    plain version's index_add_): 2 k 2^-24 times the sum of their |g|.
+    Slots no query reads must be exactly 0 on both."""
+    dev = grad.device
+    k = torch.zeros(nvalues, dtype=torch.float64, device=dev).index_add_(
+        0, slot[found], torch.ones_like(grad[found], dtype=torch.float64))
+    s = torch.zeros(nvalues, dtype=torch.float64, device=dev).index_add_(
+        0, slot[found], grad[found].abs().double())
+    return 2.0 * k * 2.0 ** -24 * s, k
+
+
+def _check_bwd(got, want, tol, k):
+    diff = (got.double() - want.double()).abs()
+    assert bool((diff <= tol).all()), float((diff - tol).max())
+    assert bool((got[k == 0] == 0).all()) and bool((want[k == 0] == 0).all())
+
+
+def _bwd_queries(rows, cols, nq, seed, repeat):
+    """nq int32 queries: runs of `repeat` equal queries (a warp's atomics
+    on one slot), the rest uniform over the matrix."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(0, rows * cols, nq).astype(np.int32)
+    if repeat > 1:
+        q = np.repeat(q[: -(-nq // repeat)], repeat)[:nq]
+    return q
+
+
+@pytest.mark.parametrize("rows,cols,nq", [(8, 32, 1000), (40, 70, 4096),
+                                          (16, 25600, 1 << 20)])
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("repeat", [1, 64])
+def test_bitmap_gather_bwd_kernel_matches_plain(cuda, rows, cols, nq,
+                                                density, repeat):
+    """Pad slots (nnz below the padded length), queries on zeros and runs
+    of queries on one slot: the kernel's sums within the reordering bound
+    of the plain version's, exact zeros where no query reads."""
+    w = _matrix(rows, cols, density, rows + cols + repeat)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    q = torch.from_numpy(_bwd_queries(rows, cols, nq, nq, repeat)).to(cuda)
+    g = torch.from_numpy(np.random.RandomState(7).randn(nq).astype(
+        np.float32)).to(cuda)
+    g[::5] = 0.0
+    n = enc.values.shape[0]
+    want = bitmap_decode.bitmap_gather_bwd_ref(enc.words, enc.rowptr, q, g,
+                                               n, cols, rank=enc.rank)
+    slot, bit = bitmap_decode.bitmap_slots(enc.words, enc.rowptr, n, q, cols,
+                                           enc.rank)
+    tol, k = _bwd_tol(slot, bit, g, n)
+    for rank in (enc.rank, None):
+        before = bitmap_decode.bitmap_gather_bwd.launches
+        got = bitmap_decode.bitmap_gather_bwd(enc.words, enc.rowptr, q, g,
+                                              nvalues=n, cols=cols,
+                                              rank=rank)
+        torch.cuda.synchronize()
+        assert bitmap_decode.bitmap_gather_bwd.launches == before + 1
+        _check_bwd(got, want, tol, k)
+    assert bool((got[enc.nnz:] == 0).all())
+
+
+@pytest.mark.parametrize("size,nq", [(5, 128), (1000, 4096),
+                                     (409600, 1 << 20)])
+@pytest.mark.parametrize("sparsity", [0.5, 0.95, 1.0])
+@pytest.mark.parametrize("repeat", [1, 64])
+def test_coo_gather_bwd_kernel_matches_plain(cuda, size, nq, sparsity,
+                                             repeat):
+    """As the bitmap backward: pad entries, absent queries, repeated
+    slots; an all-zero stream (sparsity 1) gets an all-zero gradient."""
+    rng = np.random.RandomState(size + repeat)
+    flat = rng.randn(size).astype(np.float32)
+    flat[rng.rand(size) < sparsity] = 0
+    enc = tsparse.encode_coo(flat.reshape(1, -1), device=cuda)
+    q = torch.from_numpy(_bwd_queries(1, size, nq, nq, repeat)).to(cuda)
+    g = torch.from_numpy(rng.randn(nq).astype(np.float32)).to(cuda)
+    want = coo_gather.coo_gather_bwd_ref(enc.coords, q, g)
+    slot, found = coo_gather.coo_slots(enc.coords, q)
+    tol, k = _bwd_tol(slot, found, g, enc.coords.shape[0])
+    before = coo_gather.coo_gather_bwd.launches
+    got = coo_gather.coo_gather_bwd(enc.coords, q, g)
+    torch.cuda.synchronize()
+    assert coo_gather.coo_gather_bwd.launches == before + 1
+    _check_bwd(got, want, tol, k)
+    assert bool((got[enc.nnz:] == 0).all())
+    if sparsity == 1.0:
+        assert not bool(got.any())
+
+
+def test_gather_bwd_wrappers_validate_cuda_inputs(cuda):
+    w = _matrix(8, 64, 0.5, 3)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    q = torch.zeros(16, dtype=torch.int32, device=cuda)
+    g = torch.zeros(16, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        bitmap_decode.bitmap_gather_bwd(enc.words, enc.rowptr, q, g.double(),
+                                        nvalues=enc.values.shape[0], cols=64)
+    with pytest.raises(ValueError, match="shape"):
+        bitmap_decode.bitmap_gather_bwd(enc.words, enc.rowptr, q, g[:8],
+                                        nvalues=enc.values.shape[0], cols=64)
+    with pytest.raises(ValueError, match="CPU and on"):
+        bitmap_decode.bitmap_gather_bwd(enc.words, enc.rowptr, q, g.cpu(),
+                                        nvalues=enc.values.shape[0], cols=64)
+    coo = tsparse.encode_coo(w, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        coo_gather.coo_gather_bwd(coo.coords, q.long(), g)
+    with pytest.raises(ValueError, match="contiguous"):
+        coo_gather.coo_gather_bwd(coo.coords, q, torch.zeros(
+            32, device=cuda)[::2])
+
+
+def _bwd_launches():
+    return {k.__name__: k.launches for k in (
+        bitmap_decode.bitmap_gather, coo_gather.coo_gather,
+        bitmap_decode.bitmap_gather_bwd, coo_gather.coo_gather_bwd)}
+
+
+def test_training_step_on_card_matches_cpu(cuda):
+    """One loss and gradient of every trainable leaf of a bitmap + COO
+    field, on the card (forward and backward kernels) against the CPU's
+    plain path: loss within 1e-5 relative, each gradient within 1e-4 of
+    its leaf's largest |gradient| (sums in another order: GEMM blocking,
+    atomics, the card's exp and log); then three adamw steps on the same
+    gradients within 1e-6 relative and 1e-5 of lr."""
+    from repro_torch.core import train as ttrain
+    from repro_torch.data import rays as trays
+    from repro_torch.optim import adamw
+    cfg = demo_config(tiny=True)
+    field, _, gfield, _ = _eval_inputs(cfg, 9, cuda)
+    ds = trays.build_dataset(trays.make_scene("lego"), 2, 16, 16,
+                             device="cpu")
+    ro, rd, tgt = next(ds.batches(cfg.train_rays, seed=0))
+    want = ttrain.loss_and_grads(field, cfg, ro, rd, tgt)
+    before = _bwd_launches()
+    got = ttrain.loss_and_grads(gfield, cfg, ro.to(cuda), rd.to(cuda),
+                                tgt.to(cuda))
+    torch.cuda.synchronize()
+    grown = _grown(before, _bwd_launches())
+    assert all(n > 0 for n in grown.values()), grown
+    assert abs(float(got[0]) - float(want[0])) <= 1e-5 * float(want[0])
+    assert got[2].keys() == want[2].keys()
+    for k, w in want[2].items():
+        scale = float(w.abs().max())
+        assert float((got[2][k].cpu() - w).abs().max()) <= 1e-4 * scale, k
+    # adamw on the same gradients: elementwise, rounded alike but for the
+    # card's pow (1 - b2 ** step), within a few ulps of the bias correction
+    opt = adamw(lr=cfg.lr_grid, b2=0.99)
+    tv = field.trainable()
+    state = opt.init(tv)
+    tv_gpu = {k: v.to(cuda) for k, v in tv.items()}
+    state_gpu = opt.init(tv_gpu)
+    for _ in range(3):
+        tv, state = opt.update(want[2], state, tv)
+        tv_gpu, state_gpu = opt.update(
+            {k: g.to(cuda) for k, g in want[2].items()}, state_gpu, tv_gpu)
+    for k in tv:
+        np.testing.assert_allclose(tv_gpu[k].cpu().numpy(), tv[k].numpy(),
+                                   rtol=1e-6, atol=1e-5 * cfg.lr_grid,
+                                   err_msg=k)

@@ -57,6 +57,42 @@ EVAL_MODULES = ("data/rays.py", "data/__init__.py", "core/train.py",
                 "core/pipeline.py", "core/rendering.py")
 
 
+TRAIN_MODULES = ("optim/__init__.py", "optim/optimizers.py",
+                 "core/train.py", "serving/finetune.py",
+                 "kernels/ops.py", "kernels/bitmap_decode.py",
+                 "kernels/coo_gather.py")
+
+
+def test_the_checks_cover_the_training_modules():
+    """The import checks walk the training path's modules too."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(TRAIN_MODULES) <= files
+
+
+def test_training_entry_points_without_device_and_card_raise(monkeypatch):
+    """A trainer with no field draws one on its device: with no device
+    and no card it raises (as does prepare_field's train branch), and a
+    fine-tune loop needs a store, which needs a device."""
+    from repro_torch.core import train as ttrain
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = demo_config(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.NerfTrainer(cfg, "lego", n_views=1, image_hw=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.train_nerf(cfg, "lego", steps=1, n_views=1, image_hw=8,
+                          verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.prepare_field(cfg, "lego", ckpt_dir=None, train_steps=1)
+    with pytest.raises(RuntimeError):
+        ttrain.NerfTrainer(cfg, "lego", n_views=1, image_hw=8,
+                           device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SceneStore(cfg)
+    t = ttrain.NerfTrainer(cfg, "lego", n_views=1, image_hw=8, device="cpu")
+    assert t.device == torch.device("cpu")
+
+
 def test_the_checks_cover_the_evaluation_modules():
     """The import checks walk the evaluation path's modules too."""
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
