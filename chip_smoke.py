@@ -55,6 +55,23 @@ line each:
            final(), published to the serve engine and served; a
            FineTuneLoop on the engine's store publishing while the engine
            serves;
+  fleet    the store phase's three scenes exported (`export_scene`: the
+           occupancy built through the gather kernels) and served by two
+           worker processes on the card behind `FleetRouter`, 64 x 64
+           views (one ray chunk each): the seconds from spawn to the
+           first result; each image against the port's CPU path (every
+           8th ray) and beside the parent's in-process engine; a
+           replicated scene served by both workers; the same 8 views
+           through one worker and across two; a worker SIGKILLed with
+           views queued behind an injected stall, every future resolved
+           and the live ones replayed; each worker's device, dispatch
+           path and kernel launches from its `stats` reply; the `fleet_*`
+           metric families; close() leaving no child process;
+  launch   `python -m repro_torch.launch.serve --arch rtnerf` run three
+           times on one checkpoint root (train, restore, fleet of two
+           workers with the hot scene on both): exit codes, seconds, the
+           device each printed, views, fps, kernel launches, and PSNRs
+           equal to 0.01 dB across the runs;
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
            kernel_ops or train), the largest error against its plain
            version
@@ -79,7 +96,9 @@ line each:
            uniform pass's appearance-plane call), with the launches of
            one 800 x 800 view; rows 2 and 3 a `train` entry, the same at
            a training step's appearance-plane call with the training
-           run's launches. Rows 7 and 8 are the gathers' backward
+           run's launches; rows 1 to 3 a `fleet` entry, the launches of
+           the fleet phase, summed from the workers' replies and the
+           parent's exports. Rows 7 and 8 are the gathers' backward
            kernels at that call, held against their plain versions
            within the reordering bound of fp32 sums, with `index_add_`
            on the precomputed slots as the library call.
@@ -200,6 +219,45 @@ GRAD_TOL = 1e-4
 # so within UPDATE_RTOL relative and UPDATE_ATOL_LR x lr
 UPDATE_RTOL, UPDATE_ATOL_LR = 1e-6, 1e-5
 FT_STEPS, FT_PUBLISH, FT_VIEWS, FT_MAX_REQUESTS = 4, 2, 4, 8
+# the fleet phase: the store phase's scenes exported and served by
+# FLEET_WORKERS worker processes on the card, FLEET_RES x FLEET_RES views
+# (one 4096-ray chunk each) on the store phase's orbit; FLEET_TIMED_VIEWS
+# views of s0 timed through one worker and across two; a worker SIGKILLed
+# FLEET_KILL_AFTER_S into an injected FLEET_STALL_S stall with
+# FLEET_IN_FLIGHT views queued on it. The CPU path renders every
+# FLEET_CPU_STRIDE-th ray of each scene's view (512 rays; a ray's colour
+# does not depend on the other rays of its chunk) through the engine's
+# renderer and ordering, with a CPU_PAIR_BUDGET pair budget above any
+# step's hitting pairs (no pair may be dropped, which the phase checks)
+# where the card's engines keep 8192: the compaction's size, not its
+# result. Its scan stops at the chunk of the last valid cube: the
+# ordering puts invalid cubes last, and a step of invalid cubes hits
+# nothing and adds zeros (at 1024 steps a scene took 53 s on the card
+# machine's CPU). The cube chunk stays the engine's 8: a step's cubes
+# composite against the transmittance at the step's start, so the image
+# moves with it (tests/test_torch_engine.py::
+# test_cube_chunk_moves_the_image_as_in_the_reference)
+FLEET_WORKERS = 2
+FLEET_RES = 64
+FLEET_TIMED_VIEWS = 8
+FLEET_STALL_S = 2.0
+FLEET_KILL_AFTER_S = 0.5
+FLEET_IN_FLIGHT = 3
+FLEET_CPU_STRIDE = 8
+CPU_PAIR_BUDGET = 256
+# the launch phase: `python -m repro_torch.launch.serve --arch rtnerf` on
+# the card, three runs on one checkpoint root: train and serve, restore
+# and serve, restore and serve through the fleet; PSNRs within
+# LAUNCH_PSNR_DB of each other. The fields are pruned to 90% before they
+# serve (the reference launcher's own example): a fresh field trains
+# dense (its first re-encode is at step 200) and would otherwise encode
+# dense, so no gather kernel would build its occupancy
+LAUNCH_ARGS = ["--arch", "rtnerf", "--scenes", "lego,chair", "--views", "2",
+               "--prune-sparsity", "0.9", "--res", "64", "--train-steps",
+               "20"]
+LAUNCH_FLEET_ARGS = ["--fleet-workers", "2", "--fleet-replicas", "2"]
+LAUNCH_PSNR_DB = 0.01
+LAUNCH_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -1652,6 +1710,309 @@ def train_phase(torch, m, cfg, field, engine, dev, mods) -> tuple:
     return line, fwd_entries, bwd_rows
 
 
+def fleet_phase(torch, m, cfg, seed, dev, kernels, root) -> tuple:
+    """The fleet tier on the card: the store phase's three scenes exported
+    (`export_scene`: the occupancy built through the gather kernels),
+    served by FLEET_WORKERS spawned worker processes (`FleetRouter`), each
+    image held against the port's CPU path and reported beside the
+    parent's in-process engine; a replicated scene; one worker against
+    two on the same views; a SIGKILLed worker's requests replayed.
+    Returns (phase line, {kernel name: fleet entry})."""
+    import multiprocessing
+    import os
+    import signal
+
+    t_phase = time.perf_counter()
+    names = [f"s{i}" for i in range(STORE_SCENES)]
+    ekw = {"ray_chunk": FLEET_RES * FLEET_RES, "adaptive_pair_budget": False}
+    angles = 0.3 + 2 * math.pi * np.arange(FLEET_TIMED_VIEWS) / \
+        FLEET_TIMED_VIEWS
+    cams = [orbit_camera(m, a, FLEET_RES, dev) for a in angles]
+
+    # export: the parent's launches are the gathers of the occupancy builds
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    paths = {}
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        params = {k: torch.from_numpy(v).to(dev)
+                  for k, v in object_field(cfg, seed + i).items()}
+        f = m.field_lib.DenseField(params, cfg).prune(tol=1e-3).encode()
+        paths[name] = m.fleet.export_scene(os.path.join(root, name), f,
+                                           cfg=cfg, scene=name)
+        del f, params
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    export_launches = launch_counts(kernels)
+    check(export_launches["bitmap_gather"] > 0
+          and export_launches["coo_gather"] > 0,
+          f"export built no occupancy through the gathers: {export_launches}")
+
+    # each scene's view on the CPU path (strided rays) and on the parent's
+    # card engine
+    t0 = time.perf_counter()
+    cpu_cam = orbit_camera(m, angles[0], FLEET_RES, "cpu")
+    cpu_rays = np.arange(0, FLEET_RES * FLEET_RES, FLEET_CPU_STRIDE)
+    ro, rd = (x[cpu_rays] for x in m.rendering.camera_rays(cpu_cam))
+    cpu_render = m.pipeline.make_ray_renderer(cfg, pair_budget=CPU_PAIR_BUDGET)
+    cpu_img, parent_img, cpu_pairs = {}, {}, {}
+    for name in names:
+        f, cubes = m.fleet.load_scene(paths[name], cfg, device="cpu")
+        centers, valid = m.pipeline.OrderingCache(cubes).get_ordered(
+            cpu_cam.origin)
+        n_valid = int(valid.sum())
+        check(bool(valid[:n_valid].all()),
+              f"{name}: the ordering does not put its valid cubes first")
+        n_scan = -(-n_valid // 8) * 8
+        rgb, aux = cpu_render(f, centers[:n_scan], valid[:n_scan], ro, rd)
+        cpu_img[name] = rgb.numpy()
+        cpu_pairs[name] = int(aux["active_pairs_max"])
+        check(int(aux["dropped_pairs"]) == 0 and f.dispatch_path()
+              == "fused_ref", f"CPU path of {name}: {aux['dropped_pairs']} "
+              f"pairs dropped, {f.dispatch_path()}")
+        del f, cubes
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name in names:
+        f, cubes = m.fleet.load_scene(paths[name], cfg, device=dev)
+        eng = m.RenderEngine(cfg, f, cubes, device=dev, **ekw)
+        parent_img[name] = eng.submit(cams[0]).result(
+            timeout=RESULT_TIMEOUT_S).img
+        if name == names[0]:
+            parent_repeat = max_diff(eng.submit(cams[0]).result(
+                timeout=RESULT_TIMEOUT_S).img, parent_img[name])
+        del eng, f, cubes
+    parent_s = time.perf_counter() - t0
+
+    def held(img, name, what):
+        """An image's largest differences from the CPU path and from the
+        parent's engine; the first must be within PARITY_TOL."""
+        check(img is not None and img.shape == (FLEET_RES * FLEET_RES, 3)
+              and bool(np.isfinite(img).all()), f"{what}: image")
+        d_cpu = max_diff(img[cpu_rays], cpu_img[name])
+        check(d_cpu <= PARITY_TOL, f"{what}: {d_cpu} from the CPU path")
+        return {"max_abs_err_vs_cpu": d_cpu,
+                "max_abs_diff_vs_parent": max_diff(img, parent_img[name])}
+
+    def results(futs, what):
+        out = [f.result(timeout=RESULT_TIMEOUT_S) for f in futs]
+        for r in out:
+            check(not r.timed_out, f"{what}: view {r.view_id} timed out")
+        return out
+
+    t_spawn = time.perf_counter()
+    router = m.FleetRouter(cfg, paths, n_workers=FLEET_WORKERS,
+                           engine_kwargs={"device": str(dev), **ekw})
+    try:
+        spawn_call_s = time.perf_counter() - t_spawn
+        owners = {name: router.owner_of(name) for name in names}
+        futs = [router.submit(cams[0], scene=name) for name in names]
+        t_sent = time.perf_counter()
+        first = results(futs, "first views")
+        spawn_to_first_s = (t_sent - t_spawn
+                            + min(r.latency_s for r in first))
+        first_views = {r.scene: dict(held(r.img, r.scene, f"fleet {r.scene}"),
+                                     worker=r.worker, latency_s=r.latency_s)
+                       for r in first}
+        check(all(first_views[n]["worker"] == owners[n] for n in names),
+              f"scenes not served by their owners: {first_views} {owners}")
+
+        # a hot scene on both workers: each replica serves the same image
+        router.set_replicas(names[0], FLEET_WORKERS)
+        replicas = router.replica_workers(names[0])
+        check(len(replicas) == FLEET_WORKERS, f"replicas {replicas}")
+        rep = results([router.submit(cams[0], scene=names[0],
+                                     prefer_worker=w) for w in replicas],
+                      "replicas")
+        check([r.worker for r in rep] == replicas, "replica routing")
+        replica_views = {r.worker: held(r.img, names[0],
+                                        f"replica {r.worker}") for r in rep}
+        replica_diff = max_diff(rep[0].img, rep[1].img)
+
+        # the same views through one worker and across two
+        timing = {}
+        for label, prefer in (("one_worker", replicas[0]),
+                              ("two_workers", None)):
+            t0 = time.perf_counter()
+            out = results([router.submit(c, scene=names[0],
+                                         prefer_worker=prefer)
+                           for c in cams], label)
+            wall = time.perf_counter() - t0
+            for r in out:
+                check(r.img is not None and bool(np.isfinite(r.img).all()),
+                      f"{label}: image")
+            per = {}
+            for r in out:
+                per[r.worker] = per.get(r.worker, 0) + 1
+            timing[label] = {"views": len(out), "wall_s": wall,
+                             "views_per_s": len(out) / wall,
+                             "views_by_worker": per,
+                             "latency_s": [r.latency_s for r in out]}
+        check(len(timing["two_workers"]["views_by_worker"]) == FLEET_WORKERS,
+              f"the two-worker views used {timing['two_workers']}")
+
+        # every worker on the card, through the fused kernel ("fused_ref",
+        # its plain version, only in a rehearsal on the CPU)
+        fused = "fused" if dev.type == "cuda" else "fused_ref"
+        workers = router.stats()["workers"]
+        check(sorted(workers) == sorted(replicas), f"workers {workers}")
+        for w, ws in workers.items():
+            check(ws["device"] == str(dev), f"worker {w} on {ws['device']}")
+            check(set(ws["scene_dispatch_path"].values()) == {fused},
+                  f"worker {w}: {ws['scene_dispatch_path']}")
+            check(ws["launches"]["fused_sigma_app"] > 0,
+                  f"worker {w} launched no fused kernel: {ws['launches']}")
+        worker_launches = {w: ws["launches"] for w, ws in workers.items()}
+
+        # SIGKILL a worker with views queued behind an injected stall
+        victim = owners[names[0]]
+        survivor = next(w for w in replicas if w != victim)
+        router.inject(victim, stall_s=FLEET_STALL_S)
+        live = [router.submit(cams[0], scene=names[0], prefer_worker=victim)
+                for _ in range(FLEET_IN_FLIGHT)]
+        expired = router.submit(cams[0], scene=names[0], deadline_s=0.01,
+                                prefer_worker=victim)
+        time.sleep(FLEET_KILL_AFTER_S)
+        t_kill = time.perf_counter()
+        os.kill(router.worker_pid(victim), signal.SIGKILL)
+        replayed = results(live, "replayed views")
+        replay_s = time.perf_counter() - t_kill
+        rexp = expired.result(timeout=RESULT_TIMEOUT_S)
+        for r in replayed:
+            check(r.replayed and r.worker == survivor,
+                  f"view {r.view_id}: worker {r.worker}, replayed "
+                  f"{r.replayed}")
+        replay_views = [held(r.img, names[0], "replayed view")
+                        for r in replayed]
+        check(rexp.timed_out and rexp.img is None,
+              "the expired view was not answered timed out")
+        after = router.stats()
+        check(after["worker_deaths"] == 1 and after["replays_total"] >= 1
+              and router.alive_workers() == [survivor],
+              f"after the kill: deaths {after['worker_deaths']}, replays "
+              f"{after['replays_total']}, alive {router.alive_workers()}")
+        worker_launches[survivor] = after["workers"][survivor]["launches"]
+        snap = router.registry.snapshot()
+        families = {kind: {k: v for k, v in snap[kind].items()
+                           if k.startswith("fleet_")}
+                    for kind in ("counters", "gauges", "histograms")}
+    finally:
+        router.close()
+    procs = [st.proc for st in router._workers.values()]
+    check(not any(p.is_alive() for p in procs)
+          and not multiprocessing.active_children(),
+          "a worker process outlived close()")
+
+    entries = {}
+    for name in ("fused_sigma_app", "bitmap_gather", "coo_gather"):
+        per = {w: int(lw[name]) for w, lw in worker_launches.items()}
+        entries[name] = {"launches": sum(per.values()) + export_launches[
+            name], "worker_launches": per,
+            "export_launches": export_launches[name],
+            "shape": {"rays_a_chunk": FLEET_RES * FLEET_RES,
+                      "scenes": len(names)}}
+    line = {"phase": "fleet", "seconds": time.perf_counter() - t_phase,
+            "workers": FLEET_WORKERS, "res": FLEET_RES, "scenes": names,
+            "owners": owners, "export_s": export_s,
+            "export_launches": export_launches,
+            "cpu_path_s": cpu_s, "cpu_rays": int(cpu_rays.size),
+            "cpu_pair_budget": CPU_PAIR_BUDGET,
+            "cpu_active_pairs_max": cpu_pairs,
+            "parent_engine_s": parent_s,
+            "parent_repeat_max_abs_diff": parent_repeat,
+            "tol": PARITY_TOL, "spawn_call_s": spawn_call_s,
+            "spawn_to_first_result_s": spawn_to_first_s,
+            "first_views": first_views, "replicas": replicas,
+            "replica_views": replica_views,
+            "replica_max_abs_diff": replica_diff, "timing": timing,
+            "speedup_two_over_one": (timing["two_workers"]["views_per_s"]
+                                     / timing["one_worker"]["views_per_s"]),
+            "worker_stats": {w: {k: ws[k] for k in (
+                "device", "views_served", "fps", "scene_dispatch_path",
+                "scene_views", "launches", "latency_p50_s")}
+                for w, ws in workers.items()},
+            "kill": {"victim": victim, "survivor": survivor,
+                     "stall_s": FLEET_STALL_S, "in_flight": FLEET_IN_FLIGHT,
+                     "replay_s": replay_s, "replayed_views": replay_views,
+                     "expired_timed_out": rexp.timed_out,
+                     "worker_deaths": after["worker_deaths"],
+                     "replays_total": after["replays_total"],
+                     "timeouts_total": after["timeouts_total"],
+                     "routing_version": after["routing_version"]},
+            "fleet_metrics": families}
+    return line, entries
+
+
+def launch_phase(torch, root) -> dict:
+    """`python -m repro_torch.launch.serve --arch rtnerf` on the card, run
+    three times as a user would on one checkpoint root: (1) trains each
+    scene and checkpoints it, then serves; (2) restores and serves, its
+    PSNRs within LAUNCH_PSNR_DB of (1); (3) restores and serves through
+    the fleet (two workers, the hot scene on both), within LAUNCH_PSNR_DB
+    of (2). Each run must exit 0 on the card's device."""
+    import os
+    import re
+
+    t_phase = time.perf_counter()
+    base = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_ARGS,
+            "--ckpt-dir", os.path.join(root, "ckpt")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    kind = torch.cuda.get_device_name(0)
+    runs = []
+    for label, extra in (("train", []), ("restore", []),
+                         ("fleet", LAUNCH_FLEET_ARGS)):
+        t0 = time.perf_counter()
+        res = subprocess.run(base + extra, cwd=str(ROOT), env=env,
+                             capture_output=True, text=True,
+                             timeout=LAUNCH_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        out = res.stdout
+        check(res.returncode == 0, f"launch run {label} exited "
+              f"{res.returncode}:\n{out[-3000:]}\n{res.stderr[-3000:]}")
+        psnr = {f"{s} view {i}": float(p) for s, i, p in re.findall(
+            r"^(\w+) view (\d+): psnr=([-\d.]+)", out, re.M)}
+        device = re.findall(r"^\[serve\] device: (.*)$", out, re.M)
+        launches = [json.loads(x) for x in re.findall(
+            r"^\[serve\] kernel launches: (.*)$", out, re.M)]
+        summary = [ln for ln in out.splitlines()
+                   if ln.startswith(("served ", "fleet: ", "  w"))]
+        runs.append({"run": label, "args": base[3:] + extra,
+                     "exit_code": res.returncode, "seconds": seconds,
+                     "device": device, "psnr": psnr,
+                     "restored": out.count("[engine] restoring scene"),
+                     "trained": out.count("[engine] checkpointed field"),
+                     "summary": summary,
+                     "kernel_launches": launches[-1] if launches else None})
+        check(device == [kind], f"launch run {label} printed device "
+              f"{device}, not {kind}")
+        check(len(psnr) == 4, f"launch run {label}: views {psnr}")
+    train, restore, fleet = runs
+    check(train["trained"] == 2 and train["restored"] == 0,
+          f"run 1 trained {train['trained']}")
+    for r in (restore, fleet):
+        check(r["restored"] == 2 and r["trained"] == 0,
+              f"run {r['run']} did not restore both scenes")
+    diffs = {}
+    for a, b in ((restore, train), (fleet, restore)):
+        check(sorted(a["psnr"]) == sorted(b["psnr"]), "views differ")
+        d = max(abs(a["psnr"][k] - b["psnr"][k]) for k in a["psnr"])
+        diffs[f"{a['run']}_vs_{b['run']}_db"] = d
+        check(d <= LAUNCH_PSNR_DB, f"{a['run']} PSNRs {a['psnr']} against "
+              f"{b['run']}'s {b['psnr']}")
+    check(any("device=cuda" in ln for ln in fleet["summary"]),
+          f"fleet workers not on cuda: {fleet['summary']}")
+    for r in runs:
+        k = r["kernel_launches"]
+        check(k is not None and k["bitmap_gather"] + k["coo_gather"] > 0,
+              f"run {r['run']} built no occupancy through the gathers: {k}")
+    for r in (train, restore):
+        check(r["kernel_launches"]["fused_sigma_app"] > 0,
+              f"run {r['run']} launched no fused kernel")
+    return {"phase": "launch", "seconds": time.perf_counter() - t_phase,
+            "runs": runs, "psnr_max_diff": diffs, "tol_db": LAUNCH_PSNR_DB}
+
+
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
     """The kernel_ops phase's inputs, made before its launch counts are
     reset: the bitmap operand per dtype, the volume samples per case (the
@@ -2034,7 +2395,8 @@ def main() -> int:
     from repro_torch.kernels import (_build, bitmap_decode, coo_gather,
                                      flash_attention, fused_sample, ops,
                                      volume_render)
-    from repro_torch.serving import FineTuneLoop, RenderEngine
+    from repro_torch.serving import FineTuneLoop, FleetRouter, RenderEngine
+    from repro_torch.serving import fleet
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2188,7 +2550,8 @@ def main() -> int:
         field_lib=field_lib, occ_lib=occ_lib, rendering=rendering,
         tensorf=tensorf, fused_sample=fused_sample, pipeline=pipeline,
         train=train, rays=rays, ops=ops, coo_gather=coo_gather,
-        RenderEngine=RenderEngine, FineTuneLoop=FineTuneLoop)
+        RenderEngine=RenderEngine, FineTuneLoop=FineTuneLoop, fleet=fleet,
+        FleetRouter=FleetRouter)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
         line, store_engine = store_phase(torch, m, cfg, args.seed, dev, spill,
                                          kernels)
@@ -2256,6 +2619,15 @@ def main() -> int:
         torch, m, cfg, field, engine, dev, (ops, bitmap_decode, coo_gather))
     emit(line)
 
+    # -- fleet: worker processes on the card behind the consistent-hash
+    # router; launch: the serving launcher, three runs as a user's --------
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as root:
+        line, fleet_entries = fleet_phase(torch, m, cfg, args.seed, dev,
+                                          kernels, root)
+        emit(line)
+        emit(launch_phase(torch, root))
+
     # -- kernels: each against its plain version on captured inputs ------
     rows = []
     fargs, fkw, hits = cap.fused_inputs()
@@ -2320,6 +2692,7 @@ def main() -> int:
                                args.seed))
     for row in rows:
         row["eval"] = eval_entries[row["name"]]
+        row["fleet"] = fleet_entries[row["name"]]
         if row["name"] in train_entries:
             row["train"] = train_entries[row["name"]]
     rows += ops_rows + bwd_rows

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 from typing import Sequence
 
@@ -67,39 +68,51 @@ def build_dir() -> Path:
 
 def build() -> Path:
     """Compile (or reuse) the kernel library; returns its path. Raises on
-    any compiler failure, with the compiler's output in the message."""
+    any compiler failure, with the compiler's output in the message.
+
+    Each build compiles and links in a temporary directory of its own
+    under `BUILD_ROOT`, then moves the finished log and library into
+    `build/<hash>/` with `os.replace`. Processes that start cold at once
+    (fleet workers, test workers) each build a whole library and the last
+    rename wins; none reads another's half-written objects."""
     out = build_dir()
     lib = out / LIB_NAME
     if lib.exists():
         return lib
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = find_nvcc()
-    srcs = sorted(CSRC.glob("*.cu"))
-    procs = []
-    for src in srcs:
-        obj = out / f"{src.stem}.o"
-        procs.append((src, obj, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
-             "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs, failed = [], []
-    for src, _obj, p in procs:
-        text, _ = p.communicate()
-        logs.append(f"== {src.name} (rc {p.returncode})\n{text}")
-        if p.returncode != 0:
-            failed.append(src.name)
-    log = "\n".join(logs)
-    (out / "build.log").write_text(log)
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
-    tmp = out / f"tmp{os.getpid()}_{LIB_NAME}"
-    res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                          *[str(o) for _s, o, _p in procs]],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                         text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"linking {LIB_NAME} failed:\n{res.stdout}")
-    os.replace(tmp, lib)
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix=f".{out.name}-{os.getpid()}-",
+                                dir=BUILD_ROOT))
+    try:
+        nvcc = find_nvcc()
+        srcs = sorted(CSRC.glob("*.cu"))
+        procs = []
+        for src in srcs:
+            obj = tmp / f"{src.stem}.o"
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                 "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, _obj, p in procs:
+            text, _ = p.communicate()
+            logs.append(f"== {src.name} (rc {p.returncode})\n{text}")
+            if p.returncode != 0:
+                failed.append(src.name)
+        log = "\n".join(logs)
+        (tmp / "build.log").write_text(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp / LIB_NAME),
+                              *[str(o) for _s, o, _p in procs]],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"linking {LIB_NAME} failed:\n{res.stdout}")
+        out.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp / "build.log", out / "build.log")
+        os.replace(tmp / LIB_NAME, lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 

@@ -52,6 +52,7 @@ import torch
 
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.configs.rtnerf import NeRFConfig
+from repro_torch.core import distributed
 from repro_torch.core import field as field_lib
 from repro_torch.core import occupancy as occ_lib
 from repro_torch.core import pipeline as rt_pipe
@@ -768,8 +769,8 @@ class RenderEngine:
             g_dropped, g_pairs = 0, 0
             g_processed = 0.0
             for i in range(plan.n_chunks):
-                ro = torch.from_numpy(plan.rays_o[i]).to(dev)
-                rd = torch.from_numpy(plan.rays_d[i]).to(dev)
+                ro, rd = distributed.shard_rays(dev, plan.rays_o[i],
+                                                plan.rays_d[i])
                 rgb, aux = render_fn(snap.field, centers, valid, ro, rd)
                 outs.append(rgb.cpu().numpy())
                 geo_outs.append(torch.stack([aux["depth"], aux["opacity"]],

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.configs.rtnerf import NeRFConfig
+from repro_torch.core import distributed
 from repro_torch.core import field as field_lib
 from repro_torch.core import occupancy as occ_lib
 from repro_torch.core import pipeline as rt_pipe
@@ -228,8 +229,11 @@ class SceneStore:
         device. encode serves the hybrid streams (no-op when pre-encoded);
         encode=False decodes, the dense-baseline toggle. Cubes rebuild at
         the shared `cfg.occ_sigma_thresh` when not supplied (on the card,
-        through the gather kernels for an encoded field)."""
-        field = field_lib.as_backend(field, self.cfg).to(self.device)
+        through the gather kernels for an encoded field). The field is
+        placed before it is encoded, so the encode runs on the store's
+        device."""
+        field = distributed.place_field(field_lib.as_backend(field, self.cfg),
+                                        self.device)
         field = field.encode() if self.encode_fields else field.decode()
         if cubes is None:
             occ = occ_lib.build_occupancy(field, self.cfg)
@@ -407,9 +411,10 @@ class SceneStore:
         with self._lock:
             rec = self._get(name)
             if not rec.resident:
-                # already encoded and on the store's device
+                # placement only: the representation is already encoded
                 field, _ = ckpt_lib.unspill_field(rec.spill_path, self.cfg,
-                                                  device=self.device)
+                                                  device="cpu")
+                field = distributed.place_field(field, self.device)
                 cubes = load_cubes(rec.spill_path, device=self.device)
                 self._install(rec, field, cubes)
                 rec.m.revivals.inc()

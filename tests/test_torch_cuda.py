@@ -1417,3 +1417,44 @@ def test_training_step_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(tv_gpu[k].cpu().numpy(), tv[k].numpy(),
                                    rtol=1e-6, atol=1e-5 * cfg.lr_grid,
                                    err_msg=k)
+
+
+def test_fleet_workers_serve_on_the_card(cuda, tmp_path):
+    """A 2-worker router on the card at demo_config(tiny=True): each worker
+    reports device cuda, the fused path and fused launches; the replicas'
+    images agree with the in-process card engine's within 1e-4, and
+    close() leaves no worker alive."""
+    import multiprocessing as mp
+
+    from repro_torch.serving import FleetRouter, export_scene
+    cfg = demo_config(tiny=True)
+    params = ttensorf.init_field(cfg, torch.Generator().manual_seed(2),
+                                 device="cpu")
+    field = tfield.DenseField(params, cfg).prune(sparsity=0.9).encode()
+    cam = trender.look_at_camera([3.0, 2.0, 1.5], [0, 0, 0], 19.2, 16, 16,
+                                 device="cpu")
+    want = RenderEngine(cfg, field, device=cuda, ray_chunk=256).submit(
+        cam).result(timeout=120)
+    assert want.stats["dispatch_path"] == "fused"
+    paths = {name: export_scene(str(tmp_path / name), field.to(cuda),
+                                cfg=cfg, scene=name) for name in ("a", "b")}
+    router = FleetRouter(cfg, paths, n_workers=2,
+                         engine_kwargs={"device": "cuda", "ray_chunk": 256})
+    try:
+        router.set_replicas("a", 2)
+        replicas = router.replica_workers("a")
+        assert sorted(replicas) == ["w0", "w1"]
+        for w in replicas:
+            r = router.submit(cam, scene="a", prefer_worker=w).result(
+                timeout=300)
+            assert r.worker == w and not r.timed_out
+            np.testing.assert_allclose(r.img, want.img, atol=1e-4)
+        stats = router.stats()["workers"]
+        assert sorted(stats) == ["w0", "w1"]
+        for w, s in stats.items():
+            assert s["device"] == "cuda"
+            assert s["scene_dispatch_path"]["a"] == "fused"
+            assert s["launches"]["fused_sigma_app"] > 0
+    finally:
+        router.close()
+    assert not mp.active_children()

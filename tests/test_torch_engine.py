@@ -124,3 +124,25 @@ def test_engine_builds_cubes_when_none_given(scene):
                          carry_cubes(scene[2]), encode=False, device=CPU)
     assert dense.stats()["field_kind"] == "dense"
     assert dense.stats()["compression_ratio"] == 1.0
+
+
+def test_cube_chunk_moves_the_image_as_in_the_reference(scene):
+    """More cubes a scan step composite differently (a step's cubes are
+    composited against the transmittance at the step's start), so the
+    image moves with `cube_chunk` — in the reference as in the port.
+    Renders compared across devices or packages use the same chunk."""
+    cams = jrays.make_cameras(2, 16, 16)
+    imgs = {}
+    for chunk in (8, 16):
+        je, te = _engines(scene, ray_chunk=16 * 16, cube_chunk=chunk,
+                          pair_budget=2048, adaptive_pair_budget=False)
+        want = [je.submit(c).result() for c in cams]
+        got = [te.submit(carry_camera(c)).result() for c in cams]
+        for w, g in zip(want, got):
+            np.testing.assert_allclose(g.img, w.img, atol=1e-4)
+            assert g.stats["dropped_pairs"] == 0
+        imgs[chunk] = (np.stack([w.img for w in want]),
+                       np.stack([g.img for g in got]))
+    moved_ref = np.abs(imgs[16][0] - imgs[8][0]).max()
+    moved_port = np.abs(imgs[16][1] - imgs[8][1]).max()
+    assert moved_ref > 1e-3 and abs(moved_port - moved_ref) < 1e-4

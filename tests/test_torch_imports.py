@@ -63,6 +63,49 @@ TRAIN_MODULES = ("optim/__init__.py", "optim/optimizers.py",
                  "kernels/coo_gather.py")
 
 
+FLEET_MODULES = ("configs/base.py", "core/distributed.py",
+                 "serving/fleet.py", "serving/router.py",
+                 "launch/__init__.py", "launch/serve.py")
+
+
+def test_the_checks_cover_the_fleet_and_launcher_modules():
+    """The import checks walk the launcher's and the fleet tier's modules
+    too."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(FLEET_MODULES) <= files
+
+
+def test_launcher_and_fleet_without_device_and_card_raise(monkeypatch,
+                                                         tmp_path):
+    """`launch.serve.main` serves on the card unless told `--device cpu`:
+    without a card it raises, on the single-process and the fleet path,
+    before it trains, exports or spawns anything; so do the router, the
+    scene loader and the distributed placements."""
+    import multiprocessing as mp
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.launch import serve as tserve
+    from repro_torch.serving import FleetRouter, load_scene
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = ["--arch", "rtnerf", "--views", "1", "--res", "8",
+            "--train-steps", "1", "--ckpt-dir", str(tmp_path / "ck")]
+    for extra in ([], ["--fleet-workers", "2"], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.main(base + extra)
+    assert not (tmp_path / "ck").exists()
+    assert not mp.active_children()
+    cfg = demo_config(tiny=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FleetRouter(cfg, {}, n_workers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_scene(str(tmp_path), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdist.shard_rays(None, np.zeros((2, 3), np.float32),
+                         np.zeros((2, 3), np.float32))
+    assert not mp.active_children()
+
+
 def test_the_checks_cover_the_training_modules():
     """The import checks walk the training path's modules too."""
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
