@@ -72,6 +72,18 @@ line each:
            workers with the hot scene on both): exit codes, seconds, the
            device each printed, views, fps, kernel launches, and PSNRs
            equal to 0.01 dB across the runs;
+  lm       language-model serving of the dense archs (plain PyTorch
+           ops; no kernel of the port): the reduced config of each of
+           llama3.2-1b, granite-3-8b, qwen1.5-32b, granite-34b and
+           internvl2-76b in float32 and bfloat16, and llama3.2-1b at
+           full width with 2 layers in float32, prefill and decode on
+           the card against the CPU on the same params; llama3.2-1b at
+           full size in bf16 (batch 4, prompt 128, 32 greedy tokens):
+           prefill ms, decode ms a step and tok/s, peak memory, the
+           least time the card could take, a profile of a prefill and
+           4 decode steps, and prefill-then-decode against the
+           teacher-forced forward (float32 and bf16); the launcher run
+           as a user runs it (`--arch llama3.2-1b --reduced`), on cuda;
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
            kernel_ops or train), the largest error against its plain
            version
@@ -258,6 +270,32 @@ LAUNCH_ARGS = ["--arch", "rtnerf", "--scenes", "lego,chair", "--views", "2",
 LAUNCH_FLEET_ARGS = ["--fleet-workers", "2", "--fleet-replicas", "2"]
 LAUNCH_PSNR_DB = 0.01
 LAUNCH_TIMEOUT_S = 300
+# the lm phase: language-model serving of the dense archs
+# (repro_torch.models.transformer through launch/steps.py). Card against
+# the CPU on the same params: float32 to 1e-4 (cuBLAS sums in another
+# order than the CPU's GEMMs, about 1e-6 relative a product; the full
+# width's logits sum 2,048 of them), bfloat16 to 3e-2 (the reference's
+# decode-parity bound: the two devices round bf16 sums apart).
+# Full size, prefill-then-decode against the teacher-forced forward on
+# the card: in float32 to 1e-4, inside the reference's 3e-2
+# (tests/test_decode_parity.py:66; 1.9e-5 measured on an H100). In bf16
+# the reference's 3e-2 cannot hold at 16 layers: the bf16 forward itself
+# lies up to 0.086 from the float32 forward on an H100, so the bf16
+# decode is held to be no farther from the float32 forward than the
+# bf16 forward is, by LM_BF16_NOISE_RATIO in max and in mean, and its
+# distance to the bf16 forward under 3e-2 is reported.
+LM_ARCHS = ("llama3.2-1b", "granite-3-8b", "qwen1.5-32b", "granite-34b",
+            "internvl2-76b")
+LM_CPU_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LM_DECODE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LM_BF16_NOISE_RATIO = 1.25
+LM_SMALL = {"batch": 2, "prompt": 12, "gen": 4}
+LM_WIDE_DEPTH = 2             # llama3.2-1b at full width, 2 layers, fp32
+LM_FULL = {"batch": 4, "prompt": 128, "gen": 32}
+LM_PREFILL_REPEATS = 5
+LM_PROFILE_STEPS = 4          # decode steps after the profiled prefill
+LM_LAUNCH_ARGS = ["--arch", "llama3.2-1b", "--reduced", "--batch", "4",
+                  "--prompt-len", "32", "--gen", "16"]
 
 
 def emit(obj) -> None:
@@ -2013,6 +2051,289 @@ def launch_phase(torch, root) -> dict:
             "runs": runs, "psnr_max_diff": diffs, "tol_db": LAUNCH_PSNR_DB}
 
 
+def lm_serve(torch, lm, cfg, params, tokens, frontend, n_decode, dev,
+             teacher=None, times=None):
+    """Prefill `tokens` (and the stub frontend), grow the cache to the
+    horizon, then `n_decode` decode steps of greedy tokens, or of
+    `teacher`'s columns where given. Returns (the logits of every step as
+    one (B, 1 + n_decode, Vp) tensor, the fed tokens (B, n_decode)). With
+    a `times` dict on the card, records the seconds of the prefill (cache
+    growth included) and of the decode loop, each ended by a
+    synchronise."""
+    rules = lm.sharding.make_rules(lm.mesh.make_host_mesh(dev))
+    B, P = tokens.shape
+    nf = frontend.shape[1] if frontend is not None else 0
+    total = nf + P + n_decode + 1
+    prefill = lm.steps.build_prefill_step(cfg, rules)
+    decode = lm.steps.build_decode_step(cfg, rules, total)
+    batch = {"tokens": tokens.to(dev)}
+    if frontend is not None:
+        batch["frontend"] = frontend.to(dev)
+    if times is not None:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    shapes, _ = lm.tf.serve_cache_spec(cfg, B, total)
+    cache = lm.tf.grow_cache(cache, shapes)
+    if times is not None:
+        torch.cuda.synchronize()
+        times["prefill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out, fed = [logits], []
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    for i in range(n_decode):
+        if teacher is not None:
+            tok = teacher[:, i:i + 1].to(dev)
+        fed.append(tok)
+        logits, cache = decode(params, tok, nf + P + i, cache)
+        out.append(logits)
+        tok = torch.argmax(logits, dim=-1)
+    if times is not None:
+        torch.cuda.synchronize()
+        times["decode_s"] = time.perf_counter() - t0
+    return torch.cat(out, dim=1), torch.cat(fed, dim=1)
+
+
+def lm_forward_logits(torch, lm, cfg, params, tokens, frontend):
+    """Every position's logits through the training trunk (no cache)."""
+    batch = {"tokens": tokens}
+    if frontend is not None:
+        batch["frontend"] = frontend
+    with torch.no_grad():
+        x, pos = lm.tf._assemble_input(params, cfg, batch)
+        h, _, _ = lm.tf._trunk(params, cfg, x, pos)
+        return lm.tf._logits(params, cfg, h)
+
+
+def lm_card_vs_cpu(torch, lm, cfg, dtype, seed, dev) -> dict:
+    """One model's params drawn on the CPU and copied to the card; the
+    same prompt (and frontend) served on both for LM_SMALL's decode
+    steps, teacher-forced with the same tokens; every step's logits
+    compared."""
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(seed)
+    params, _ = lm.common.split_pl(lm.tf.init_model(cfg, gen, dtype=tdt,
+                                                    device="cpu"))
+    B, P, G = LM_SMALL["batch"], LM_SMALL["prompt"], LM_SMALL["gen"]
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen)
+    teacher = torch.randint(0, cfg.vocab, (B, G - 1), generator=gen)
+    frontend = None
+    if cfg.frontend == "vision":
+        frontend = torch.randn(B, cfg.n_frontend_tokens, cfg.d_model,
+                               generator=gen).to(torch.bfloat16)
+    want, _ = lm_serve(torch, lm, cfg, params, tokens, frontend, G - 1,
+                       torch.device("cpu"), teacher)
+    params = lm.common.tree_map(lambda a: a.to(dev), params)
+    got, _ = lm_serve(torch, lm, cfg, params, tokens, frontend, G - 1, dev,
+                      teacher)
+    torch.cuda.synchronize()
+    got = got.float().cpu()
+    want = want.float()
+    tol = LM_CPU_TOL[dtype]
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=tol, atol=tol))
+    check(ok and bool(torch.isfinite(got).all()),
+          f"lm {cfg.name} {dtype}: card vs CPU logits off by {err} "
+          f"(tol {tol})")
+    return {"arch": cfg.name, "dtype": dtype, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "vocab_padded": cfg.vocab_padded,
+            "steps": G, "max_abs_err": err, "tol": tol}
+
+
+def lm_full_bounds(cfg, B: int, P: int, G: int) -> dict:
+    """The least time the card could take (H100 SXM peaks, bf16): prefill
+    reads every param once and does 2 flops a param a token (the tied
+    logits only at the last position) plus the causal QK and PV
+    products; a decode step reads every param and the cache filled so
+    far and does 2 flops a param a token."""
+    d, L, hd = cfg.d_model, cfg.n_layers, cfg.resolved_head_dim
+    n_all = cfg.param_count()
+    n_embed = cfg.vocab_padded * d
+    n_trunk = n_all - n_embed * (1 if cfg.tie_embeddings else 2)
+    kv_row = 2 * L * cfg.n_kv_heads * hd * 2            # bytes a position
+    attn = lambda ctx: 4 * L * cfg.n_heads * hd * ctx   # QK + PV a token
+    pre_ops = (2 * n_trunk * B * P + 2 * n_embed * B
+               + B * sum(attn(t + 1) for t in range(P)))
+    pre_bytes = 2 * n_all + B * P * kv_row
+    dec_ops = 2 * (n_trunk + n_embed) * B + B * attn(P + G // 2)
+    dec_bytes = 2 * n_all + B * (P + G // 2) * kv_row
+    pre_ms, pre_by = bound(pre_bytes, pre_ops, PEAK_16BIT_S)
+    dec_ms, dec_by = bound(dec_bytes, dec_ops, PEAK_16BIT_S)
+    return {"params": n_all, "prefill_bound_ms": pre_ms,
+            "prefill_bound_by": pre_by, "decode_step_bound_ms": dec_ms,
+            "decode_step_bound_by": dec_by,
+            "decode_tok_s_bound": B / dec_ms * 1e3}
+
+
+def lm_profile(torch, lm, cfg, params, tokens, n_decode, dev) -> dict:
+    """One prefill and `n_decode` greedy decode steps under torch.profiler:
+    wall time, the device's busy share (summed kernel time over wall
+    time), the kernels launched a decode step, and the kernels taking
+    the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm_serve(torch, lm, cfg, params, tokens, None, n_decode, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    busy_s = sum(r[0] for r in rows) * 1e-6
+    rows.sort(reverse=True)
+    return {"wall_s": wall, "decode_steps": n_decode,
+            "kernels_launched": sum(r[2] for r in rows) if rows
+            else "not measured",
+            "device_busy_s": busy_s if rows else "not measured",
+            "device_busy_share": busy_s / wall if rows else "not measured",
+            "top_kernels": [{"name": k[:80], "device_ms": us * 1e-3,
+                             "calls": n} for us, k, n in rows[:6]]}
+
+
+def lm_phase(torch, seed, dev) -> dict:
+    """Language-model serving on the card. (1) The reduced config of each
+    dense arch, in float32 and in bfloat16, and llama3.2-1b at full width
+    with LM_WIDE_DEPTH layers in float32: card against the CPU on the
+    same params and tokens. (2) llama3.2-1b at full width and depth in
+    bf16: prefill ms, decode tok/s and peak memory at LM_FULL, and the
+    prefill-then-decode logits against the teacher-forced forward on the
+    card. (3) The launcher as a user runs it (LM_LAUNCH_ARGS), on the
+    card."""
+    import dataclasses
+    import os
+    import re
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import common, sharding
+    from repro_torch.models import transformer as tf
+
+    lm = types.SimpleNamespace(mesh=mesh, steps=steps, common=common,
+                               sharding=sharding, tf=tf)
+    t_phase = time.perf_counter()
+    parity = []
+    for i, name in enumerate(LM_ARCHS):
+        for dtype in ("float32", "bfloat16"):
+            parity.append(lm_card_vs_cpu(
+                torch, lm, registry.reduced(registry.ARCHS[name]), dtype,
+                seed + i, dev))
+    llama = registry.ARCHS["llama3.2-1b"]
+    t0 = time.perf_counter()
+    wide = lm_card_vs_cpu(torch, lm, dataclasses.replace(
+        llama, n_layers=LM_WIDE_DEPTH), "float32", seed, dev)
+    wide["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    # -- full size, bf16 ----------------------------------------------------
+    B, P, G = LM_FULL["batch"], LM_FULL["prompt"], LM_FULL["gen"]
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed)
+    params, _ = common.split_pl(tf.init_model(llama, gen, device=dev))
+    tokens = torch.randint(0, llama.vocab, (B, P), generator=gen).to(dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    rules = sharding.make_rules(mesh.make_host_mesh(dev))
+    prefill = steps.build_prefill_step(llama, rules)
+    lm_serve(torch, lm, llama, params, tokens, None, 2, dev)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = []
+    for _ in range(LM_PREFILL_REPEATS):
+        t0 = time.perf_counter()
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    times = {}
+    served, fed = lm_serve(torch, lm, llama, params, tokens, None, G - 1,
+                           dev, times=times)
+    peak = torch.cuda.max_memory_allocated()
+    # the forward over the prompt and the greedy tokens, in bf16 and, on
+    # a float32 copy of the same params, in float32 (the truth); the
+    # float32 prefill-then-decode teacher-forced with the same tokens
+    seq = torch.cat([tokens, fed], dim=1)
+    cols = slice(P - 1, P - 1 + G)
+    fwd = lm_forward_logits(torch, lm, llama, params, seq, None)[:, cols]
+    p32 = common.tree_map(lambda a: a.float(), params)
+    truth = lm_forward_logits(torch, lm, llama, p32, seq, None)[:, cols]
+    served32, _ = lm_serve(torch, lm, llama, p32, tokens, None, G - 1, dev,
+                           teacher=fed)
+    del p32
+    served, fwd = served.float(), fwd.float()
+    check(bool(torch.isfinite(served).all() and torch.isfinite(served32)
+               .all()), "full-size logits are not finite")
+    tol32, tol16 = LM_DECODE_TOL["float32"], LM_DECODE_TOL["bfloat16"]
+    err32 = float((served32 - truth).abs().max())
+    check(bool(torch.allclose(served32, truth, rtol=tol32, atol=tol32)),
+          f"full-size float32 prefill-then-decode vs forward: {err32} "
+          f"(tol {tol32})")
+    e_dec, e_fwd = (served - truth).abs(), (fwd - truth).abs()
+    noise = {"bf16_decode_vs_f32": [float(e_dec.max()), float(e_dec.mean())],
+             "bf16_forward_vs_f32": [float(e_fwd.max()),
+                                     float(e_fwd.mean())]}
+    for i, what in enumerate(("max", "mean")):
+        check(noise["bf16_decode_vs_f32"][i] <= LM_BF16_NOISE_RATIO
+              * noise["bf16_forward_vs_f32"][i],
+              f"full-size bf16 decode is farther from the float32 forward "
+              f"than the bf16 forward ({what}): {noise}")
+    d16 = (served - fwd).abs()
+    over = d16 > tol16 + tol16 * fwd.abs()
+    prefill_med = sorted(prefill_ms)[len(prefill_ms) // 2]
+    decode_s = times["decode_s"]
+    full = {"arch": llama.name, "dtype": "bfloat16", "batch": B,
+            "prompt": P, "gen": G, "init_s": t_init,
+            "prefill_ms": prefill_med, "prefill_ms_all": prefill_ms,
+            "serve_prefill_ms": times["prefill_s"] * 1e3,
+            "decode_s": decode_s,
+            "decode_ms_per_step": decode_s / (G - 1) * 1e3,
+            "decode_tok_s": B * (G - 1) / decode_s,
+            "peak_memory_bytes": peak, "peak_memory_gb": peak / 1e9,
+            "f32_decode_vs_forward_max_abs_err": err32,
+            "f32_decode_vs_forward_tol": tol32,
+            "bf16_noise_vs_f32_forward_max_mean": noise,
+            "bf16_noise_ratio_bound": LM_BF16_NOISE_RATIO,
+            "bf16_decode_vs_forward_max_abs_err": float(d16.max()),
+            "bf16_decode_vs_forward_share_over_3e-2": float(
+                over.float().mean()),
+            **lm_full_bounds(llama, B, P, G),
+            "profile": lm_profile(torch, lm, llama, params, tokens,
+                                  LM_PROFILE_STEPS, dev)}
+    del params, served, fwd, truth, served32
+    torch.cuda.empty_cache()
+
+    # -- the launcher, as a user runs it -------------------------------------
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *LM_LAUNCH_ARGS], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True,
+                         timeout=LAUNCH_TIMEOUT_S)
+    out = res.stdout
+    check(res.returncode == 0, f"lm launcher exited {res.returncode}:\n"
+          f"{out[-3000:]}\n{res.stderr[-3000:]}")
+    device = re.findall(r"^\[serve\] device: (.*)$", out, re.M)
+    kind = torch.cuda.get_device_name(0)
+    check(device == [kind], f"lm launcher printed device {device}, not "
+          f"{kind}")
+    pre = re.findall(r"^prefill: ([\d.]+)s logits (.*)$", out, re.M)
+    rate = re.findall(r"^decoded (\d+)x(\d+) tokens in ([\d.]+)s "
+                      r"\(([\d.]+) tok/s\)$", out, re.M)
+    sample = re.findall(r"^sample: (.*)$", out, re.M)
+    check(len(pre) == 1 and len(rate) == 1 and len(sample) == 1,
+          f"lm launcher output:\n{out[-2000:]}")
+    launch = {"args": LM_LAUNCH_ARGS, "exit_code": res.returncode,
+              "seconds": time.perf_counter() - t0, "device": device[0],
+              "prefill_s": float(pre[0][0]), "logits": pre[0][1],
+              "decoded": [int(rate[0][0]), int(rate[0][1])],
+              "decode_s": float(rate[0][2]), "tok_s": float(rate[0][3]),
+              "sample": json.loads(sample[0])}
+    return {"phase": "lm", "seconds": time.perf_counter() - t_phase,
+            "card_vs_cpu": parity, "full_width": wide, "full_size": full,
+            "launch": launch}
+
+
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
     """The kernel_ops phase's inputs, made before its launch counts are
     reset: the bitmap operand per dtype, the volume samples per case (the
@@ -2627,6 +2948,10 @@ def main() -> int:
                                           kernels, root)
         emit(line)
         emit(launch_phase(torch, root))
+
+    # -- lm: language-model serving of the dense archs on the card --------
+    torch.cuda.empty_cache()
+    emit(lm_phase(torch, args.seed, dev))
 
     # -- kernels: each against its plain version on captured inputs ------
     rows = []

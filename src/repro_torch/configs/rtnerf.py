@@ -57,6 +57,20 @@ class NeRFConfig:
         """Bounding-ball radius of one occupancy cube."""
         return self.cube_world() * (3.0 ** 0.5) / 2.0
 
+    def param_count(self) -> int:
+        g, rs, rc = self.grid_res, self.r_sigma, self.r_color
+        planes = 3 * (rs + rc) * g * g
+        lines = 3 * (rs + rc) * g
+        basis = 3 * rc * self.app_dim
+        in_mlp = (self.app_dim + 3 + 2 * 3 * self.pe_view
+                  + 2 * self.app_dim * self.pe_feat)
+        mlp = (in_mlp * self.mlp_hidden + self.mlp_hidden * self.mlp_hidden
+               + self.mlp_hidden * 3)
+        return planes + lines + basis + mlp
+
+
+CONFIG = NeRFConfig()
+
 
 def demo_config(tiny: bool = False) -> NeRFConfig:
     """The shared example field shapes: the tiny CI config and the demo
@@ -69,3 +83,16 @@ def demo_config(tiny: bool = False) -> NeRFConfig:
     return NeRFConfig(grid_res=40, occ_res=40, cube_size=4, max_cubes=768,
                       r_sigma=8, r_color=16, app_dim=12, mlp_hidden=32,
                       max_samples_per_ray=112, train_rays=1024)
+
+
+@dataclasses.dataclass(frozen=True)
+class NeRFShape:
+    name: str
+    n_rays: int                      # rays per step (render: H*W, train: batch)
+    kind: str                        # train | render
+
+
+NERF_SHAPES = {
+    "train_rays": NeRFShape("train_rays", 4096, "train"),
+    "render_800": NeRFShape("render_800", 800 * 800, "render"),
+}

@@ -62,9 +62,15 @@ class CooEncoded:
                           self.values.to(device), self.nnz)
 
 
+def _host(w) -> np.ndarray:
+    """An array or tensor (on any device) as a host numpy array."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().cpu().numpy()
+    return np.asarray(w)
+
+
 def sparsity(w) -> float:
-    w = np.asarray(w)
-    return float((w == 0).mean())
+    return float((_host(w) == 0).mean())
 
 
 def choose_format(s: float, threshold: float = 0.80) -> str:
@@ -179,6 +185,47 @@ def storage_bytes(shape, nnz: int, fmt: str, elem_bytes: int = 4) -> int:
     raise ValueError(fmt)
 
 
+def bitmap_lookup_linear(words: torch.Tensor, rowptr: torch.Tensor,
+                         values: torch.Tensor, queries: torch.Tensor,
+                         cols: int, rank: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Random access into a bitmap-encoded (rows, cols) matrix given as raw
+    streams: the values at linear row-major `queries`, 0 where the bit is
+    clear. One bit test plus the popcount of one masked word on top of the
+    rank table, which is derived from (words, rowptr) when `rank` is None.
+    The decode math is the plain gather's
+    (`kernels.bitmap_decode.bitmap_gather_ref`), on any device."""
+    from repro_torch.kernels import bitmap_decode   # it imports this module
+    return bitmap_decode.bitmap_gather_ref(words, rowptr, values, queries,
+                                           cols, rank=rank)
+
+
+def bitmap_lookup(enc: BitmapEncoded, queries: torch.Tensor) -> torch.Tensor:
+    """`bitmap_lookup_linear` over an encoded container."""
+    return bitmap_lookup_linear(enc.words, enc.rowptr, enc.values, queries,
+                                enc.shape[1], rank=enc.rank)
+
+
+def coo_lookup(enc: CooEncoded, queries: torch.Tensor) -> torch.Tensor:
+    """The values of a COO-encoded array at linear `queries` (0 where no
+    coordinate matches): a lower-bound search over the sorted coordinates,
+    the plain gather's (`kernels.coo_gather.coo_gather_ref`)."""
+    from repro_torch.kernels import coo_gather
+    return coo_gather.coo_gather_ref(enc.coords, enc.values, queries)
+
+
+def encode_hybrid(w, threshold: float = 0.80, *, device: DeviceLike = None):
+    """The full H1 codec: measure sparsity, pick the format by the 80%
+    rule, encode. Returns (format, sparsity, encoded streams on `device`;
+    None: the card)."""
+    w = _host(w)
+    s = sparsity(w)
+    fmt = choose_format(s, threshold)
+    enc = (encode_coo(w, device=device) if fmt == "coo"
+           else encode_bitmap(np.atleast_2d(w), device=device))
+    return fmt, s, enc
+
+
 @dataclasses.dataclass(eq=False)
 class EncodedFactor:
     """One VM factor slice (mode m of a plane/line tensor) in its chosen
@@ -247,9 +294,7 @@ def encode_factor(wm, threshold: float = 0.80, *,
     bitmap below the sparsity threshold, COO at/above it. The streams
     go to `device` (None: the card)."""
     device = resolve_device(device)
-    if isinstance(wm, torch.Tensor):
-        wm = wm.detach().cpu().numpy()
-    wm = np.asarray(wm)
+    wm = _host(wm)
     s = sparsity(wm)
     nnz = int((wm != 0).sum())
     fmt = choose_format(s, threshold)
@@ -265,3 +310,27 @@ def encode_factor(wm, threshold: float = 0.80, *,
     else:
         ef.coo = encode_coo(wm, device=device)
     return ef
+
+
+def factor_report(params) -> dict:
+    """Per-factor encoding decision and storage of a TensoRF field's
+    parameters (tensors on any device, or arrays): for each `"{key}[{m}]"`
+    slice, its sparsity, the format the 80% rule picks, and its bytes
+    dense, as bitmap, as COO and in the chosen format."""
+    out = {}
+    for k in FACTOR_KEYS:
+        w = _host(params[k])
+        for m in range(3):
+            wm = w[m].reshape(w.shape[1], -1)
+            s = sparsity(wm)
+            fmt = choose_format(s)
+            nnz = int((wm != 0).sum())
+            out[f"{k}[{m}]"] = {
+                "sparsity": s,
+                "format": fmt,
+                "dense_bytes": storage_bytes(wm.shape, nnz, "dense"),
+                "bitmap_bytes": storage_bytes(wm.shape, nnz, "bitmap"),
+                "coo_bytes": storage_bytes(wm.shape, nnz, "coo"),
+                "chosen_bytes": storage_bytes(wm.shape, nnz, fmt),
+            }
+    return out

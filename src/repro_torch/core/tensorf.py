@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,7 +25,7 @@ from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.core import sparse
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import fused_sample, ops
-from repro_torch.models.common import positional_encoding
+from repro_torch.models.common import PL, positional_encoding
 
 # mode m pairs plane axes PLANE_AXES[m] with line axis LINE_AXES[m]
 PLANE_AXES = ((1, 2), (0, 2), (0, 1))   # (Y,Z), (X,Z), (X,Y)
@@ -73,6 +74,31 @@ def init_field(cfg: NeRFConfig, generator: torch.Generator, *,
         out[k] = (torch.randn(shape, generator=generator,
                               dtype=torch.float32) * std).to(dev)
     return out
+
+
+# each parameter's logical axes, as the reference's init_field_pl gives them
+FIELD_LOGICAL = {
+    "sigma_planes": (None, None, None, None),
+    "sigma_lines": (None, None, None),
+    "app_planes": (None, None, None, None),
+    "app_lines": (None, None, None),
+    "basis": (None, None),
+    "mlp_w1": (None, "mlp"),
+    "mlp_b1": ("mlp",),
+    "mlp_w2": ("mlp", "mlp"),
+    "mlp_b2": ("mlp",),
+    "mlp_w3": ("mlp", None),
+    "mlp_b3": (None,),
+}
+
+
+def init_field_pl(cfg: NeRFConfig, generator: torch.Generator, *,
+                  device: DeviceLike = None) -> Dict[str, PL]:
+    """`init_field`'s tensors, the same draws, each wrapped in a `PL` with
+    the reference's logical axes (`models.common.split_pl` separates
+    them again)."""
+    return {k: PL(v, FIELD_LOGICAL[k])
+            for k, v in init_field(cfg, generator, device=device).items()}
 
 
 def to_grid(cfg: NeRFConfig, pts: torch.Tensor) -> torch.Tensor:
@@ -367,4 +393,18 @@ def prune_to_sparsity(params, target: float):
         w = params[k]
         thresh = _quantile_f32(w.abs().reshape(-1), target)
         out[k] = torch.where(w.abs() <= thresh, torch.zeros_like(w), w)
+    return out
+
+
+def factor_sparsity(params) -> Dict[str, float]:
+    """Fraction of exact zeros per factor tensor (paper Fig. 5). The count
+    is an integer and the fraction one float32 division, count / size:
+    the reference's float32 `jnp.mean(w == 0.0)`, bit for bit, while a
+    tensor has fewer than 2^24 elements (its float32 sum of ones is exact
+    there; app_planes at NeRFConfig() has 3,686,400)."""
+    out = {}
+    for k in sparse.FACTOR_KEYS:
+        w = params[k]
+        zeros = int((w == 0.0).sum())
+        out[k] = float(np.float32(zeros) / np.float32(w.numel()))
     return out

@@ -1,3 +1,4 @@
 """Launchers of the port (`python -m repro_torch.launch.<name>`). The port
-of `repro/launch/`: `serve` (novel-view serving, one process or a fleet of
-worker processes)."""
+of `repro/launch/`: `serve` (language-model prefill + decode; novel-view
+serving in one process or a fleet of worker processes), with `mesh` and
+`steps` beneath it."""

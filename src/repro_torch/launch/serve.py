@@ -1,6 +1,9 @@
-"""Serving launcher: batched novel-view rendering (rtnerf) on the card.
-The port of `repro/launch/serve.py`'s NeRF paths.
+"""Serving launcher: batched prefill + greedy decode (the dense
+language-model archs) or batched novel-view rendering (rtnerf) on the
+card. The port of `repro/launch/serve.py`.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --reduced --batch 4 --prompt-len 32 --gen 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rtnerf \
         --scene lego --views 2 --res 64 \
         --prune-sparsity 0.9 --ckpt-dir /tmp/lego-ckpt
@@ -11,14 +14,15 @@ The port of `repro/launch/serve.py`'s NeRF paths.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rtnerf \
         --scene lego --views 1 --res 16 --train-steps 2 --device cpu
 
-`--device` (default `cuda`) is where fields train and views render; the
-CPU runs only when asked for (`--device cpu`, the plain PyTorch versions
-of the kernels), and without a card the default raises. Fleet workers
-get the same device through their engine arguments. Both paths use the
-reference launcher's `NeRFConfig`, so a checkpoint written by either
-package's launcher restores in the other. Only `--arch rtnerf` is
-served: the language-model launcher (`serve_lm`) needs the port's
-`models/` and `launch/steps.py`, which do not exist yet.
+`--device` (default `cuda`) is where models run, fields train and views
+render; the CPU runs only when asked for (`--device cpu`, the plain
+PyTorch versions of the kernels), and without a card the default raises.
+Fleet workers get the same device through their engine arguments. The
+NeRF paths use the reference launcher's `NeRFConfig`, so a checkpoint
+written by either package's launcher restores in the other. The LM path
+serves the archs of the dense GQA trunk (llama3.2-1b, granite-3-8b,
+qwen1.5-32b, granite-34b, internvl2-76b); the others raise
+NotImplementedError (ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -28,10 +32,12 @@ import json
 import os
 import shutil
 import tempfile
+import time
 
 import torch
 
 from repro_torch.configs.base import mib_to_bytes
+from repro_torch.configs.registry import ARCHS, get_arch, reduced
 from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.device import resolve_device
 
@@ -65,6 +71,81 @@ def profile_to(profile_dir, dev: torch.device):
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[obs] torch.profiler trace written to {path}")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_lm(args, *, params=None, tokens=None) -> torch.Tensor:
+    """Batched prefill, the cache grown to the serving horizon, then a
+    greedy decode loop, as the reference's `serve_lm`. Params and prompt
+    tokens are drawn from one generator seeded 0 unless given (the tests
+    pass the reference's, carried across). Prints the device, the prefill
+    seconds, the decode rate and the sample tokens; returns the (B, gen)
+    greedy tokens. Times end at a device synchronise.
+
+    With a vision frontend (internvl2-76b), the stub's zero embeddings
+    take the first n_frontend_tokens positions, so the horizon is
+    n_frontend + prompt + gen and the first decoded token sits at
+    n_frontend + prompt. (The reference decodes from position prompt,
+    writing over the prompt's last K/V rows: ROADMAP.md Queue 3 item
+    15.)"""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import split_pl
+    from repro_torch.models.sharding import make_rules
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    tf.require_dense(cfg)
+    dev = resolve_device(args.device)
+    print(f"[serve] device: {device_name(dev)}", flush=True)
+    rules = make_rules(make_host_mesh(dev))
+    gen = torch.Generator().manual_seed(0)
+    if params is None:
+        params, _ = split_pl(tf.init_model(cfg, gen, device=dev))
+
+    B, P, G = args.batch, args.prompt_len, args.gen
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    total = n_front + P + G
+    if tokens is None:
+        tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen)
+    batch = {"tokens": tokens.to(dev)}
+    if cfg.frontend == "vision":
+        batch["frontend"] = torch.zeros((B, n_front, cfg.d_model),
+                                        dtype=torch.bfloat16, device=dev)
+
+    prefill = build_prefill_step(cfg, rules)
+    decode = build_decode_step(cfg, rules, total)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    # grow the cache to the serving horizon
+    shapes, _ = tf.serve_cache_spec(cfg, B, total)
+    cache = tf.grow_cache(cache, shapes)
+    _sync(dev)
+    print(f"prefill: {time.perf_counter() - t0:.2f}s logits "
+          f"{tuple(logits.shape)}")
+
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    out = [tok]
+    t0 = time.perf_counter()
+    for i in range(G - 1):
+        logits, cache = decode(params, tok, n_front + P + i, cache)
+        tok = torch.argmax(logits, dim=-1)
+        out.append(tok)
+    toks = torch.cat(out, dim=1)
+    _sync(dev)
+    dt = time.perf_counter() - t0
+    print(f"decoded {B}x{G - 1} tokens in {dt:.2f}s "
+          f"({B * (G - 1) / max(dt, 1e-9):.1f} tok/s)")
+    print("sample:", toks[0, :12].tolist())
+    return toks
 
 
 def _scenes(args):
@@ -352,41 +433,46 @@ def serve_fleet(args):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Serve novel views of RT-NeRF scenes (the PyTorch "
-                    "port; --arch rtnerf only)")
+        description="Serve a language model (prefill + greedy decode) or "
+                    "novel views of RT-NeRF scenes (the PyTorch port)")
     ap.add_argument("--arch", required=True,
-                    help="rtnerf (the language-model archs are not ported)")
+                    choices=sorted(ARCHS) + ["rtnerf"],
+                    help="rtnerf, or a language-model arch; the port serves "
+                         "the dense ones (llama3.2-1b, granite-3-8b, "
+                         "qwen1.5-32b, granite-34b, internvl2-76b)")
     ap.add_argument("--device", default="cuda",
-                    help="where fields train and views render: cuda "
-                         "(default; raises without a card) or cpu (the "
-                         "kernels' plain PyTorch versions)")
+                    help="where models run, fields train and views "
+                         "render: cuda (default; raises without a card) or "
+                         "cpu (the kernels' plain PyTorch versions)")
     ap.add_argument("--reduced", action="store_true", default=True,
-                    help="language-model archs only (not ported)")
+                    help="language-model archs: the tiny same-family config "
+                         "(configs.registry.reduced); always on, as in the "
+                         "reference launcher")
     ap.add_argument("--batch", type=int, default=4,
-                    help="language-model archs only (not ported)")
+                    help="language-model archs: prompts served at once")
     ap.add_argument("--prompt-len", type=int, default=32,
-                    help="language-model archs only (not ported)")
+                    help="language-model archs: tokens per prompt")
     ap.add_argument("--gen", type=int, default=16,
-                    help="language-model archs only (not ported)")
+                    help="language-model archs: tokens generated per prompt")
     ap.add_argument("--scene", default="lego")
     ap.add_argument("--scenes", default=None,
-                    help="comma-separated scene list to serve from one "
+                    help="rtnerf only: comma-separated scene list to serve from one "
                          "process (e.g. lego,chair,mic); overrides "
                          "--scene. Each scene checkpoints under its own "
                          "subdirectory of --ckpt-dir")
     ap.add_argument("--max-resident-mb", type=float, default=None,
-                    help="device-memory budget (MiB) for resident encoded "
+                    help="rtnerf only: device-memory budget (MiB) for resident encoded "
                          "fields across scenes; cold scenes are "
                          "LRU-evicted to encoded checkpoints and revived "
                          "on their next request (default: unlimited)")
     ap.add_argument("--fleet-workers", type=int, default=0,
-                    help="serve through K worker processes sharded by "
+                    help="rtnerf only: serve through K worker processes sharded by "
                          "consistent hashing instead of one in-process "
                          "engine (serving.FleetRouter); --max-resident-mb "
                          "then applies per worker (0 = single-process "
                          "path)")
     ap.add_argument("--fleet-replicas", type=int, default=1,
-                    help="with --fleet-workers: replicate the first "
+                    help="rtnerf only: with --fleet-workers: replicate the first "
                          "--scenes entry (the hot scene) on this many "
                          "workers behind one key; the router "
                          "load-balances across the replicas")
@@ -394,44 +480,44 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=200)
     ap.add_argument("--dense", action="store_true",
-                    help="serve the raw factor arrays instead of the "
+                    help="rtnerf only: serve the raw factor arrays instead of the "
                          "hybrid bitmap/COO compressed stream (Sec. 4.2.2)")
     ap.add_argument("--deadline", type=float, default=None,
-                    help="per-request deadline in seconds; stale requests "
+                    help="rtnerf only: per-request deadline in seconds; stale requests "
                          "fail with a timeout result instead of rendering "
                          "late")
     ap.add_argument("--finetune-steps", type=int, default=0,
-                    help="run the online fine-tuning service for this "
+                    help="rtnerf only: run the online fine-tuning service for this "
                          "many background training steps while serving "
                          "(0 = off); refreshed fields are published live "
                          "via swap_field")
     ap.add_argument("--finetune-every", type=int, default=50,
-                    help="publish the refreshed field to the running "
+                    help="rtnerf only: publish the refreshed field to the running "
                          "engine every N fine-tune steps")
     ap.add_argument("--finetune-rounds", type=int, default=3,
-                    help="how many passes over the view set to stream "
+                    help="rtnerf only: how many passes over the view set to stream "
                          "while the fine-tuner runs")
     ap.add_argument("--prune-sparsity", type=float, default=0.0,
-                    help="magnitude-prune factors to this sparsity before "
+                    help="rtnerf only: magnitude-prune factors to this sparsity before "
                          "serving (0 = training prune only)")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="expose the metrics registry over HTTP on "
+                    help="rtnerf only: expose the metrics registry over HTTP on "
                          "127.0.0.1:<port> (/metrics Prometheus text, "
                          "/metrics.json snapshot); 0 picks an ephemeral "
                          "port (printed at startup)")
     ap.add_argument("--stats-interval", type=float, default=0.0,
-                    help="print a one-line serving summary every N "
+                    help="rtnerf only: print a one-line serving summary every N "
                          "seconds while serving (0 = off)")
     ap.add_argument("--metrics-dump", default=None,
-                    help="write the final metrics snapshot (JSON, schema "
+                    help="rtnerf only: write the final metrics snapshot (JSON, schema "
                          "repro.obs/v1) to this path on exit")
     ap.add_argument("--profile-dir", default=None,
-                    help="record the serving rounds under torch.profiler "
+                    help="rtnerf only: record the serving rounds under torch.profiler "
                          "and write a Chrome trace (trace.json) into this "
                          "directory; the renderer's record_function "
                          "ranges tag the pipeline stages")
     ap.add_argument("--ckpt-dir", default=None,
-                    help="restore trained fields from per-scene "
+                    help="rtnerf only: restore trained fields from per-scene "
                          "subdirectories of this root when checkpoints "
                          "exist; otherwise train once and save there "
                          "(repeated serves reuse them instead of "
@@ -445,10 +531,8 @@ def main(argv=None):
     if args.fleet_workers and args.arch != "rtnerf":
         ap.error("--fleet-workers requires --arch rtnerf")
     if args.arch != "rtnerf":
-        ap.error(f"--arch {args.arch}: the port serves --arch rtnerf only; "
-                 f"the language-model launcher (serve_lm) waits for the "
-                 f"port's models/ and launch/steps.py")
-    if args.fleet_workers:
+        serve_lm(args)
+    elif args.fleet_workers:
         serve_fleet(args)
     else:
         serve_nerf(args)

@@ -1458,3 +1458,66 @@ def test_fleet_workers_serve_on_the_card(cuda, tmp_path):
     finally:
         router.close()
     assert not mp.active_children()
+
+
+# -- language-model serving (plain PyTorch ops; no kernel of the port) ------
+
+LM_DENSE = ("llama3.2-1b", "granite-3-8b", "qwen1.5-32b", "granite-34b",
+            "internvl2-76b")
+
+
+def _lm_logits(cfg, params, tokens, frontend, teacher, dev):
+    """Prefill, then decode `teacher`'s tokens; every step's logits."""
+    from repro_torch.models import transformer as tf
+    B, P = tokens.shape
+    nf = 0 if frontend is None else frontend.shape[1]
+    batch = {"tokens": tokens.to(dev)}
+    if frontend is not None:
+        batch["frontend"] = frontend.to(dev)
+    with torch.no_grad():
+        logits, cache = tf.model_prefill(params, cfg, batch)
+        shapes, _ = tf.serve_cache_spec(cfg, B, nf + P + teacher.shape[1])
+        cache = tf.grow_cache(cache, shapes)
+        out = [logits]
+        for i in range(teacher.shape[1]):
+            logits, cache = tf.model_decode(
+                params, cfg, teacher[:, i:i + 1].to(dev), nf + P + i, cache,
+                seq_len=nf + P + teacher.shape[1])
+            out.append(logits)
+    return torch.cat(out, dim=1).float().cpu()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("name", LM_DENSE)
+def test_lm_prefill_and_decode_on_card_equal_the_cpus(cuda, name, dtype,
+                                                      tol):
+    """The reduced config's params drawn on the CPU and copied over; the
+    same prompt and teacher tokens. float32 to 1e-4 (cuBLAS sums in
+    another order), bfloat16 to 3e-2 (the two devices round bf16 sums
+    apart; the reference's decode-parity bound)."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import split_pl, tree_map
+    cfg = reduced(ARCHS[name])
+    gen = torch.Generator().manual_seed(3)
+    params, _ = split_pl(tf.init_model(cfg, gen, dtype=dtype, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 10), generator=gen)
+    teacher = torch.randint(0, cfg.vocab, (2, 3), generator=gen)
+    frontend = (torch.randn(2, cfg.n_frontend_tokens, cfg.d_model,
+                            generator=gen) if cfg.frontend else None)
+    want = _lm_logits(cfg, params, tokens, frontend, teacher, "cpu")
+    got = _lm_logits(cfg, tree_map(lambda a: a.to(cuda), params), tokens,
+                     frontend, teacher, cuda)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_lm_launcher_runs_on_the_card(cuda, capsys):
+    from repro_torch.launch import serve as tserve
+    toks = tserve.serve_lm(tserve.build_parser().parse_args(
+        ["--arch", "llama3.2-1b", "--batch", "2", "--prompt-len", "8",
+         "--gen", "4"]))
+    out = capsys.readouterr().out
+    assert toks.device.type == "cuda" and tuple(toks.shape) == (2, 4)
+    assert f"[serve] device: {torch.cuda.get_device_name(cuda)}" in out

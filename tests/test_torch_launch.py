@@ -1,19 +1,29 @@
-"""The port's serving launcher (`python -m repro_torch.launch.serve --arch
-rtnerf`) against the reference's (`repro.launch.serve`), on a checkpoint
-the reference wrote at the launcher's `NeRFConfig`: the scene line equal
-exactly and every view's PSNR within 0.01 dB, on one process and through
-the fleet (marked `fleet`: it spawns worker processes). The flags the
+"""The port's serving launcher (`python -m repro_torch.launch.serve`)
+against the reference's (`repro.launch.serve`). `--arch rtnerf`, on a
+checkpoint the reference wrote at the launcher's `NeRFConfig`: the scene
+line equal exactly and every view's PSNR within 0.01 dB, on one process
+and through the fleet (marked `fleet`: it spawns worker processes). The
+language-model path: the reference's greedy tokens on its own params and
+prompt in float32 (exact), and each dense arch served. The flags the
 reference refuses, the port refuses alike."""
 import dataclasses
 import re
 import sys
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
+from repro.configs import registry as jreg
 from repro.configs.rtnerf import NeRFConfig as JaxConfig
 from repro.launch import serve as jserve
+from repro.models import common as jcommon
+from repro.models import transformer as jtf
 from repro.serving import prepare_field as jprepare_field
 from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as ttf
 
 SCENE = "lego"
 ARGS = ["--arch", "rtnerf", "--scene", SCENE, "--views", "1", "--res", "16"]
@@ -103,12 +113,131 @@ def test_fleet_with_finetune_exits_as_the_reference(monkeypatch, capsys):
 
 
 def test_other_archs_exit_with_a_message(capsys):
-    for argv in (["--arch", "llama3.2-1b"],
-                 ["--arch", "llama3.2-1b", "--fleet-workers", "2"]):
+    """The flags the reference refuses, the port refuses alike; an arch of
+    a block not ported yet raises naming its ROADMAP item, and the LM path
+    without --device needs a card."""
+    for argv in (["--arch", "llama3.2-1b", "--fleet-workers", "2"],
+                 ["--arch", "gpt-5"]):
         with pytest.raises(SystemExit) as e:
             tserve.main(argv)
         assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "serves --arch rtnerf only" in err
-    assert "serve_lm" in err
     assert "--fleet-workers requires --arch rtnerf" in err
+    assert "invalid choice: 'gpt-5'" in err
+    for arch in ("deepseek-v3-671b", "grok-1-314b", "zamba2-7b",
+                 "rwkv6-1.6b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+            tserve.main(["--arch", arch, "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tserve.main(["--arch", "llama3.2-1b"])
+
+
+def _reference_greedy(cfg, params, tokens, gen):
+    """The reference launcher's prefill + greedy decode loop (its
+    `serve_lm`, src/repro/launch/serve.py:32-75) on float32 params,
+    without its axis rules: with jax 0.9 its host mesh's Explicit axes
+    refuse the rules' UNCONSTRAINED activation specs, so the reference
+    launcher itself fails here (ROADMAP.md Queue 3); without rules its
+    `shard_act` constrains nothing, as in its own model tests. The cache
+    is padded in prefill's dtype (its `fit` casts to the spec's bf16,
+    which float32 K/V rows cannot be written into)."""
+    B, P = tokens.shape
+    total = P + gen
+    prefill = jax.jit(lambda p, b: jtf.model_prefill(p, cfg, b))
+    decode = jax.jit(lambda p, t, pos, c: jtf.model_decode(
+        p, cfg, t, pos, c, seq_len=total))
+    logits, cache = prefill(params, {"tokens": tokens})
+    shapes, _ = jtf.serve_cache_spec(cfg, B, total, enc_len=P)
+    cache = jax.tree.map(lambda c, s: jnp.pad(c, [
+        (0, a - b) for a, b in zip(s.shape, c.shape)]), cache, shapes)
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    out = [tok]
+    for i in range(gen - 1):
+        logits, cache = decode(params, tok, jnp.int32(P + i), cache)
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out.append(tok)
+    return np.asarray(jnp.concatenate(out, axis=1))
+
+
+def test_reference_lm_launcher_fails_on_its_host_mesh_here(monkeypatch,
+                                                            capsys):
+    """Pins the reference fault that `_reference_greedy` works around."""
+    with pytest.raises(ValueError, match="UNCONSTRAINED"):
+        _reference(monkeypatch, capsys, ["--arch", "llama3.2-1b",
+                                         "--batch", "2", "--prompt-len", "4",
+                                         "--gen", "2"])
+
+
+def test_lm_launcher_gives_the_references_greedy_tokens(capsys):
+    """`--arch llama3.2-1b --reduced --device cpu`: the reference's
+    params (its PRNGKey(0) init) and prompt tokens carried across in
+    float32, the same greedy tokens out."""
+    cfg = jreg.reduced(jreg.ARCHS["llama3.2-1b"])
+    key = jax.random.PRNGKey(0)
+    params, _ = jcommon.split_pl(jtf.init_model(cfg, key))
+    params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+    B, P, G = 2, 12, 6
+    tokens = jax.random.randint(key, (B, P), 0, cfg.vocab)
+    want = _reference_greedy(cfg, params, tokens, G)
+
+    args = tserve.build_parser().parse_args(
+        ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu", "--batch",
+         str(B), "--prompt-len", str(P), "--gen", str(G)])
+    got = tserve.serve_lm(
+        args, params=ttf.params_from_numpy(
+            jax.tree.map(np.asarray, params), device="cpu",
+            dtype=torch.float32),
+        tokens=torch.from_numpy(np.array(tokens)))
+    out = capsys.readouterr().out
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert "[serve] device: cpu" in out
+    assert f"sample: {want[0, :12].tolist()}" in out
+    assert re.search(r"decoded 2x5 tokens in [\d.]+s \([\d.]+ tok/s\)",
+                     out)
+
+
+def test_lm_launcher_serves_each_dense_arch(capsys):
+    """The launcher's own path (its params and tokens from one generator
+    seeded 0, bf16) on each dense arch: a prefill line, the decode rate,
+    gen tokens per prompt; internvl2 through its stub frontend."""
+    for arch in ("llama3.2-1b", "granite-3-8b", "qwen1.5-32b",
+                 "granite-34b", "internvl2-76b"):
+        tserve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                     "--prompt-len", "8", "--gen", "4"])
+        out = capsys.readouterr().out
+        assert "prefill: " in out and "logits (2, 1, 256)" in out, arch
+        assert "decoded 2x3 tokens" in out, arch
+        sample = re.findall(r"^sample: \[(.*)\]$", out, re.M)
+        assert len(sample) == 1 and len(sample[0].split(",")) == 4, arch
+
+
+def test_lm_launcher_decodes_a_vlm_at_its_true_positions(capsys):
+    """internvl2-76b: the stub frontend's tokens come first, so decode
+    step i sits at n_frontend + prompt + i. Each greedy token is the
+    argmax of the full forward over the frontend, the prompt and the
+    tokens before it, at its position (float32: no near ties)."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models.common import split_pl
+
+    cfg = reduced(ARCHS["internvl2-76b"])
+    params, _ = split_pl(ttf.init_model(
+        cfg, torch.Generator().manual_seed(1), dtype=torch.float32,
+        device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 6),
+                           generator=torch.Generator().manual_seed(2))
+    args = tserve.build_parser().parse_args(
+        ["--arch", "internvl2-76b", "--device", "cpu", "--batch", "2",
+         "--prompt-len", "6", "--gen", "5"])
+    got = tserve.serve_lm(args, params=params, tokens=tokens)
+    capsys.readouterr()
+    seq = torch.cat([tokens, got[:, :-1]], dim=1)
+    batch = {"tokens": seq, "frontend": torch.zeros(
+        2, cfg.n_frontend_tokens, cfg.d_model, dtype=torch.bfloat16)}
+    with torch.no_grad():
+        x, pos = ttf._assemble_input(params, cfg, batch)
+        h, _, _ = ttf._trunk(params, cfg, x, pos)
+        logits = ttf._logits(params, cfg, h)
+    first = cfg.n_frontend_tokens + 6 - 1
+    want = logits[:, first:].argmax(dim=-1)
+    assert torch.equal(got, want)
