@@ -1,9 +1,11 @@
-"""Serving launcher: batched prefill + greedy decode (the dense
-language-model archs) or batched novel-view rendering (rtnerf) on the
-card. The port of `repro/launch/serve.py`.
+"""Serving launcher: batched prefill + greedy decode (the language-model
+archs) or batched novel-view rendering (rtnerf) on the card. The port of
+`repro/launch/serve.py`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --reduced --batch 4 --prompt-len 32 --gen 16
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rtnerf \
         --scene lego --views 2 --res 64 \
         --prune-sparsity 0.9 --ckpt-dir /tmp/lego-ckpt
@@ -20,9 +22,7 @@ PyTorch versions of the kernels), and without a card the default raises.
 Fleet workers get the same device through their engine arguments. The
 NeRF paths use the reference launcher's `NeRFConfig`, so a checkpoint
 written by either package's launcher restores in the other. The LM path
-serves the archs of the dense GQA trunk (llama3.2-1b, granite-3-8b,
-qwen1.5-32b, granite-34b, internvl2-76b); the others raise
-NotImplementedError (ROADMAP.md Queue 1 item 8).
+serves all ten archs (dense, MoE, encoder-decoder, hybrid and RWKV).
 """
 from __future__ import annotations
 
@@ -78,10 +78,12 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_lm(args, *, params=None, tokens=None) -> torch.Tensor:
+def serve_lm(args, *, params=None, tokens=None,
+             enc_frames=None) -> torch.Tensor:
     """Batched prefill, the cache grown to the serving horizon, then a
-    greedy decode loop, as the reference's `serve_lm`. Params and prompt
-    tokens are drawn from one generator seeded 0 unless given (the tests
+    greedy decode loop, as the reference's `serve_lm`. Params, prompt
+    tokens and (enc-dec archs) the encoder frames (B, prompt, d_model) in
+    bf16 are drawn from one generator seeded 0 unless given (the tests
     pass the reference's, carried across). Prints the device, the prefill
     seconds, the decode rate and the sample tokens; returns the (B, gen)
     greedy tokens. Times end at a device synchronise.
@@ -101,7 +103,6 @@ def serve_lm(args, *, params=None, tokens=None) -> torch.Tensor:
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    tf.require_dense(cfg)
     dev = resolve_device(args.device)
     print(f"[serve] device: {device_name(dev)}", flush=True)
     rules = make_rules(make_host_mesh(dev))
@@ -118,6 +119,11 @@ def serve_lm(args, *, params=None, tokens=None) -> torch.Tensor:
     if cfg.frontend == "vision":
         batch["frontend"] = torch.zeros((B, n_front, cfg.d_model),
                                         dtype=torch.bfloat16, device=dev)
+    if cfg.enc_dec:
+        if enc_frames is None:
+            enc_frames = torch.randn((B, P, cfg.d_model), generator=gen
+                                     ).to(torch.bfloat16)
+        batch["enc_frames"] = enc_frames.to(dev)
 
     prefill = build_prefill_step(cfg, rules)
     decode = build_decode_step(cfg, rules, total)
@@ -125,8 +131,9 @@ def serve_lm(args, *, params=None, tokens=None) -> torch.Tensor:
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, batch)
-    # grow the cache to the serving horizon
-    shapes, _ = tf.serve_cache_spec(cfg, B, total)
+    # grow the cache to the serving horizon (the cross K/V stays at the
+    # encoder memory's true length)
+    shapes, _ = tf.serve_cache_spec(cfg, B, total, enc_len=P)
     cache = tf.grow_cache(cache, shapes)
     _sync(dev)
     print(f"prefill: {time.perf_counter() - t0:.2f}s logits "
@@ -437,9 +444,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "novel views of RT-NeRF scenes (the PyTorch port)")
     ap.add_argument("--arch", required=True,
                     choices=sorted(ARCHS) + ["rtnerf"],
-                    help="rtnerf, or a language-model arch; the port serves "
-                         "the dense ones (llama3.2-1b, granite-3-8b, "
-                         "qwen1.5-32b, granite-34b, internvl2-76b)")
+                    help="rtnerf, or one of the ten language-model "
+                         "archs")
     ap.add_argument("--device", default="cuda",
                     help="where models run, fields train and views "
                          "render: cuda (default; raises without a card) or "

@@ -27,9 +27,10 @@ def build_decode_step(cfg: ModelConfig, rules: AxisRules, seq_len: int):
 
 
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, rules: AxisRules):
-    """(TensorSpec tree, spec tree) of the decode cache: each spec the
-    `resolve_spec` tuple over the activation rules, the entries of the
-    reference's `cache_sharding` PartitionSpecs."""
+    """(TensorSpec tree, spec tree) of the decode cache, for every family:
+    each spec the `resolve_spec` tuple over the activation rules, the
+    entries of the reference's `cache_sharding` PartitionSpecs (None
+    subtrees stay None)."""
     shapes, logical = tf.serve_cache_spec(cfg, batch, seq_len)
     return shapes, tree_map(
         lambda s, log: resolve_spec(s.shape, log_parse(log), rules.act_rules,

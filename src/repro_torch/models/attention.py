@@ -1,37 +1,34 @@
-"""Attention: GQA/MHA/MQA (+ optional QKV bias) and its decode cache. The
-port of the GQA part of `repro/models/attention.py`.
+"""Attention: GQA/MHA/MQA (+ optional QKV bias), MLA (DeepSeek-V3),
+cross-attention (encoder-decoder) and their decode caches. The port of
+`repro/models/attention.py`.
 
 Layouts (the reference's, kept at every public function)
   q:  (B, S, Hkv, G, hd)   grouped, G = Hq // Hkv
   kv: (B, S, Hkv, hd)
-Cache
-  {"k", "v"}: (B, C, Hkv, hd); C = window if windowed else max seq.
+Caches
+  gqa: {"k", "v"}: (B, C, Hkv, hd); C = window if windowed else max seq.
+  mla: {"c": (B, C, kv_lora), "kr": (B, C, rope_dim)}, the latent cache;
+       decode scores against it with W_uk absorbed into q (DeepSeek's
+       weight-absorbed form).
 
 Masks are built from absolute positions (not from the top left of the
 score matrix), with NEG_INF on float32 scores; the softmax runs in
 float32 and is cast to v's dtype before the PV product, as in the
 reference. Products and softmax are plain PyTorch ops: the reference
-computes them outside any Pallas kernel. MLA (DeepSeek-V3) and
-cross-attention are not ported yet (ROADMAP.md Queue 1 item 8).
+computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Maker, TensorSpec, apply_rope
+from repro_torch.models.common import (Maker, TensorSpec, apply_rope, einsum,
+                                       rms_norm)
 from repro_torch.models.sharding import current_rules, shard_act
 
 QK_CHUNK = 512          # kv-chunk for the online-softmax (flash-style) path
 NEG_INF = -1e30
 PROD_MODEL_AXIS = 16    # production model-axis width (cache-spec decisions)
-ITEM8 = "ROADMAP.md Queue 1 item 8"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: the port serves the dense GQA trunk; "
-        f"MoE, MLA, cross-attention, SSM and RWKV blocks wait for {ITEM8}")
 
 
 def heads_shardable(cfg: ModelConfig, m: int = PROD_MODEL_AXIS) -> bool:
@@ -77,10 +74,26 @@ def init_gqa(mk: Maker, cfg: ModelConfig):
     return p
 
 
+def init_mla(mk: Maker, cfg: ModelConfig):
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {
+        "wdq": mk.w((d, qr), ("embed", "q_lora"), fan_in=d),
+        "q_norm": mk.ones((qr,), ("q_lora",)),
+        "wuq": mk.w((qr, h, nope + rope), ("q_lora", "heads", "head_dim"),
+                    fan_in=qr),
+        "wdkv": mk.w((d, kr + rope), ("embed", "kv_lora"), fan_in=d),
+        "kv_norm": mk.ones((kr,), ("kv_lora",)),
+        "wuk": mk.w((kr, h, nope), ("kv_lora", "heads", "head_dim"),
+                    fan_in=kr),
+        "wuv": mk.w((kr, h, vh), ("kv_lora", "heads", "head_dim"), fan_in=kr),
+        "wo": mk.w((h, vh, d), ("heads", "head_dim", "embed"), fan_in=h * vh),
+    }
+
+
 def init_attention(mk: Maker, cfg: ModelConfig):
-    if cfg.attention != "gqa":
-        raise not_ported(f"attention={cfg.attention!r} ({cfg.name})")
-    return init_gqa(mk, cfg)
+    return init_mla(mk, cfg) if cfg.attention == "mla" else init_gqa(mk, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -156,9 +169,10 @@ def _attn_dispatch(q, k, v, q_pos, kv_pos, scale, causal, window, impl):
 
 
 def _gqa_qkv(p, cfg: ModelConfig, x, positions):
-    q = torch.einsum("bsd,dkgh->bskgh", x, p["wq"])
-    k = torch.einsum("bsd,dkh->bskh", x, p["wk"])
-    v = torch.einsum("bsd,dkh->bskh", x, p["wv"])
+    # promoting: the encoder's first layer sees bf16 frames (see einsum)
+    q = einsum("bsd,dkgh->bskgh", x, p["wq"])
+    k = einsum("bsd,dkh->bskh", x, p["wk"])
+    v = einsum("bsd,dkh->bskh", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -246,25 +260,135 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int, window=0):
 
 
 # --------------------------------------------------------------------------
+# Cross-attention (enc-dec): kv from encoder memory, no rope, no mask
+# --------------------------------------------------------------------------
+
+
+def cross_kv(p, memory):
+    """The cross-attention K/V of the encoder memory, computed once a
+    request (prefill) and cached for decode."""
+    k = einsum("bmd,dkh->bmkh", memory, p["wk"])
+    v = einsum("bmd,dkh->bmkh", memory, p["wv"])
+    return k, v
+
+
+def cross_forward(p, cfg: ModelConfig, x, memory=None, kv=None):
+    """x (B,S,D) attends to every memory row (kv: cross_kv's pair, or
+    computed from `memory`)."""
+    q = einsum("bsd,dkgh->bskgh", x, p["wq"])
+    k, v = cross_kv(p, memory) if kv is None else kv
+    scale = 1.0 / (cfg.resolved_head_dim ** 0.5)
+    o = _masked_attn_naive(q, k, v, None, scale)
+    return einsum("bskgh,kghd->bsd", o, p["wo"])
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+
+def _mla_q(p, cfg, x, positions):
+    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wdq"]), p["q_norm"],
+                  cfg.norm_eps)
+    q = torch.einsum("bsr,rhe->bshe", cq, p["wuq"])     # e = nope + rope
+    qn = q[..., :cfg.qk_nope_head_dim]
+    qr = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return qn, qr
+
+
+def _mla_latent(p, cfg, x, positions):
+    ckr = torch.einsum("bsd,dr->bsr", x, p["wdkv"])
+    c = rms_norm(ckr[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    kr = ckr[..., cfg.kv_lora_rank:]                    # (B,S,rope) shared
+    kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return c, kr
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    return 1.0 / ((cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** 0.5)
+
+
+def mla_forward(p, cfg: ModelConfig, x, positions, *, impl=None,
+                return_cache=False):
+    """Train/prefill: k and v expanded from the latent, in the grouped
+    layout with K = H, G = 1. The cache is the latent {"c", "kr"}."""
+    impl = impl or cfg.attention_impl
+    qn, qr = _mla_q(p, cfg, x, positions)
+    c, kr = _mla_latent(p, cfg, x, positions)
+    kn = torch.einsum("bsr,rhe->bshe", c, p["wuk"])
+    v = torch.einsum("bsr,rhe->bshe", c, p["wuv"])
+    q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]            # (B,S,H,1,e)
+    k = torch.cat([kn, kr[:, :, None, :].expand(
+        *kn.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
+    q = shard_act(q, "batch", "seq", "kv_heads", None, None)
+    k = shard_act(k, "batch", "seq", "kv_heads", None)
+    o = _attn_dispatch(q, k, v, positions, positions, _mla_scale(cfg), True,
+                       0, impl)                                   # (B,S,H,1,vh)
+    out = torch.einsum("bshv,hvd->bsd", o[:, :, :, 0, :], p["wo"])
+    out = shard_act(out, "batch", "seq", None)
+    cache = {"c": c, "kr": kr} if return_cache else None
+    return out, cache
+
+
+def mla_decode(p, cfg: ModelConfig, x1, pos: int, cache):
+    """One-token decode, weight-absorbed: q_eff = qn W_uk^T scores against
+    the latent cache directly, and W_uv is applied after the PV product.
+    The new latent row is written at slot min(pos, C-1) IN PLACE (the
+    reference's dynamic_update_slice clamps the same way); slots past
+    pos are masked."""
+    pos = int(pos)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
+    qn, qr = _mla_q(p, cfg, x1, posv)                   # (B,1,H,.)
+    c1, kr1 = _mla_latent(p, cfg, x1, posv)
+    c, kr = cache["c"], cache["kr"]
+    if c.dtype != c1.dtype or kr.dtype != kr1.dtype:
+        raise TypeError(f"cache dtype {c.dtype} / {kr.dtype} differs from "
+                        f"the new latent's {c1.dtype}")
+    C = c.shape[1]
+    slot = min(pos, C - 1)
+    c[:, slot] = c1[:, 0]
+    kr[:, slot] = kr1[:, 0]
+
+    q_eff = torch.einsum("bshe,rhe->bshr", qn, p["wuk"])
+    s = (torch.einsum("bshr,btr->bhst", q_eff, c)
+         + torch.einsum("bshe,bte->bhst", qr, kr))
+    s = s.float() * _mla_scale(cfg)
+    idx = torch.arange(C, device=x1.device)
+    s = torch.where((idx <= pos)[None, None, None, :], s, NEG_INF)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhst,btr->bshr", pattn.to(c.dtype), c)  # (B,1,H,r)
+    o = torch.einsum("bshr,rhv->bshv", o_lat, p["wuv"])
+    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    return out, {"c": c, "kr": kr}
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int):
+    """The latent cache's TensorSpecs (bf16, as the reference's)."""
+    return {"c": TensorSpec((batch, seq, cfg.kv_lora_rank), torch.bfloat16),
+            "kr": TensorSpec((batch, seq, cfg.qk_rope_head_dim),
+                             torch.bfloat16)}
+
+
+# --------------------------------------------------------------------------
 # unified entry points
 # --------------------------------------------------------------------------
 
 
 def attention_forward(p, cfg: ModelConfig, x, positions, *, causal=True,
                       window=0, return_cache=False):
-    if cfg.attention != "gqa":
-        raise not_ported(f"attention={cfg.attention!r} ({cfg.name})")
+    if cfg.attention == "mla":
+        return mla_forward(p, cfg, x, positions, return_cache=return_cache)
     return gqa_forward(p, cfg, x, positions, causal=causal, window=window,
                        return_cache=return_cache)
 
 
 def attention_decode(p, cfg: ModelConfig, x1, pos, cache, *, window=0):
-    if cfg.attention != "gqa":
-        raise not_ported(f"attention={cfg.attention!r} ({cfg.name})")
+    if cfg.attention == "mla":
+        return mla_decode(p, cfg, x1, pos, cache)
     return gqa_decode(p, cfg, x1, pos, cache, window=window)
 
 
 def attention_cache_shape(cfg: ModelConfig, batch: int, seq: int, window=0):
-    if cfg.attention != "gqa":
-        raise not_ported(f"attention={cfg.attention!r} ({cfg.name})")
+    if cfg.attention == "mla":
+        return mla_cache_shape(cfg, batch, seq)
     return gqa_cache_shape(cfg, batch, seq, window=window)

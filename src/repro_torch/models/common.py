@@ -129,6 +129,16 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (h * gamma.float() + beta.float()).to(x.dtype)
 
 
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` with jnp's promotion: operands of mixed float dtypes
+    are cast to their promoted dtype first (torch.einsum raises on them;
+    the reference's encoder mixes its bf16 frames with float32 params)."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """`jax.nn.gelu`'s default: the tanh approximation (torch's default
     is the exact erf form)."""

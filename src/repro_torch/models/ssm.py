@@ -1,0 +1,193 @@
+"""Mamba2 (SSD) block, zamba2's trunk: the port of `repro/models/ssm.py`.
+
+`impl="scan"` is the per-step recurrence; `impl="chunked"` is the
+chunk-parallel SSD form (a decay-weighted quadratic form within each
+chunk of SSD_CHUNK steps, the state carried across chunks). The tests
+hold each against the other and against the reference. Both are plain
+PyTorch ops (the reference computes them in jnp).
+
+State: h (B, nH, hd, N) float32; conv (B, conv_w - 1, conv channels).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import Maker, TensorSpec
+
+SSD_CHUNK = 128
+
+
+def ssm_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = d_in // cfg.ssm_head_dim
+    conv_ch = d_in + 2 * cfg.ssm_state
+    return d_in, nh, conv_ch
+
+
+def init_mamba2(mk: Maker, cfg: ModelConfig):
+    d = cfg.d_model
+    d_in, nh, conv_ch = ssm_dims(cfg)
+    n = cfg.ssm_state
+    return {
+        "in_proj": mk.w((d, 2 * d_in + 2 * n + nh), ("embed", "mlp"),
+                        fan_in=d),
+        "conv_w": mk.w((cfg.ssm_conv, conv_ch), (None, "mlp"),
+                       fan_in=cfg.ssm_conv),
+        "conv_b": mk.z((conv_ch,), ("mlp",)),
+        "a_log": mk.const(torch.zeros(nh) + 0.5, (None,)),
+        "d_skip": mk.ones((nh,), (None,)),
+        "dt_bias": mk.z((nh,), (None,)),
+        "norm": mk.ones((d_in,), ("mlp",)),
+        "out_proj": mk.w((d_in, d), ("mlp", "embed"), fan_in=d_in),
+    }
+
+
+def _split_proj(p, cfg, zxbcdt):
+    d_in, nh, _ = ssm_dims(cfg)
+    n = cfg.ssm_state
+    z = zxbcdt[..., :d_in]
+    xs = zxbcdt[..., d_in:2 * d_in]
+    b = zxbcdt[..., 2 * d_in:2 * d_in + n]
+    c = zxbcdt[..., 2 * d_in + n:2 * d_in + 2 * n]
+    dt = zxbcdt[..., 2 * d_in + 2 * n:]
+    return z, xs, b, c, dt
+
+
+def _causal_conv(xbc, w, bias, conv_state=None):
+    """Depthwise causal conv. xbc (B,S,C); w (K,C). Returns (y, new_state),
+    the state the last K-1 inputs."""
+    K = w.shape[0]
+    if conv_state is None:
+        pad = xbc.new_zeros((xbc.shape[0], K - 1, xbc.shape[2]))
+    else:
+        pad = conv_state
+    xp = torch.cat([pad, xbc], dim=1)
+    S = xbc.shape[1]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(K)) + bias
+    new_state = xp[:, -(K - 1):] if K > 1 else pad
+    return F.silu(y.float()).to(xbc.dtype), new_state
+
+
+def _gated_norm(y, z, gamma, eps):
+    yf = y.float() * F.silu(z.float())
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
+    return (yf * gamma.float()).to(y.dtype)
+
+
+def _ssm_inputs(p, cfg, x, conv_state=None):
+    """The in-projection, conv and discretisation shared by forward and
+    decode: (z, xh (B,S,nh,hd), b, c (B,S,n), dt, da (B,S,nh) float32,
+    conv state)."""
+    B, S, _ = x.shape
+    d_in, nh, _ = ssm_dims(cfg)
+    n, hd = cfg.ssm_state, cfg.ssm_head_dim
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xs, b, c, dt_raw = _split_proj(p, cfg, zxbcdt)
+    xbc, conv_state = _causal_conv(torch.cat([xs, b, c], dim=-1),
+                                   p["conv_w"], p["conv_b"], conv_state)
+    xs, b, c = xbc[..., :d_in], xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
+    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
+    da = torch.exp(-torch.exp(p["a_log"].float()) * dt)          # (B,S,nh)
+    return z, xs.reshape(B, S, nh, hd), b, c, dt, da, conv_state
+
+
+def _ssm_output(p, cfg, x, y, xh, z):
+    """The skip, gated norm and out-projection. y, xh (B,S,nh,hd)."""
+    B, S = x.shape[:2]
+    y = y + p["d_skip"].float()[:, None] * xh.float()
+    y = y.reshape(B, S, -1).to(x.dtype)
+    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def _ssd_scan(xh, b, c, dt, da):
+    """The per-step recurrence h_t = da_t h_{t-1} + dt_t x_t b_t^T,
+    y_t = h_t c_t, in float32. Returns (y (B,S,nh,hd), h_last)."""
+    B, S, nh, hd = xh.shape
+    xf, bf, cf = xh.float(), b.float(), c.float()
+    h = torch.zeros((B, nh, hd, b.shape[-1]), dtype=torch.float32,
+                    device=xh.device)
+    ys = []
+    for t in range(S):
+        u = (dt[:, t, :, None] * xf[:, t])[..., None] * bf[:, t, None, None]
+        h = h * da[:, t, :, None, None] + u
+        ys.append(torch.einsum("bhdn,bn->bhd", h, cf[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba2_forward(p, cfg: ModelConfig, x, *, impl: str = "scan"):
+    """Train/prefill. x (B,S,D) -> (y, final state {"h", "conv"})."""
+    z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x)
+    if impl == "chunked":
+        y, h_last = _ssd_chunked(xh, b, c, dt, da)
+    else:
+        y, h_last = _ssd_scan(xh, b, c, dt, da)
+    out = _ssm_output(p, cfg, x, y, xh, z)
+    return out, {"h": h_last.float(), "conv": conv_state}
+
+
+def _ssd_chunked(xh, b, c, dt, da):
+    """Chunk-parallel SSD. xh (B,S,nh,hd); b,c (B,S,n); dt,da (B,S,nh)
+    float32. Within a chunk, y_intra from a decay-weighted quadratic
+    form; across chunks, h carried with the chunk's decay. The last
+    chunk is padded to SSD_CHUNK steps with da = 1 and zero inputs, as in
+    the reference."""
+    B, S, nh, hd = xh.shape
+    n = b.shape[-1]
+    C = min(SSD_CHUNK, S)
+    pad = -S % C
+
+    def padded(t, value=0.0):
+        return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad), value=value)
+
+    xf, bf, cf = padded(xh.float()), padded(b.float()), padded(c.float())
+    dtp, dap = padded(dt), padded(da, 1.0)
+    mask = torch.tril(torch.ones((C, C), dtype=torch.bool, device=xh.device))
+    h = torch.zeros((B, nh, hd, n), dtype=torch.float32, device=xh.device)
+    ys = []
+    for c0 in range(0, S + pad, C):
+        xj, bj, cj = xf[:, c0:c0 + C], bf[:, c0:c0 + C], cf[:, c0:c0 + C]
+        dtj, daj = dtp[:, c0:c0 + C], dap[:, c0:c0 + C]
+        cum = torch.cumsum(torch.log(torch.clamp(daj, min=1e-38)), dim=1)
+        # intra-chunk: y[t] = sum_{s<=t} exp(cum_t - cum_s) dt_s (c_t.b_s) x_s
+        w = cum[:, :, None, :] - cum[:, None, :, :]              # (B,C,C,nh)
+        g = torch.where(mask[None, :, :, None], torch.exp(w), 0.0)
+        cb = torch.einsum("btn,bsn->bts", cj, bj)                # (B,C,C)
+        m = cb[:, :, :, None] * g * dtj[:, None, :, :]           # (B,C,C,nh)
+        y_intra = torch.einsum("btsh,bshd->bthd", m, xj)
+        # inter-chunk: the carried state's contribution
+        y_inter = torch.exp(cum)[..., None] * torch.einsum(
+            "bhdn,btn->bthd", h, cj)
+        decay_to_end = torch.exp(cum[:, -1:, :] - cum)           # (B,C,nh)
+        hb = torch.einsum("bth,bthd,btn->bhdn", dtj * decay_to_end, xj, bj)
+        h = h * torch.exp(cum[:, -1])[:, :, None, None] + hb
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :S], h
+
+
+def mamba2_decode(p, cfg: ModelConfig, x1, state) -> Tuple[torch.Tensor,
+                                                           dict]:
+    """One token. x1 (B,1,D); state {"h", "conv"}; returns (y, new
+    state)."""
+    z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x1, state["conv"])
+    xt = xh[:, 0].float()
+    h = (state["h"] * da[:, 0, :, None, None]
+         + (dt[:, 0, :, None] * xt)[..., None] * b[:, 0].float()[:, None,
+                                                                None, :])
+    y = torch.einsum("bhdn,bn->bhd", h, c[:, 0].float())
+    out = _ssm_output(p, cfg, x1, y[:, None], xh, z)
+    return out, {"h": h, "conv": conv_state}
+
+
+def mamba2_state_shape(cfg: ModelConfig, batch: int):
+    """The decode state's TensorSpecs (h float32, conv bf16, as the
+    reference's)."""
+    _, nh, conv_ch = ssm_dims(cfg)
+    return {"h": TensorSpec((batch, nh, cfg.ssm_head_dim, cfg.ssm_state),
+                            torch.float32),
+            "conv": TensorSpec((batch, cfg.ssm_conv - 1, conv_ch),
+                               torch.bfloat16)}

@@ -1,10 +1,13 @@
-"""Model assembly: the port of the dense part of
-`repro/models/transformer.py` (the archs whose trunk is a stack of
-GQA + MLP layers: llama3.2-1b, granite-3-8b, qwen1.5-32b, granite-34b,
-and internvl2-76b behind its stub vision frontend).
+"""Model assembly for the ten language-model archs: the port of the
+serving part of `repro/models/transformer.py`. The dense GQA trunk
+(llama3.2-1b, granite-3-8b, qwen1.5-32b, granite-34b, internvl2-76b
+behind its stub vision frontend), MoE with MLA (deepseek-v3-671b) or GQA
+(grok-1-314b), the encoder-decoder (seamless-m4t-large-v2), the Mamba2
+hybrid with one shared attention layer (zamba2-7b) and RWKV6
+(rwkv6-1.6b).
 
 Layer params are stacked on a leading "stack" axis, as in the reference;
-where the reference scans the stack, the port loops over it in Python and
+where the reference scans a stack, the port loops over it in Python and
 indexes each layer's slice. Param trees are nested dicts keyed as the
 reference's `split_pl` trees (`params_from_numpy` carries those across).
 Entry points:
@@ -12,15 +15,18 @@ Entry points:
   init_model(cfg, generator, device=)           -> PL tree
   model_prefill(params, cfg, batch)             -> (last_logits, cache)
   model_decode(params, cfg, token, pos, cache, seq_len=) -> (logits, cache)
-  serve_cache_spec(cfg, batch, seq)             -> (spec tree, logical tree)
+  serve_cache_spec(cfg, batch, seq, enc_len=)   -> (spec tree, logical tree)
 
-Tokens index the embedding directly: every token must be < cfg.vocab
-(PyTorch raises on an index past the table, where the reference's
-`jnp.take` clamps). The MoE, encoder-decoder, hybrid and RWKV trunks
-raise NotImplementedError (ROADMAP.md Queue 1 item 8).
+Decode writes the cache's tensors in place (K/V rows, latent rows and
+recurrent states) and returns the same tree. Tokens index the embedding
+directly: every token must be < cfg.vocab (PyTorch raises on an index
+past the table, where the reference's `jnp.take` clamps). The MTP head
+of deepseek-v3 is drawn so that the trees match; serving does not read
+it, and training (its loss) is not ported yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import numpy as np
@@ -29,24 +35,15 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (PL, Maker, TensorSpec, gelu, geglu,
                                        rms_norm, swiglu, tree_map)
 from repro_torch.models.sharding import shard_act
 
 # window kicks in only for long-context decode (the zamba2 deviation)
 WINDOW_MIN_SEQ = 131_072
-
-
-def is_dense(cfg: ModelConfig) -> bool:
-    """Does `cfg` run the dense GQA trunk (the archs the port serves)?"""
-    return (cfg.family in ("dense", "vlm") and cfg.attention == "gqa"
-            and not (cfg.is_moe or cfg.enc_dec or cfg.mtp))
-
-
-def require_dense(cfg: ModelConfig) -> None:
-    if not is_dense(cfg):
-        raise attn_lib.not_ported(f"{cfg.name} (family {cfg.family!r}, "
-                                  f"attention {cfg.attention!r})")
 
 
 def tree_index(tree, i: int):
@@ -57,6 +54,23 @@ def tree_index(tree, i: int):
 def tree_stack(trees):
     """A stacked tree from per-layer trees of one structure."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _put(stack, i: int, tree) -> None:
+    """Write `tree` into layer i of the stacked tree `stack`, in place."""
+    def put(dst, src):
+        if dst.dtype != src.dtype:
+            raise TypeError(f"cache dtype {dst.dtype} differs from the new "
+                            f"state's {src.dtype}")
+        dst[i].copy_(src)
+    tree_map(put, stack, tree)
+
+
+def _depth(stack) -> int:
+    """The number of layers of a stacked tree."""
+    while isinstance(stack, dict):
+        stack = next(iter(stack.values()))
+    return stack.shape[0]
 
 
 # --------------------------------------------------------------------------
@@ -73,11 +87,27 @@ def _init_mlp(mk: Maker, cfg: ModelConfig, d_ff: int):
     return p
 
 
-def _init_dense_layer(mk: Maker, cfg: ModelConfig):
+def _init_dense_layer(mk: Maker, cfg: ModelConfig, *, cross: bool = False):
+    p = {"ln1": mk.ones((cfg.d_model,), ("embed",)),
+         "attn": attn_lib.init_attention(mk, cfg),
+         "ln2": mk.ones((cfg.d_model,), ("embed",)),
+         "mlp": _init_mlp(mk, cfg, cfg.d_ff)}
+    if cross:
+        p["lnx"] = mk.ones((cfg.d_model,), ("embed",))
+        p["xattn"] = attn_lib.init_gqa(mk, cfg)
+    return p
+
+
+def _init_moe_layer(mk: Maker, cfg: ModelConfig):
     return {"ln1": mk.ones((cfg.d_model,), ("embed",)),
             "attn": attn_lib.init_attention(mk, cfg),
             "ln2": mk.ones((cfg.d_model,), ("embed",)),
-            "mlp": _init_mlp(mk, cfg, cfg.d_ff)}
+            "moe": moe_lib.init_moe(mk, cfg)}
+
+
+def _init_mamba_layer(mk: Maker, cfg: ModelConfig):
+    return {"ln": mk.ones((cfg.d_model,), ("embed",)),
+            "mamba": ssm_lib.init_mamba2(mk, cfg)}
 
 
 def _init_stack(mk: Maker, cfg, layer_init, n: int):
@@ -91,12 +121,13 @@ def _init_stack(mk: Maker, cfg, layer_init, n: int):
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
                dtype=torch.bfloat16, device: DeviceLike = None
                ) -> Dict[str, Any]:
-    """Random params (a PL tree) for a dense or vlm arch: normal draws
-    from `generator` with the reference's fan-in scales, in `dtype` (the
-    reference's params are always bfloat16) on `device` (None: the
-    card). The numbers are PyTorch's, not the reference's: parity tests
-    carry the reference's params across (`params_from_numpy`)."""
-    require_dense(cfg)
+    """Random params (a PL tree) with the reference's tree, shapes and
+    logical axes: normal draws from `generator` with the reference's
+    fan-in scales, in `dtype` (the reference's params are always
+    bfloat16) on `device` (None: the card). A CUDA generator draws on the
+    card (the full-width models). The numbers are PyTorch's, not the
+    reference's: parity tests carry the reference's params across
+    (`params_from_numpy`)."""
     mk = Maker(generator, dtype=dtype, device=resolve_device(device))
     d, Vp = cfg.d_model, cfg.vocab_padded
     p: Dict[str, Any] = {
@@ -105,15 +136,39 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *,
     }
     if not cfg.tie_embeddings:
         p["head"] = mk.w((d, Vp), ("embed", "vocab"), fan_in=d)
-    p["layers"] = _init_stack(mk, cfg, _init_dense_layer, cfg.n_layers)
+    if cfg.family == "ssm":
+        p["layers"] = _init_stack(mk, cfg, rwkv_lib.init_rwkv6, cfg.n_layers)
+    elif cfg.family == "hybrid":
+        p["mamba"] = _init_stack(mk, cfg, _init_mamba_layer, cfg.n_layers)
+        p["shared"] = _init_dense_layer(mk, cfg)
+    elif cfg.enc_dec:
+        p["enc"] = _init_stack(mk, cfg, _init_dense_layer, cfg.n_enc_layers)
+        p["enc_norm"] = mk.ones((d,), ("embed",))
+        p["dec"] = _init_stack(mk, cfg, functools.partial(
+            _init_dense_layer, cross=True), cfg.n_layers)
+    elif cfg.is_moe:
+        nd = cfg.n_dense_layers
+        if nd:
+            p["dense_layers"] = _init_stack(mk, cfg, _init_dense_layer, nd)
+        p["moe_layers"] = _init_stack(mk, cfg, _init_moe_layer,
+                                      cfg.n_layers - nd)
+    else:
+        p["layers"] = _init_stack(mk, cfg, _init_dense_layer, cfg.n_layers)
+    if cfg.mtp:
+        p["mtp"] = {"norm_h": mk.ones((d,), ("embed",)),
+                    "norm_e": mk.ones((d,), ("embed",)),
+                    "proj": mk.w((2 * d, d), ("embed", "embed"),
+                                 fan_in=2 * d),
+                    "layer": _init_dense_layer(mk, cfg)}
     return p
 
 
 def params_from_numpy(tree, *, device: DeviceLike = None,
                       dtype=torch.bfloat16):
     """The reference's param tree (`split_pl(init_model(cfg, key))[0]`,
-    its leaves as numpy arrays, bf16 ones included) as the port's: each
-    leaf through float32 (exact for bf16) to `dtype` on `device`."""
+    its leaves as numpy arrays, bf16 ones included) as the port's, leaf
+    for leaf and for every family: each leaf through float32 (exact for
+    bf16) to `dtype` on `device`."""
     dev = resolve_device(device)
     return tree_map(lambda a: torch.from_numpy(
         np.array(a, dtype=np.float32)).to(dtype).to(dev), tree)
@@ -136,29 +191,154 @@ def _mlp_fwd(p, cfg: ModelConfig, x):
 
 
 def _dense_layer_fwd(lp, cfg, x, positions, *, causal=True, window=0,
-                     return_cache=False):
+                     memory=None, return_cache=False):
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     a, cache = attn_lib.attention_forward(
         lp["attn"], cfg, h, positions, causal=causal, window=window,
         return_cache=return_cache)
     x = x + a
+    if memory is not None:
+        xh = rms_norm(x, lp["lnx"], cfg.norm_eps)
+        x = x + attn_lib.cross_forward(lp["xattn"], cfg, xh, memory)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
     x = x + _mlp_fwd(lp["mlp"], cfg, h)
     x = shard_act(x, "batch", "seq", None)
     return x, cache
 
 
-def _scan_dense(stack, cfg, x, positions, *, window=0, collect_cache=False):
-    """The layer stack over x; with collect_cache, each layer's K/V
+def _moe_layer_fwd(lp, cfg, x, positions, *, return_cache=False):
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, cache = attn_lib.attention_forward(lp["attn"], cfg, h, positions,
+                                          return_cache=return_cache)
+    x = x + a
+    h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    m, aux = moe_lib.moe_forward(lp["moe"], cfg, h)
+    x = x + m
+    x = shard_act(x, "batch", "seq", None)
+    return x, aux, cache
+
+
+# --------------------------------------------------------------------------
+# trunks (train / prefill)
+# --------------------------------------------------------------------------
+
+
+def _scan_dense(stack, cfg, x, positions, *, memory=None, window=0,
+                collect_cache=False):
+    """The layer stack over x; with collect_cache, each layer's cache
     stacked on a leading layer axis (the reference's scan output)."""
-    n = stack["ln1"].shape[0]
     caches = []
-    for i in range(n):
+    for i in range(_depth(stack)):
         x, cache = _dense_layer_fwd(tree_index(stack, i), cfg, x, positions,
-                                    window=window,
+                                    window=window, memory=memory,
                                     return_cache=collect_cache)
         caches.append(cache)
     return x, (tree_stack(caches) if collect_cache else None)
+
+
+def _scan_moe(stack, cfg, x, positions, *, collect_cache=False):
+    """The MoE layers over x; returns (x, the layers' aux losses summed,
+    caches or None)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for i in range(_depth(stack)):
+        x, a, cache = _moe_layer_fwd(tree_index(stack, i), cfg, x, positions,
+                                     return_cache=collect_cache)
+        aux = aux + a
+        caches.append(cache)
+    return x, aux, (tree_stack(caches) if collect_cache else None)
+
+
+def _scan_encoder(stack, cfg, x, positions):
+    """The encoder: non-causal GQA layers, no cache."""
+    for i in range(_depth(stack)):
+        lp = tree_index(stack, i)
+        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        a, _ = attn_lib.gqa_forward(lp["attn"], cfg, h, positions,
+                                    causal=False)
+        x = x + a
+        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + _mlp_fwd(lp["mlp"], cfg, h)
+    return x
+
+
+def _encode(params, cfg, enc_frames):
+    """The encoder memory of `enc_frames` (B, M, D), cast to bf16 whatever
+    the params' dtype, as the reference does (with float32 params the
+    first layer then promotes to float32: `common.einsum`)."""
+    frames = shard_act(enc_frames.to(torch.bfloat16), "batch", "seq", None)
+    memory = _scan_encoder(params["enc"], cfg, frames,
+                           torch.arange(frames.shape[1],
+                                        device=frames.device))
+    return rms_norm(memory, params["enc_norm"], cfg.norm_eps)
+
+
+def _hybrid_groups(cfg: ModelConfig):
+    g = cfg.attn_every
+    n_groups = cfg.n_layers // g
+    trailing = cfg.n_layers - n_groups * g
+    return g, n_groups, trailing
+
+
+def _split_hybrid_stack(stack, cfg):
+    """The Mamba stack as (n_groups, g, ...) groups and the trailing
+    blocks (views)."""
+    g, n_groups, _ = _hybrid_groups(cfg)
+    grouped = tree_map(
+        lambda a: a[:n_groups * g].reshape(n_groups, g, *a.shape[1:]), stack)
+    tail = tree_map(lambda a: a[n_groups * g:], stack)
+    return grouped, tail
+
+
+def _mamba_block(lp, cfg, x, impl):
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    y, state = ssm_lib.mamba2_forward(lp["mamba"], cfg, h, impl=impl)
+    return x + y, state
+
+
+def _mamba_stack(stack, cfg, x, impl):
+    """Mamba blocks over x; returns (x, their final states stacked)."""
+    states = []
+    for j in range(_depth(stack)):
+        x, st = _mamba_block(tree_index(stack, j), cfg, x, impl)
+        states.append(st)
+    return x, tree_stack(states)
+
+
+def _hybrid_trunk(params, cfg, x, positions, impl=None, *,
+                  collect_cache=False):
+    """zamba2: each group of attn_every Mamba blocks ends in the one shared
+    attention + MLP layer; the trailing blocks follow. With collect_cache
+    (prefill) also returns the cache {"mamba_g", "attn", "mamba_t"}."""
+    impl = impl or cfg.ssm_impl
+    grouped, tail = _split_hybrid_stack(params["mamba"], cfg)
+    shared = params["shared"]
+    _, n_groups, trailing = _hybrid_groups(cfg)
+    m_states, a_kv = [], []
+    for gi in range(n_groups):
+        x, sts = _mamba_stack(tree_index(grouped, gi), cfg, x, impl)
+        x, kv = _dense_layer_fwd(shared, cfg, x, positions,
+                                 return_cache=collect_cache)
+        m_states.append(sts)
+        a_kv.append(kv)
+    t_states = None
+    if trailing:
+        x, t_states = _mamba_stack(tail, cfg, x, impl)
+    if not collect_cache:
+        return x
+    return x, {"mamba_g": tree_stack(m_states), "attn": tree_stack(a_kv),
+               "mamba_t": t_states, "memory": None}
+
+
+def _rwkv_trunk(params, cfg, x, *, collect_cache=False):
+    """The RWKV6 layers over x; with collect_cache also their final states
+    stacked."""
+    states = []
+    for i in range(_depth(params["layers"])):
+        x, st = rwkv_lib.rwkv6_forward(tree_index(params["layers"], i), cfg,
+                                       x)
+        states.append(st)
+    return (x, tree_stack(states)) if collect_cache else x
 
 
 # --------------------------------------------------------------------------
@@ -186,12 +366,27 @@ def _assemble_input(params, cfg, batch):
     return x, torch.arange(S, device=x.device)
 
 
-def _trunk(params, cfg, x, positions, *, window=0):
-    """Train/prefill trunk of the dense family. Returns (h, aux, caches)
-    as the reference's (aux is 0 and no cache is collected here)."""
-    require_dense(cfg)
-    h, _ = _scan_dense(params["layers"], cfg, x, positions, window=window)
-    return h, torch.zeros((), dtype=torch.float32, device=x.device), None
+def _trunk(params, cfg, x, positions, *, memory=None, window=0):
+    """Train/prefill trunk dispatch. Returns (h, aux loss, caches or None)
+    as the reference's (the enc-dec and MoE trunks return their caches;
+    `memory` is the enc-dec archs' encoder output, `_encode`)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = None
+    if cfg.family == "ssm":
+        h = _rwkv_trunk(params, cfg, x)
+    elif cfg.family == "hybrid":
+        h = _hybrid_trunk(params, cfg, x, positions)
+    elif cfg.enc_dec:
+        h, caches = _scan_dense(params["dec"], cfg, x, positions,
+                                memory=memory)
+    elif cfg.is_moe:
+        if cfg.n_dense_layers:
+            x, _ = _scan_dense(params["dense_layers"], cfg, x, positions)
+        h, aux, caches = _scan_moe(params["moe_layers"], cfg, x, positions)
+    else:
+        h, caches = _scan_dense(params["layers"], cfg, x, positions,
+                                window=window)
+    return h, aux, caches
 
 
 # --------------------------------------------------------------------------
@@ -200,14 +395,51 @@ def _trunk(params, cfg, x, positions, *, window=0):
 
 
 def model_prefill(params, cfg: ModelConfig, batch):
-    """Full-prompt forward; returns (last-position logits (B,1,Vp), cache
-    {"layers": {"k","v"}: (L,B,S,K,h), "memory": None})."""
-    require_dense(cfg)
+    """Full-prompt forward; returns (last-position logits (B,1,Vp), cache).
+    The cache's tree is the reference's for the family: {"layers"} (dense:
+    K/V; ssm: RWKV states), {"layers", "xkv"} (enc-dec: self K/V and the
+    encoder memory's cross K/V), {"dense", "moe"} (K/V or MLA latents),
+    {"mamba_g", "attn", "mamba_t"} (hybrid), each with "memory": None."""
+    memory = (_encode(params, cfg, batch["enc_frames"]) if cfg.enc_dec
+              else None)
     x, positions = _assemble_input(params, cfg, batch)
-    h, kv = _scan_dense(params["layers"], cfg, x, positions,
-                        collect_cache=True)
+    if cfg.family == "ssm":
+        h, states = _rwkv_trunk(params, cfg, x, collect_cache=True)
+        cache = {"layers": states, "memory": None}
+    elif cfg.family == "hybrid":
+        # prefill runs the per-step scan whatever cfg.ssm_impl says, as
+        # the reference's does
+        h, cache = _hybrid_trunk(params, cfg, x, positions, "scan",
+                                 collect_cache=True)
+    elif cfg.enc_dec:
+        stack = params["dec"]
+        kvs, xks, xvs = [], [], []
+        h = x
+        for i in range(_depth(stack)):
+            lp = tree_index(stack, i)
+            h, kv = _dense_layer_fwd(lp, cfg, h, positions, memory=memory,
+                                     return_cache=True)
+            xk, xv = attn_lib.cross_kv(lp["xattn"], memory)
+            kvs.append(kv)
+            xks.append(xk)
+            xvs.append(xv)
+        cache = {"layers": tree_stack(kvs),
+                 "xkv": {"k": torch.stack(xks), "v": torch.stack(xvs)},
+                 "memory": None}
+    elif cfg.is_moe:
+        dkv = None
+        if cfg.n_dense_layers:
+            x, dkv = _scan_dense(params["dense_layers"], cfg, x, positions,
+                                 collect_cache=True)
+        h, _, mkv = _scan_moe(params["moe_layers"], cfg, x, positions,
+                              collect_cache=True)
+        cache = {"dense": dkv, "moe": mkv, "memory": None}
+    else:
+        h, kv = _scan_dense(params["layers"], cfg, x, positions,
+                            collect_cache=True)
+        cache = {"layers": kv, "memory": None}
     logits = _logits(params, cfg, h[:, -1:])
-    return logits, {"layers": kv, "memory": None}
+    return logits, cache
 
 
 def _decode_window(cfg: ModelConfig, seq_len: int) -> int:
@@ -216,25 +448,98 @@ def _decode_window(cfg: ModelConfig, seq_len: int) -> int:
     return 0
 
 
+def _decode_attn(lp, cfg, x, pos, kv, window=0):
+    """A layer's self-attention residual at decode; kv is written in
+    place."""
+    hh = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    a, _ = attn_lib.attention_decode(lp["attn"], cfg, hh, pos, kv,
+                                     window=window)
+    return x + a
+
+
+def _decode_mlp(lp, cfg, x):
+    return x + _mlp_fwd(lp["mlp"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
+
+
 def model_decode(params, cfg: ModelConfig, token, pos: int, cache, *,
                  seq_len: int):
     """One-token step. token (B,1) integer; pos its absolute position (a
-    Python int). The cache's K/V rows are written in place
-    (`attention.gqa_decode`); returns (logits (B,1,Vp), cache)."""
-    require_dense(cfg)
+    Python int). The cache's tensors are written in place (K/V and latent
+    rows, recurrent states); returns (logits (B,1,Vp), cache)."""
     x = _embed(params, cfg, token)
     window = _decode_window(cfg, seq_len)
-    stack, kv = params["layers"], cache["layers"]
-    for i in range(stack["ln1"].shape[0]):
-        lp = tree_index(stack, i)
-        hh = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        a, _ = attn_lib.attention_decode(lp["attn"], cfg, hh, pos,
-                                         tree_index(kv, i), window=window)
-        x = x + a
-        hh = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + _mlp_fwd(lp["mlp"], cfg, hh)
+    if cfg.family == "ssm":
+        stack, states = params["layers"], cache["layers"]
+        for i in range(_depth(stack)):
+            x, st = rwkv_lib.rwkv6_forward(tree_index(stack, i), cfg, x,
+                                           state=tree_index(states, i))
+            _put(states, i, st)
+        new_cache = {"layers": states, "memory": None}
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, x, pos, cache, window)
+        new_cache = cache
+    elif cfg.enc_dec:
+        stack, kv = params["dec"], cache["layers"]
+        for i in range(_depth(stack)):
+            lp = tree_index(stack, i)
+            x = _decode_attn(lp, cfg, x, pos, tree_index(kv, i))
+            xh = rms_norm(x, lp["lnx"], cfg.norm_eps)
+            x = x + attn_lib.cross_forward(
+                lp["xattn"], cfg, xh,
+                kv=(cache["xkv"]["k"][i], cache["xkv"]["v"][i]))
+            x = _decode_mlp(lp, cfg, x)
+        new_cache = {"layers": kv, "xkv": cache["xkv"], "memory": None}
+    elif cfg.is_moe:
+        if cfg.n_dense_layers:
+            stack, kv = params["dense_layers"], cache["dense"]
+            for i in range(_depth(stack)):
+                lp = tree_index(stack, i)
+                x = _decode_mlp(lp, cfg, _decode_attn(lp, cfg, x, pos,
+                                                      tree_index(kv, i)))
+        stack, kv = params["moe_layers"], cache["moe"]
+        for i in range(_depth(stack)):
+            lp = tree_index(stack, i)
+            x = _decode_attn(lp, cfg, x, pos, tree_index(kv, i))
+            m, _ = moe_lib.moe_forward(lp["moe"], cfg,
+                                       rms_norm(x, lp["ln2"], cfg.norm_eps))
+            x = x + m
+        new_cache = {"dense": cache["dense"], "moe": kv, "memory": None}
+    else:
+        stack, kv = params["layers"], cache["layers"]
+        for i in range(_depth(stack)):
+            lp = tree_index(stack, i)
+            x = _decode_mlp(lp, cfg, _decode_attn(lp, cfg, x, pos,
+                                                  tree_index(kv, i), window))
+        new_cache = {"layers": kv, "memory": cache.get("memory")}
     logits = _logits(params, cfg, x)
-    return logits, {"layers": kv, "memory": cache.get("memory")}
+    return logits, new_cache
+
+
+def _hybrid_decode(params, cfg, x, pos, cache, window):
+    """One token through the hybrid trunk; the Mamba states and the shared
+    layer's K/V (one cache a group) are written in place."""
+    grouped, tail = _split_hybrid_stack(params["mamba"], cfg)
+    shared = params["shared"]
+    _, n_groups, trailing = _hybrid_groups(cfg)
+
+    def mamba_steps(stack, states, x):
+        for j in range(_depth(stack)):
+            lp = tree_index(stack, j)
+            h = rms_norm(x, lp["ln"], cfg.norm_eps)
+            y, st = ssm_lib.mamba2_decode(lp["mamba"], cfg, h,
+                                          tree_index(states, j))
+            _put(states, j, st)
+            x = x + y
+        return x
+
+    for gi in range(n_groups):
+        x = mamba_steps(tree_index(grouped, gi),
+                        tree_index(cache["mamba_g"], gi), x)
+        x = _decode_mlp(shared, cfg, _decode_attn(
+            shared, cfg, x, pos, tree_index(cache["attn"], gi), window))
+    if trailing:
+        x = mamba_steps(tail, cache["mamba_t"], x)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -242,30 +547,81 @@ def model_decode(params, cfg: ModelConfig, token, pos: int, cache, *,
 # --------------------------------------------------------------------------
 
 
-def _with_stack(tree, n):
-    return tree_map(lambda s: TensorSpec((n,) + tuple(s.shape), s.dtype),
+def _with_stack(tree, *n):
+    return tree_map(lambda s: TensorSpec(tuple(n) + tuple(s.shape), s.dtype),
                     tree)
 
 
 def serve_cache_spec(cfg: ModelConfig, batch: int, seq_len: int,
                      enc_len: int = 0):
     """(TensorSpec tree, logical-string tree) of the decode cache at a
-    horizon of `seq_len` positions (bf16, as the reference's). `enc_len`
-    is the encoder-decoder archs' and is unused by the dense family."""
-    require_dense(cfg)
+    horizon of `seq_len` positions, with the reference's dtypes (bf16
+    K/V, latents, conv states and shifts; float32 SSM and WKV states).
+
+    enc_len: the encoder memory's true length for the enc-dec archs
+    (default cfg.enc_memory_len). The cross K/V must be allocated at the
+    real encoder output length: zero-padded cross slots would be
+    attended with score 0, not masked."""
     window = _decode_window(cfg, seq_len)
     seq_ax = "seq" if attn_lib.heads_shardable(cfg) else "seq_model"
     kv_log = {"k": f"stack|batch|{seq_ax}|kv_heads|head_dim",
               "v": f"stack|batch|{seq_ax}|kv_heads|head_dim"}
-    shapes = {"layers": _with_stack(attn_lib.attention_cache_shape(
-        cfg, batch, seq_len, window=window), cfg.n_layers), "memory": None}
-    return shapes, {"layers": kv_log, "memory": None}
+    mla_log = {"c": "stack|batch|seq|", "kr": "stack|batch|seq|"}
+    att_log = mla_log if cfg.attention == "mla" else kv_log
+
+    def kv(n):
+        return _with_stack(attn_lib.attention_cache_shape(
+            cfg, batch, seq_len, window=window), n)
+
+    if cfg.family == "ssm":
+        st = rwkv_lib.rwkv6_state_shape(cfg, batch)
+        shapes = {"layers": _with_stack(st, cfg.n_layers), "memory": None}
+        log = {"layers": {"shift_t": "stack|batch|",
+                          "shift_c": "stack|batch|",
+                          "wkv": "stack|batch|heads||"},
+               "memory": None}
+        return shapes, log
+    if cfg.family == "hybrid":
+        g, n_groups, trailing = _hybrid_groups(cfg)
+        mst = ssm_lib.mamba2_state_shape(cfg, batch)
+        shapes = {"mamba_g": _with_stack(mst, n_groups, g),
+                  "attn": kv(n_groups),
+                  "mamba_t": _with_stack(mst, trailing) if trailing else None,
+                  "memory": None}
+        log = {"mamba_g": {"h": "stack|stack2|batch|||",
+                           "conv": "stack|stack2|batch||mlp"},
+               "attn": dict(att_log),
+               "mamba_t": ({"h": "stack|batch|||", "conv": "stack|batch||mlp"}
+                           if trailing else None),
+               "memory": None}
+        return shapes, log
+    if cfg.enc_dec:
+        M = enc_len or cfg.enc_memory_len
+        xkv = TensorSpec((cfg.n_layers, batch, M, cfg.n_kv_heads,
+                          cfg.resolved_head_dim), torch.bfloat16)
+        shapes = {"layers": kv(cfg.n_layers), "xkv": {"k": xkv, "v": xkv},
+                  "memory": None}
+        log = {"layers": att_log,
+               "xkv": {"k": "stack|batch|seq|kv_heads|head_dim",
+                       "v": "stack|batch|seq|kv_heads|head_dim"},
+               "memory": None}
+        return shapes, log
+    if cfg.is_moe:
+        nd = cfg.n_dense_layers
+        shapes = {"dense": kv(nd) if nd else None,
+                  "moe": kv(cfg.n_layers - nd), "memory": None}
+        log = {"dense": att_log if nd else None, "moe": att_log,
+               "memory": None}
+        return shapes, log
+    shapes = {"layers": kv(cfg.n_layers), "memory": None}
+    return shapes, {"layers": att_log, "memory": None}
 
 
 def grow_cache(cache, shapes):
     """Prefill's cache zero-padded to the shapes of `serve_cache_spec`
     (the serving horizon), keeping its own dtype: the params' (bf16 for
-    the reference's params)."""
+    the reference's params). None leaves (grok's absent dense layers, a
+    hybrid without trailing blocks) pass through."""
     def fit(c, s):
         if tuple(c.shape) == tuple(s.shape):
             return c

@@ -1466,7 +1466,8 @@ LM_DENSE = ("llama3.2-1b", "granite-3-8b", "qwen1.5-32b", "granite-34b",
             "internvl2-76b")
 
 
-def _lm_logits(cfg, params, tokens, frontend, teacher, dev):
+def _lm_logits(cfg, params, tokens, frontend, teacher, dev,
+               enc_frames=None):
     """Prefill, then decode `teacher`'s tokens; every step's logits."""
     from repro_torch.models import transformer as tf
     B, P = tokens.shape
@@ -1474,9 +1475,13 @@ def _lm_logits(cfg, params, tokens, frontend, teacher, dev):
     batch = {"tokens": tokens.to(dev)}
     if frontend is not None:
         batch["frontend"] = frontend.to(dev)
+    if enc_frames is not None:
+        batch["enc_frames"] = enc_frames.to(dev)
     with torch.no_grad():
         logits, cache = tf.model_prefill(params, cfg, batch)
-        shapes, _ = tf.serve_cache_spec(cfg, B, nf + P + teacher.shape[1])
+        shapes, _ = tf.serve_cache_spec(
+            cfg, B, nf + P + teacher.shape[1],
+            enc_len=0 if enc_frames is None else enc_frames.shape[1])
         cache = tf.grow_cache(cache, shapes)
         out = [logits]
         for i in range(teacher.shape[1]):
@@ -1509,6 +1514,36 @@ def test_lm_prefill_and_decode_on_card_equal_the_cpus(cuda, name, dtype,
     want = _lm_logits(cfg, params, tokens, frontend, teacher, "cpu")
     got = _lm_logits(cfg, tree_map(lambda a: a.to(cuda), params), tokens,
                      frontend, teacher, cuda)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+LM_OTHER = ("deepseek-v3-671b", "grok-1-314b", "zamba2-7b", "rwkv6-1.6b",
+            "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("name", LM_OTHER)
+def test_lm_other_families_on_card_equal_the_cpus(cuda, name, dtype, tol):
+    """MLA + MoE (bitmap dispatch at the reduced config), GQA + MoE (COO),
+    the Mamba2 hybrid, RWKV6 and the encoder-decoder: the reduced
+    config's params drawn on the CPU and copied over, the same prompt,
+    encoder frames and teacher tokens, every step's logits, to the
+    tolerances of the dense archs."""
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import split_pl, tree_map
+    cfg = reduced(ARCHS[name])
+    gen = torch.Generator().manual_seed(4)
+    params, _ = split_pl(tf.init_model(cfg, gen, dtype=dtype, device="cpu"))
+    tokens = torch.randint(0, cfg.vocab, (2, 10), generator=gen)
+    teacher = torch.randint(0, cfg.vocab, (2, 3), generator=gen)
+    frames = (torch.randn(2, 10, cfg.d_model, generator=gen).to(
+        torch.bfloat16) if cfg.enc_dec else None)
+    want = _lm_logits(cfg, params, tokens, None, teacher, "cpu", frames)
+    got = _lm_logits(cfg, tree_map(lambda a: a.to(cuda), params), tokens,
+                     None, teacher, cuda, frames)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol)
 

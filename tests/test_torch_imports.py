@@ -177,6 +177,35 @@ def test_codec_encoders_without_device_and_card_raise(monkeypatch):
                                                           "dense")
 
 
+LM_MODULES = ("models/attention.py", "models/moe.py", "models/ssm.py",
+              "models/rwkv.py", "models/transformer.py", "launch/steps.py")
+
+
+def test_the_checks_cover_the_language_model_modules():
+    """The import checks walk the LM blocks too (MLA, MoE, Mamba2, RWKV6),
+    and each keeps its own copy of the reference's constants."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(LM_MODULES) <= files
+    from repro_torch.models import moe, rwkv, ssm
+    assert (moe.BITMAP_CHUNK, ssm.SSD_CHUNK) == (256, 128)
+    assert (rwkv.N_MIX, rwkv.DDLERP_RANK, rwkv.DECAY_RANK) == (5, 32, 64)
+
+
+def test_lm_entry_points_without_device_and_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.launch import serve as tserve
+    from repro_torch.models import transformer as ttf
+    for name in ("deepseek-v3-671b", "zamba2-7b", "rwkv6-1.6b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttf.init_model(reduced(ARCHS[name]), torch.Generator())
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ttf.params_from_numpy({"embed": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--arch", "seamless-m4t-large-v2"])
+
+
 def test_the_checks_cover_the_serving_tier_modules():
     """The import checks below walk every file of the port; the serving
     tier's subpackages are among them."""

@@ -4,8 +4,9 @@ checkpoint the reference wrote at the launcher's `NeRFConfig`: the scene
 line equal exactly and every view's PSNR within 0.01 dB, on one process
 and through the fleet (marked `fleet`: it spawns worker processes). The
 language-model path: the reference's greedy tokens on its own params and
-prompt in float32 (exact), and each dense arch served. The flags the
-reference refuses, the port refuses alike."""
+prompt in float32 (exact) for llama3.2-1b and the five archs beyond the
+dense trunk, and each dense arch served. The flags the reference
+refuses, the port refuses alike."""
 import dataclasses
 import re
 import sys
@@ -112,10 +113,17 @@ def test_fleet_with_finetune_exits_as_the_reference(monkeypatch, capsys):
     assert "does not combine with --finetune-steps" in str(got.value)
 
 
+OTHER_ARCHS = ("deepseek-v3-671b", "grok-1-314b", "zamba2-7b",
+               "rwkv6-1.6b", "seamless-m4t-large-v2")
+
+
 def test_other_archs_exit_with_a_message(capsys):
-    """The flags the reference refuses, the port refuses alike; an arch of
-    a block not ported yet raises naming its ROADMAP item, and the LM path
-    without --device needs a card."""
+    """The flags the reference refuses, the port refuses alike, and the
+    LM path without --device needs a card. The five archs beyond the
+    dense trunk, which once raised here, serve with `--device cpu
+    --reduced`: on the reference's params (its PRNGKey(0) init), prompt
+    and encoder frames carried across in float32, their greedy tokens
+    equal the reference's."""
     for argv in (["--arch", "llama3.2-1b", "--fleet-workers", "2"],
                  ["--arch", "gpt-5"]):
         with pytest.raises(SystemExit) as e:
@@ -124,16 +132,36 @@ def test_other_archs_exit_with_a_message(capsys):
     err = capsys.readouterr().err
     assert "--fleet-workers requires --arch rtnerf" in err
     assert "invalid choice: 'gpt-5'" in err
-    for arch in ("deepseek-v3-671b", "grok-1-314b", "zamba2-7b",
-                 "rwkv6-1.6b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tserve.main(["--arch", arch, "--device", "cpu"])
+    B, P, G = 2, 8, 5
+    for arch in OTHER_ARCHS:
+        cfg = jreg.reduced(jreg.ARCHS[arch])
+        key = jax.random.PRNGKey(0)
+        params, _ = jcommon.split_pl(jtf.init_model(cfg, key))
+        params = jax.tree.map(lambda a: a.astype(jnp.float32), params)
+        tokens = jax.random.randint(key, (B, P), 0, cfg.vocab)
+        frames = (jax.random.normal(key, (B, P, cfg.d_model), jnp.bfloat16)
+                  if cfg.enc_dec else None)
+        want = _reference_greedy(cfg, params, tokens, G, frames)
+        args = tserve.build_parser().parse_args(
+            ["--arch", arch, "--reduced", "--device", "cpu", "--batch",
+             str(B), "--prompt-len", str(P), "--gen", str(G)])
+        got = tserve.serve_lm(
+            args, params=ttf.params_from_numpy(
+                jax.tree.map(np.asarray, params), device="cpu",
+                dtype=torch.float32),
+            tokens=torch.from_numpy(np.array(tokens)),
+            enc_frames=(None if frames is None else torch.from_numpy(
+                np.array(frames, np.float32)).to(torch.bfloat16)))
+        out = capsys.readouterr().out
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=arch)
+        assert "[serve] device: cpu" in out
+        assert f"sample: {want[0, :12].tolist()}" in out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tserve.main(["--arch", "llama3.2-1b"])
 
 
-def _reference_greedy(cfg, params, tokens, gen):
+def _reference_greedy(cfg, params, tokens, gen, frames=None):
     """The reference launcher's prefill + greedy decode loop (its
     `serve_lm`, src/repro/launch/serve.py:32-75) on float32 params,
     without its axis rules: with jax 0.9 its host mesh's Explicit axes
@@ -141,13 +169,22 @@ def _reference_greedy(cfg, params, tokens, gen):
     launcher itself fails here (ROADMAP.md Queue 3); without rules its
     `shard_act` constrains nothing, as in its own model tests. The cache
     is padded in prefill's dtype (its `fit` casts to the spec's bf16,
-    which float32 K/V rows cannot be written into)."""
+    which float32 K/V rows cannot be written into). An enc-dec arch's
+    prefill runs op by op: jitted, the reference's encoder scan refuses
+    the float32 carry that its bf16 frames promote to (Queue 3 item
+    18)."""
     B, P = tokens.shape
     total = P + gen
     prefill = jax.jit(lambda p, b: jtf.model_prefill(p, cfg, b))
     decode = jax.jit(lambda p, t, pos, c: jtf.model_decode(
         p, cfg, t, pos, c, seq_len=total))
-    logits, cache = prefill(params, {"tokens": tokens})
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["enc_frames"] = frames
+        with jax.disable_jit():
+            logits, cache = prefill(params, batch)
+    else:
+        logits, cache = prefill(params, batch)
     shapes, _ = jtf.serve_cache_spec(cfg, B, total, enc_len=P)
     cache = jax.tree.map(lambda c, s: jnp.pad(c, [
         (0, a - b) for a, b in zip(s.shape, c.shape)]), cache, shapes)

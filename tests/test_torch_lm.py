@@ -234,12 +234,72 @@ def test_gqa_decode_refuses_a_cache_of_another_dtype():
         tattn.gqa_decode(_tp(p), cfg, tt(rand(rng, 1, 1, 32)), 0, cache)
 
 
-def test_other_attention_kinds_raise_naming_item_8():
+def _mla_case(seed):
+    """deepseek-v3's reduced config and its MLA params drawn with numpy at
+    the reference's shapes and fan-in scales (norms 1 + 0.1 N(0, 1))."""
     cfg = treg.reduced(treg.ARCHS["deepseek-v3-671b"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tattn.attention_forward({}, cfg, None, None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ttf.init_model(cfg, torch.Generator(), device=CPU)
+    rng = np.random.RandomState(seed)
+    d, h, qr, kr = cfg.d_model, cfg.n_heads, cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rope, vh = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    p = {"wdq": rand(rng, d, qr, scale=d ** -0.5),
+         "q_norm": 1.0 + rand(rng, qr, scale=0.1),
+         "wuq": rand(rng, qr, h, nope + rope, scale=qr ** -0.5),
+         "wdkv": rand(rng, d, kr + rope, scale=d ** -0.5),
+         "kv_norm": 1.0 + rand(rng, kr, scale=0.1),
+         "wuk": rand(rng, kr, h, nope, scale=kr ** -0.5),
+         "wuv": rand(rng, kr, h, vh, scale=kr ** -0.5),
+         "wo": rand(rng, h, vh, d, scale=(h * vh) ** -0.5)}
+    return cfg, p, rng
+
+
+def test_other_attention_kinds_raise_naming_item_8():
+    """MLA (deepseek-v3), which this test once found unported, against
+    the reference: its init tree, the prefill forward (k and v expanded
+    from the latent) with its latent cache, and the weight-absorbed
+    decode against a latent cache at, inside and past the cache's end
+    (the row clamps to slot C-1, as dynamic_update_slice does); float32
+    to 1e-5. The entry points route by cfg.attention."""
+    cfg, p, rng = _mla_case(0)
+    jcfg = jreg.reduced(jreg.ARCHS["deepseek-v3-671b"])
+    want_p, want_log = jcommon.split_pl(jattn.init_attention(
+        jcommon.Maker(jax.random.PRNGKey(0)), jcfg))
+    got_p, got_log = tcommon.split_pl(tattn.init_attention(
+        tcommon.Maker(torch.Generator().manual_seed(0)), cfg))
+    assert got_log == want_log and set(got_p) == set(p)
+    assert {k: tuple(v.shape) for k, v in got_p.items()} == \
+        {k: tuple(v.shape) for k, v in want_p.items()} == \
+        {k: v.shape for k, v in p.items()}
+
+    S = 10
+    x = rand(rng, 2, S, cfg.d_model)
+    pos = np.arange(S, dtype=np.int32)
+    want, wcache = jattn.attention_forward(_jp(p), jcfg, jnp.asarray(x),
+                                           jnp.asarray(pos),
+                                           return_cache=True)
+    got, gcache = tattn.attention_forward(_tp(p), cfg, tt(x), tt(pos),
+                                          return_cache=True)
+    close(got, want, F32_TOL)
+    close(gcache["c"], wcache["c"], F32_TOL)
+    close(gcache["kr"], wcache["kr"], F32_TOL)
+    spec = tattn.attention_cache_shape(cfg, 2, 16)
+    jspec = jattn.attention_cache_shape(jcfg, 2, 16)
+    assert {k: s.shape for k, s in spec.items()} == \
+        {k: tuple(s.shape) for k, s in jspec.items()}
+
+    C = 12
+    for step in (5, 11, 14):
+        x1 = rand(rng, 2, 1, cfg.d_model)
+        cache = {"c": rand(rng, 2, C, cfg.kv_lora_rank),
+                 "kr": rand(rng, 2, C, cfg.qk_rope_head_dim)}
+        want, wc = jattn.attention_decode(_jp(p), jcfg, jnp.asarray(x1),
+                                          jnp.int32(step), _jp(cache))
+        tc = _tp(cache)
+        got, gc = tattn.attention_decode(_tp(p), cfg, tt(x1), step, tc)
+        close(got, want, F32_TOL)
+        close(gc["c"], wc["c"], F32_TOL)
+        close(gc["kr"], wc["kr"], F32_TOL)
+        assert gc["c"] is tc["c"]                       # written in place
 
 
 # --------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 reference's: the ten `ModelConfig`s and their `reduced` forms field by
 field, their counts, the 40 cells, `resolve_spec` on
 tests/test_sharding.py's cases (a spec is the tuple of the reference's
-PartitionSpec entries), and the decode cache's specs. All exact."""
+PartitionSpec entries), and the decode cache's specs of every family.
+All exact."""
 import dataclasses
 
 import jax
@@ -23,18 +24,31 @@ from repro_torch.configs import registry as treg
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import attention as tattn
+from repro_torch.models import common as tcommon
 from repro_torch.models import sharding as tsh
 from repro_torch.models import transformer as ttf
 
 ARCH_NAMES = list(jreg.ARCHS)
-DENSE = ["llama3.2-1b", "granite-3-8b", "qwen1.5-32b", "granite-34b",
-         "internvl2-76b"]
 
 
 class FakeMesh:
     def __init__(self, shape):
         self.shape = shape
         self.axis_names = tuple(shape)
+
+
+def assert_same_cache_spec(j, t, B, S, enc_len=0):
+    """serve_cache_spec's shapes, dtypes and logical strings equal the
+    reference's, leaf for leaf (None subtrees on both sides)."""
+    want, want_log = jtf.serve_cache_spec(j, B, S, enc_len=enc_len)
+    got, got_log = ttf.serve_cache_spec(t, B, S, enc_len=enc_len)
+    assert got_log == want_log
+    assert jax.tree.structure(want) == jax.tree.structure(
+        got, is_leaf=lambda x: isinstance(x, tcommon.TensorSpec))
+    for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(
+            got, is_leaf=lambda x: isinstance(x, tcommon.TensorSpec))):
+        assert g.shape == tuple(w.shape)
+        assert str(g.dtype).replace("torch.", "") == str(w.dtype)
 
 
 def _pair(name, small):
@@ -55,7 +69,8 @@ def test_model_config_matches_reference(name, small):
     assert t.active_param_count() == j.active_param_count()
     assert treg.get_arch(name) == tbase.ModelConfig(
         **dataclasses.asdict(jreg.get_arch(name)))
-    assert ttf.is_dense(t) == (name in DENSE)
+    # every arch is served: its decode cache's specs are the reference's
+    assert_same_cache_spec(j, t, 2, 16, enc_len=8)
 
 
 def test_registry_shapes_and_cells_match_reference():
@@ -150,44 +165,46 @@ def test_rules_context_and_one_device_shard_act():
 
 
 @pytest.mark.parametrize("small", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_serve_cache_spec_matches_reference(name, small):
+    """Every family's cache tree (K/V, MLA latents, RWKV and Mamba states,
+    cross K/V at the true encoder length, zamba2's window past 131,072
+    positions) at the reference's shapes, dtypes and logical axes."""
     j, t = _pair(name, small)
     for B, S in ((2, 16), (128, 32_768), (1, 524_288)):
-        want, want_log = jtf.serve_cache_spec(j, B, S)
-        got, got_log = ttf.serve_cache_spec(t, B, S)
-        assert got_log == want_log
-        assert got["memory"] is None and want["memory"] is None
-        for k in ("k", "v"):
-            assert got["layers"][k].shape == tuple(want["layers"][k].shape)
-            assert got["layers"][k].dtype == torch.bfloat16
-            assert str(want["layers"][k].dtype) == "bfloat16"
+        for enc_len in (0, 24):
+            assert_same_cache_spec(j, t, B, S, enc_len=enc_len)
+        got, _ = ttf.serve_cache_spec(t, B, S)
+        assert got["memory"] is None
 
 
-@pytest.mark.parametrize("name", DENSE)
+def _spec_leaves(tree):
+    return jax.tree.leaves(tree, is_leaf=lambda x: isinstance(x, tuple))
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
 def test_cache_spec_matches_the_references_cache_sharding(name):
     """`steps.cache_spec` against the reference's `cache_sharding` on its
     host mesh (one CPU device), and against `resolve_spec` over the
-    reference's logical tree on a 16 x 16 mesh."""
+    reference's logical tree on a 16 x 16 mesh, leaf for leaf."""
     j, t = _pair(name, True)
     want_shapes, want_sh = jsteps.cache_sharding(
         j, 2, 16, jsh.make_rules(jmesh.make_host_mesh()))
     got_shapes, got_sh = tsteps.cache_spec(
         t, 2, 16, tsh.make_rules(tmesh.make_host_mesh("cpu")))
-    for k in ("k", "v"):
-        assert got_sh["layers"][k] == tuple(want_sh["layers"][k].spec)
-        assert got_shapes["layers"][k].shape == \
-            tuple(want_shapes["layers"][k].shape)
+    assert [tuple(s.spec) for s in jax.tree.leaves(want_sh)] == \
+        _spec_leaves(got_sh)
+    assert [tuple(s.shape) for s in jax.tree.leaves(want_shapes)] == \
+        [s.shape for s in jax.tree.leaves(
+            got_shapes, is_leaf=lambda x: isinstance(x, tcommon.TensorSpec))]
     big = FakeMesh({"data": 16, "model": 16})
     jr, tr = jsh.make_rules(big), tsh.make_rules(big)
     full_j, full_t = _pair(name, False)
     shapes, logical = jtf.serve_cache_spec(full_j, 128, 32_768)
     _, got = tsteps.cache_spec(full_t, 128, 32_768, tr)
-    for k in ("k", "v"):
-        want = jsh.resolve_spec(shapes["layers"][k].shape,
-                                log_parse(logical["layers"][k]),
-                                jr.act_rules, jr)
-        assert got["layers"][k] == tuple(want)
+    want = jax.tree.map(lambda s, log: tuple(jsh.resolve_spec(
+        s.shape, log_parse(log), jr.act_rules, jr)), shapes, logical)
+    assert _spec_leaves(want) == _spec_leaves(got)
 
 
 def test_host_mesh_is_one_device():
