@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--views 4] [--res 200]
+    python3 chip_smoke.py [--seed 0] [--views 2] [--res 200]
 
 Serves novel views from a compressed TensoRF field at the full width of
 `NeRFConfig()` (grid 160, R 16 + 48, app_dim 27, 8192 cubes) through the
@@ -11,6 +11,43 @@ line each:
 
   device   the card (torch and nvidia-smi);
   build    the kernels compiled from src/repro_torch/kernels/csrc;
+  lm_train language-model training (plain PyTorch ops under autograd; no
+           kernel of the port), first, while the machine's memory is
+           free: one step (AdamW at the launcher's lr and schedule, the
+           clip) of every reduced config in float32 and bf16, and of
+           llama3.2-1b at published widths with 2 layers in float32, on
+           the card against the CPU (loss, every gradient leaf, every
+           updated param); llama3.2-1b whole (AdamW, 8 x 512 tokens) and
+           grok-1 cut to 1 layer (adafactor, COO, 4 x 128) trained at
+           published widths in bf16, one `lm_train_full` line each: ms a
+           step and its forward / backward / clip + update split, tok/s,
+           peak memory, a profiled step, the least time the card could
+           take; the training launcher as users run it: an injected
+           failure beside the same run without it (the final checkpoints
+           equal), the reduced deepseek-v3 and seamless-m4t, and
+           llama3.2-1b at full size (two 12.4 GB checkpoints, their
+           write seconds);
+  lm       language-model serving of all ten archs (plain PyTorch ops;
+           no kernel of the port): the reduced config of each in float32
+           (greedy tokens equal too) and bfloat16, and LM_WIDE_CUTS
+           (published widths, depth cut) in float32, prefill and decode
+           on the card against the CPU on the same params, tokens and
+           encoder frames; each of LM_FULL_CUTS at published widths on
+           the card in bf16 (llama3.2-1b, zamba2-7b, rwkv6-1.6b and
+           seamless-m4t-large-v2 whole, deepseek-v3 1 dense + 1 MoE
+           layer, grok-1 2 layers), one `lm_full` line each: prefill ms,
+           decode ms a step and tok/s at LM_FULL (batch 4, prompt 128,
+           32 greedy tokens), peak memory, the least time the card could
+           take, a profile of a prefill and 4 decode steps (not for
+           the recurrent archs), and prefill-then-decode against the
+           teacher-forced forward (float32 and bf16; MoE at check
+           capacity), for the MoE archs the bitmap and COO dispatches
+           agreeing on the first MoE layer's input, for the recurrent
+           archs the float32 check at LM_RECURRENT_SEEDS seeds; the
+           launcher run as a user runs it (`--arch <a> --reduced`) for
+           llama3.2-1b and the five archs beyond the dense trunk, on
+           cuda, the six side by side; after lm_train, while the
+           machine's memory is free;
   field    a full-width field made from --seed with numpy, density
            confined to a few blobs, pruned and hybrid-encoded;
   serve    RenderEngine(cfg, field, device="cuda") builds the occupancy on
@@ -61,7 +98,7 @@ line each:
            views (one ray chunk each): the seconds from spawn to the
            first result; each image against the port's CPU path (every
            8th ray) and beside the parent's in-process engine; a
-           replicated scene served by both workers; the same 8 views
+           replicated scene served by both workers; the same 4 views
            through one worker and across two; a worker SIGKILLed with
            views queued behind an injected stall, every future resolved
            and the live ones replayed; each worker's device, dispatch
@@ -72,26 +109,6 @@ line each:
            workers with the hot scene on both): exit codes, seconds, the
            device each printed, views, fps, kernel launches, and PSNRs
            equal to 0.01 dB across the runs;
-  lm       language-model serving of all ten archs (plain PyTorch ops;
-           no kernel of the port): the reduced config of each in float32
-           (greedy tokens equal too) and bfloat16, and LM_WIDE_CUTS
-           (published widths, depth cut) in float32, prefill and decode
-           on the card against the CPU on the same params, tokens and
-           encoder frames; each of LM_FULL_CUTS at published widths on
-           the card in bf16 (llama3.2-1b, zamba2-7b, rwkv6-1.6b and
-           seamless-m4t-large-v2 whole, deepseek-v3 1 dense + 1 MoE
-           layer, grok-1 2 layers), one `lm_full` line each: prefill ms,
-           decode ms a step and tok/s at LM_FULL (batch 4, prompt 128,
-           32 greedy tokens), peak memory, the least time the card could
-           take, a profile of a prefill and 4 decode steps (not for
-           the recurrent archs), and prefill-then-decode against the
-           teacher-forced forward (float32 and bf16; MoE at check
-           capacity), for the MoE archs the bitmap and COO dispatches
-           agreeing on the first MoE layer's input, for the recurrent
-           archs the float32 check at LM_RECURRENT_SEEDS seeds; the
-           launcher run as a user runs it
-           (`--arch <a> --reduced`) for llama3.2-1b and the five archs
-           beyond the dense trunk, on cuda;
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
            kernel_ops or train), the largest error against its plain
            version
@@ -260,7 +277,7 @@ FT_STEPS, FT_PUBLISH, FT_VIEWS, FT_MAX_REQUESTS = 4, 2, 4, 8
 # test_cube_chunk_moves_the_image_as_in_the_reference)
 FLEET_WORKERS = 2
 FLEET_RES = 64
-FLEET_TIMED_VIEWS = 8
+FLEET_TIMED_VIEWS = 4
 FLEET_STALL_S = 2.0
 FLEET_KILL_AFTER_S = 0.5
 FLEET_IN_FLIGHT = 3
@@ -346,11 +363,66 @@ LM_DISPATCH_TOL = 1e-4        # bitmap vs COO, float32, no drops
 # LM_BF16_NOISE_RATIO.
 LM_RECURRENT = ("hybrid", "ssm")
 LM_RECURRENT_F32_TOL = 5e-3
-LM_RECURRENT_SEEDS = 2
+LM_RECURRENT_SEEDS = 1        # more seeds repeat the check (25 s a seed)
 LM_LAUNCH_ARCHS = ("llama3.2-1b", "deepseek-v3-671b", "grok-1-314b",
                    "zamba2-7b", "rwkv6-1.6b", "seamless-m4t-large-v2")
 LM_LAUNCH_ARGS = ["--reduced", "--batch", "4", "--prompt-len", "32",
                   "--gen", "16"]
+# the lm_train phase: language-model training (launch/steps.py's
+# build_train_step over models/transformer.model_loss and autograd, the
+# optim package, data/tokens.py, launch/elastic.py, launch/train.py; no
+# kernel of the port). Card against the CPU: one step of AdamW at the
+# launcher's lr and schedule, with the clip, on the same params and
+# TokenStream batch. The loss to 1e-5 relative in float32 (3e-2 in bf16),
+# every gradient leaf to 1e-4 of its largest in float32 (the NeRF
+# trainer's rule) and 3e-2 in bf16. AdamW's first step moves a param by
+# lr g / (|g| + eps), near sign(g): where |g| sits at the gradients' own
+# error two devices may move it apart by up to 2 lr, so each float32 param
+# is held to that tolerance of its leaf's largest plus the first-order
+# reach of the gradient error, lr x 4 tol max|g| / (|g| + eps), g = m /
+# (1 - b1) (`adamw_first_step_ratio`; bf16 params too, with 3e-2: a
+# zero-initialised bias moves by about lr, so its leaf's largest is no
+# scale for it). The recurrent archs' bf16 gradients are held by the
+# ratio rule of their serving logits (no farther from the CPU's float32
+# gradients than the CPU's bf16 ones, LM_BF16_NOISE_RATIO; ROADMAP Queue
+# 3 item 21); an MoE arch's by the same rule only where a token's bf16
+# route differs between the devices (each such token named).
+LM_TRAIN_SMALL = {"batch": 2, "seq": 16}
+LM_TRAIN_LR = 3e-4                  # launch/train.py's default
+LM_TRAIN_STEPS = 20                 # its schedule: cosine(max(n // 20, 1), n)
+LM_TRAIN_ADAMW = {"b1": 0.9, "eps": 1e-8}       # adamw's defaults
+LM_TRAIN_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 3e-2}
+LM_TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+LM_TRAIN_WIDE_CUTS = {"llama3.2-1b": {"n_layers": 2}}
+# the enc-dec arch's first encoder norm gain is differentiated through the
+# bf16 cast of the encoder frames (its cotangent rounds to bf16 on both
+# devices; ROADMAP Queue 3 item 24): in float32 it is held to one bf16
+# ulp of its largest (1.2e-4 read on an H100, the others within 2.6e-6)
+LM_TRAIN_BF16_CAST_LEAF = ("/enc/ln1", 2.0 ** -8)
+# published widths in bf16 on the card, timed: llama3.2-1b whole with
+# AdamW; grok-1 cut to 1 layer with adafactor, the optimizer that
+# pick_optimizer gives the uncut 316 B arch (AdamW's float32 moments of
+# the cut, 52 GB, do not fit beside it); COO dispatch at capacity 1.25
+LM_TRAIN_FULL = {
+    "llama3.2-1b": {"cut": {}, "batch": 8, "seq": 512, "warmup": 2,
+                    "steps": 10},
+    "grok-1-314b": {"cut": {"n_layers": 1}, "batch": 4, "seq": 128,
+                    "warmup": 1, "steps": 5}}
+# the training launcher as users run it: an injected failure beside the
+# same run without it, the full-size model (two checkpoints of 12.4 GB),
+# and the reduced MoE-with-MTP and enc-dec archs
+LM_TRAIN_LAUNCH = ["--arch", "llama3.2-1b", "--reduced", "--steps", "8",
+                   "--ckpt-every", "2"]
+LM_TRAIN_FAIL_AT = 5
+LM_TRAIN_LAUNCH_FULL = ["--arch", "llama3.2-1b", "--no-reduced", "--steps",
+                        "3", "--batch", "8", "--seq", "512"]
+LM_TRAIN_LAUNCH_ARCHS = ("deepseek-v3-671b", "seamless-m4t-large-v2")
+LM_TRAIN_LAUNCH_TIMEOUT_S = 600
+# the full-size launcher run writes two 12.4 GB checkpoints into the
+# temporary directory (RAM-backed on the card's machine) and holds a
+# 12.4 GB host copy of its state for each: it starts only with this much
+# memory available, and the smoke fails with the reading otherwise
+LM_TRAIN_FULL_RUN_RAM_GB = 48
 
 
 def emit(obj) -> None:
@@ -2233,19 +2305,17 @@ def lm_card_vs_cpu(torch, lm, cfg, dtype, seed, dev) -> dict:
     return line
 
 
-def lm_profile(torch, lm, cfg, params, tokens, frames, n_decode,
-               dev) -> dict:
-    """One prefill and `n_decode` greedy decode steps under torch.profiler:
-    wall time, the device's busy share (summed kernel time over wall
-    time), the kernels launched a decode step, and the kernels taking
-    the most device time."""
+def profile_run(torch, fn) -> dict:
+    """`fn()` under torch.profiler: wall time, the device's busy share
+    (summed kernel time over wall time), the kernels launched, and the
+    kernels taking the most device time ("not measured" where the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lm_serve(torch, lm, cfg, params, tokens, None, n_decode, dev,
-                 enc_frames=frames)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows = [(e.self_device_time_total, e.key, e.count)
@@ -2253,13 +2323,31 @@ def lm_profile(torch, lm, cfg, params, tokens, frames, n_decode,
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_s = sum(r[0] for r in rows) * 1e-6
     rows.sort(reverse=True)
-    return {"wall_s": wall, "decode_steps": n_decode,
+    return {"wall_s": wall,
             "kernels_launched": sum(r[2] for r in rows) if rows
             else "not measured",
             "device_busy_s": busy_s if rows else "not measured",
             "device_busy_share": busy_s / wall if rows else "not measured",
             "top_kernels": [{"name": k[:80], "device_ms": us * 1e-3,
                              "calls": n} for us, k, n in rows[:6]]}
+
+
+def lm_profile(torch, lm, cfg, params, tokens, frames, n_decode,
+               dev) -> dict:
+    """One prefill and `n_decode` greedy decode steps under torch.profiler
+    (`profile_run`)."""
+    return {"decode_steps": n_decode, **profile_run(torch, lambda: lm_serve(
+        torch, lm, cfg, params, tokens, None, n_decode, dev,
+        enc_frames=frames))}
+
+
+def tree_numel(t) -> int:
+    """The elements of a tree of tensors (None: 0)."""
+    if t is None:
+        return 0
+    if isinstance(t, dict):
+        return sum(tree_numel(v) for v in t.values())
+    return t.numel()
 
 
 def lm_bounds(cfg, params, B: int, P: int, G: int) -> dict:
@@ -2273,23 +2361,18 @@ def lm_bounds(cfg, params, B: int, P: int, G: int) -> dict:
     the trunk, the head, the B * top_k experts its tokens route to
     (assumed distinct) and the cache or states, and does 2 flops a param
     a token of those."""
-    def numel(t):
-        if t is None:
-            return 0
-        if isinstance(t, dict):
-            return sum(numel(v) for v in t.values())
-        return t.numel()
     d = cfg.d_model
-    n_all = numel(params)
+    n_all = tree_numel(params)
     n_embed = params["embed"].numel()
-    n_head = numel(params.get("head")) or n_embed
-    n_enc = numel(params.get("enc")) + numel(params.get("enc_norm"))
-    n_exp = sum(numel(params["moe_layers"]["moe"].get(k))
+    n_head = tree_numel(params.get("head")) or n_embed
+    n_enc = (tree_numel(params.get("enc"))
+             + tree_numel(params.get("enc_norm")))
+    n_exp = sum(tree_numel(params["moe_layers"]["moe"].get(k))
                 for k in ("w1", "w2", "w3")) if cfg.is_moe else 0
     n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.is_moe else 0
     per_exp = n_exp / max(n_moe * cfg.n_experts, 1)
-    n_trunk = (n_all - n_embed - numel(params.get("head"))
-               - numel(params.get("mtp")) - n_enc - n_exp)
+    n_trunk = (n_all - n_embed - tree_numel(params.get("head"))
+               - tree_numel(params.get("mtp")) - n_enc - n_exp)
     n_tok = n_trunk + n_moe * cfg.top_k * per_exp      # params a token runs
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every
@@ -2325,7 +2408,8 @@ def lm_bounds(cfg, params, B: int, P: int, G: int) -> dict:
     pre_ops = (2 * n_tok * B * P + 2 * n_head * B
                + B * n_attn * pre_attn * P * (P + 1) // 2
                + B * P * (state_ops + cross))
-    pre_bytes = 2 * (n_all - numel(params.get("mtp"))) + B * P * cache_row \
+    pre_bytes = 2 * (n_all - tree_numel(params.get("mtp"))) \
+        + B * P * cache_row \
         + B * state_bytes
     if cfg.enc_dec:
         pre_ops += (2 * n_enc * B * P
@@ -2560,39 +2644,100 @@ def lm_full(torch, lm, cfg, seed, dev, timed: bool = True) -> dict:
     return line
 
 
-def lm_launch(torch, arch: str) -> dict:
-    """`python -m repro_torch.launch.serve --arch <arch>` with
-    LM_LAUNCH_ARGS as a user runs it, on the card: exit 0, the card's
-    name, one prefill, decode and sample line."""
+def run_launchers(torch, module: str, arg_lists, timeout=LAUNCH_TIMEOUT_S):
+    """`python -m <module> <args>` from the checkout for each of
+    `arg_lists`, all started together, as a user runs them; fails unless
+    each exits 0 and prints the card's name as its device (a run past
+    `timeout` is killed, with the rest). Returns [(stdout, seconds)]."""
     import os
     import re
-    args = ["--arch", arch] + LM_LAUNCH_ARGS
-    t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *args], cwd=str(ROOT), env=env,
-                         capture_output=True, text=True,
-                         timeout=LAUNCH_TIMEOUT_S)
-    out = res.stdout
-    check(res.returncode == 0, f"lm launcher {args} exited "
-          f"{res.returncode}:\n{out[-3000:]}\n{res.stderr[-3000:]}")
-    device = re.findall(r"^\[serve\] device: (.*)$", out, re.M)
+    runs = []
+    try:
+        for args in arg_lists:
+            out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
+            runs.append((args, subprocess.Popen(
+                [sys.executable, "-m", module, *args], cwd=str(ROOT),
+                env=env, stdout=out, stderr=err), out, err,
+                time.perf_counter()))
+        ended = {}
+        while len(ended) < len(runs):
+            for i, (_, proc, _, _, t0) in enumerate(runs):
+                if i not in ended and proc.poll() is not None:
+                    ended[i] = time.perf_counter() - t0
+            check(all(time.perf_counter() - r[4] < timeout for i, r in
+                      enumerate(runs) if i not in ended),
+                  f"{module}: a run passed {timeout} s")
+            time.sleep(0.05)
+    finally:
+        for _, proc, _, _, _ in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     kind = torch.cuda.get_device_name(0)
-    check(device == [kind], f"lm launcher printed device {device}, not "
-          f"{kind}")
+    results = []
+    for i, (args, proc, out, err, _) in enumerate(runs):
+        out.seek(0)
+        err.seek(0)
+        text, errs = out.read().decode(), err.read().decode()
+        out.close()
+        err.close()
+        check(proc.returncode == 0, f"{module} {args} exited "
+              f"{proc.returncode}:\n{text[-3000:]}\n{errs[-3000:]}")
+        device = re.findall(r"^\[\w+\] device: (.*)$", text, re.M)
+        check(device == [kind], f"{module} printed device {device}, not "
+              f"{kind}")
+        results.append((text, ended[i]))
+    return results
+
+
+def run_launcher(torch, module: str, args, timeout=LAUNCH_TIMEOUT_S):
+    """One `run_launchers` run: (stdout, seconds)."""
+    return run_launchers(torch, module, [args], timeout)[0]
+
+
+def lm_launch(torch, archs) -> list:
+    """`python -m repro_torch.launch.serve --arch <arch>` with
+    LM_LAUNCH_ARGS as a user runs it, on the card, for each of `archs`,
+    all started together (their seconds and rates are those of runs side
+    by side): exit 0, the card's name, one prefill, decode and sample
+    line each."""
+    arg_lists = [["--arch", arch] + LM_LAUNCH_ARGS for arch in archs]
+    return [lm_launch_result(torch, args, out, seconds)
+            for args, (out, seconds) in zip(arg_lists, run_launchers(
+                torch, "repro_torch.launch.serve", arg_lists))]
+
+
+def lm_launch_result(torch, args, out: str, seconds: float) -> dict:
+    import re
     pre = re.findall(r"^prefill: ([\d.]+)s logits (.*)$", out, re.M)
     rate = re.findall(r"^decoded (\d+)x(\d+) tokens in ([\d.]+)s "
                       r"\(([\d.]+) tok/s\)$", out, re.M)
     sample = re.findall(r"^sample: (.*)$", out, re.M)
     check(len(pre) == 1 and len(rate) == 1 and len(sample) == 1,
           f"lm launcher {args} output:\n{out[-2000:]}")
-    return {"args": args, "exit_code": res.returncode,
-            "seconds": time.perf_counter() - t0, "device": device[0],
+    return {"args": args, "exit_code": 0, "seconds": seconds,
+            "device": torch.cuda.get_device_name(0),
             "prefill_s": float(pre[0][0]), "logits": pre[0][1],
             "decoded": [int(rate[0][0]), int(rate[0][1])],
             "decode_s": float(rate[0][2]), "tok_s": float(rate[0][3]),
             "sample": json.loads(sample[0])}
+
+
+def lm_modules():
+    """The port's modules that the lm and lm_train phases drive."""
+    from repro_torch import optim
+    from repro_torch import ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data import tokens
+    from repro_torch.launch import elastic, mesh, steps
+    from repro_torch.models import common, moe, sharding
+    from repro_torch.models import transformer as tf
+    return types.SimpleNamespace(
+        mesh=mesh, steps=steps, common=common, sharding=sharding, tf=tf,
+        moe=moe, registry=registry, tokens=tokens, elastic=elastic,
+        optim=optim, ckpt=ckpt)
 
 
 def lm_phase(torch, seed, dev) -> dict:
@@ -2602,13 +2747,8 @@ def lm_phase(torch, seed, dev) -> dict:
     `lm_full` line each), and the recurrent archs' float32 check at
     further seeds. (3) The launcher, as a user runs it, for
     LM_LAUNCH_ARCHS."""
-    from repro_torch.configs import registry
-    from repro_torch.launch import mesh, steps
-    from repro_torch.models import common, moe, sharding
-    from repro_torch.models import transformer as tf
-
-    lm = types.SimpleNamespace(mesh=mesh, steps=steps, common=common,
-                               sharding=sharding, tf=tf, moe=moe)
+    lm = lm_modules()
+    registry = lm.registry
     t_phase = time.perf_counter()
     seconds = {}
     t0 = time.perf_counter()
@@ -2648,7 +2788,7 @@ def lm_phase(torch, seed, dev) -> dict:
             recurrent.append((cfg, row))
     seconds["recurrent_seeds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launch = [lm_launch(torch, name) for name in LM_LAUNCH_ARCHS]
+    launch = lm_launch(torch, LM_LAUNCH_ARCHS)
     seconds["launch"] = time.perf_counter() - t0
     return {"phase": "lm", "seconds": time.perf_counter() - t_phase,
             "part_seconds": seconds, "card_vs_cpu": parity,
@@ -2663,6 +2803,534 @@ def lm_phase(torch, seed, dev) -> dict:
                  "vs_f64_forward": r["f32_vs_f64_forward_max_mean"]}
                 for _, r in recurrent],
             "launch": launch}
+
+
+# --------------------------------------------------------------------------
+# lm_train: language-model training on the card
+# --------------------------------------------------------------------------
+
+
+def named_leaves(tree, path=""):
+    """(path, leaf) of a tree of tensors, keys in sorted order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{path}/{k}")
+    elif tree is not None:
+        yield path, tree
+
+
+def flat_cpu(torch, tree):
+    """A tree's leaves as one float32 vector on the CPU."""
+    return torch.cat([t.detach().float().reshape(-1).cpu()
+                      for _, t in named_leaves(tree)])
+
+
+def leaf_rel_err(torch, got, want, skip=()) -> tuple:
+    """(the largest over leaves of max|got - want| / max|want|, its leaf);
+    a leaf that is zero in `want` counts its largest |got|; the paths in
+    `skip` are left out."""
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(named_leaves(got), named_leaves(want)):
+        if path in skip:
+            continue
+        a, b = a.detach().float().cpu(), b.detach().float().cpu()
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rel = err / scale if scale else (0.0 if err == 0 else math.inf)
+        if rel > worst or where is None:
+            worst, where = rel, path
+    return worst, where
+
+
+def adamw_first_step_ratio(torch, got, want, m, tol) -> float:
+    """The largest ratio over every param of |got - want| to AdamW's
+    first-step bound (LM_TRAIN_ADAMW; see the lm_train constants):
+    tol x its leaf's largest + lr x 4 tol max|g| / (|g| + eps), g = m /
+    (1 - b1). At most 1 passes."""
+    b1, eps = LM_TRAIN_ADAMW["b1"], LM_TRAIN_ADAMW["eps"]
+    worst = 0.0
+    for (_, a), (_, b), (_, mm) in zip(named_leaves(got), named_leaves(want),
+                                       named_leaves(m)):
+        a, b = a.float().cpu(), b.float().cpu()
+        g = mm.float().cpu().abs() / (1 - b1)
+        bnd = (tol * b.abs().max()
+               + LM_TRAIN_LR * 4 * tol * g.max() / (g + eps))
+        diff = (a - b).abs()
+        ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / bnd)
+        worst = max(worst, float(ratio.max()))
+    return worst
+
+
+def lm_train_opt(lm, n_params: int):
+    """The launcher's optimizer for a model of `n_params`: its size rule,
+    lr and schedule."""
+    return lm.optim.pick_optimizer(
+        n_params, lr=LM_TRAIN_LR, schedule=lm.optim.cosine_schedule(
+            max(LM_TRAIN_STEPS // 20, 1), LM_TRAIN_STEPS))
+
+
+def lm_train_batch(lm, cfg, B: int, S: int, seed: int, step: int, dev):
+    from repro_torch.configs.base import ShapeConfig
+    return lm.tokens.TokenStream(cfg, ShapeConfig("smoke", S, B, "train"),
+                                 seed=seed, device=dev).batch(step)
+
+
+def lm_train_one(torch, lm, cfg, params, batch, dev) -> dict:
+    """On `dev`: one `build_train_step` step with AdamW at the launcher's
+    lr and schedule (the clip included), and the loss and gradients its
+    `steps.loss_and_grads` call returned (kept as it returns them)."""
+    rules = lm.sharding.make_rules(lm.elastic.make_mesh_from([dev], 1))
+    opt = lm.optim.adamw(lr=LM_TRAIN_LR, schedule=lm.optim.cosine_schedule(
+        max(LM_TRAIN_STEPS // 20, 1), LM_TRAIN_STEPS))
+    seen, real = [], lm.steps.loss_and_grads
+
+    def grab(*args):
+        seen.append(real(*args))
+        return seen[-1]
+
+    lm.steps.loss_and_grads = grab
+    try:
+        new, state, metrics = lm.steps.build_train_step(cfg, rules, opt)(
+            params, opt.init(params), batch)
+    finally:
+        lm.steps.loss_and_grads = real
+    check(len(seen) == 1, f"{cfg.name}: {len(seen)} loss_and_grads calls")
+    loss, _, grads = seen[0]
+    return {"loss": float(loss), "grads": grads, "params": new,
+            "m": state["m"],
+            "metrics": {k: float(v) for k, v in metrics.items()}}
+
+
+def lm_routes(torch, lm, cfg, params, batch) -> list:
+    """Each MoE router call's top-k experts (CPU tensors) in a forward of
+    `model_loss`."""
+    got, real = [], lm.moe._router_scores
+
+    def grab(p, c, x):
+        out = real(p, c, x)
+        got.append(out[1].detach().cpu())
+        return out
+
+    lm.moe._router_scores = grab
+    try:
+        with torch.no_grad():
+            lm.tf.model_loss(params, cfg, batch)
+    finally:
+        lm.moe._router_scores = real
+    return got
+
+
+def lm_train_card_vs_cpu(torch, lm, cfg, dtype, seed, dev) -> dict:
+    """One model's params drawn on the CPU from `seed` and copied to the
+    card, one TokenStream batch: `lm_train_one` on both devices, the loss,
+    every gradient leaf and every updated param compared (the lm_train
+    constants' rules)."""
+    tdt = getattr(torch, dtype)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(seed)
+    params, _ = lm.common.split_pl(lm.tf.init_model(cfg, gen, dtype=tdt,
+                                                    device=cpu))
+    B, S = LM_TRAIN_SMALL["batch"], LM_TRAIN_SMALL["seq"]
+    batch = lm_train_batch(lm, cfg, B, S, seed, 0, cpu)
+    t0 = time.perf_counter()
+    want = lm_train_one(torch, lm, cfg, params, batch, cpu)
+    t_cpu = time.perf_counter() - t0
+    dparams = lm.common.tree_map(lambda a: a.to(dev), params)
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    got = lm_train_one(torch, lm, cfg, dparams, dbatch, dev)
+    torch.cuda.synchronize()
+    name = f"lm_train {cfg.name} {dtype}"
+    check(math.isfinite(got["loss"]) and all(
+        bool(torch.isfinite(g).all()) for _, g in named_leaves(got["grads"]))
+        and all(bool(torch.isfinite(p).all())
+                for _, p in named_leaves(got["params"])),
+        f"{name}: card loss, gradients or params are not finite")
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    grad_err, grad_leaf = leaf_rel_err(torch, got["grads"], want["grads"])
+    param_err, param_leaf = leaf_rel_err(torch, got["params"],
+                                         want["params"])
+    tol = LM_TRAIN_GRAD_TOL[dtype]
+    line = {"arch": cfg.name, "dtype": dtype, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "seed": seed, "batch": B, "seq": S,
+            "loss": [want["loss"], got["loss"]], "loss_rel_err": loss_err,
+            "loss_rtol": LM_TRAIN_LOSS_RTOL[dtype],
+            "grad_max_rel_err": grad_err, "grad_worst_leaf": grad_leaf,
+            "grad_tol": tol, "param_max_rel_err": param_err,
+            "param_worst_leaf": param_leaf,
+            "grad_norm": [want["metrics"]["grad_norm"],
+                          got["metrics"]["grad_norm"]],
+            "cpu_s": t_cpu}
+    check(loss_err <= LM_TRAIN_LOSS_RTOL[dtype], f"{name}: loss "
+          f"{got['loss']} vs the CPU's {want['loss']}")
+    ratio = adamw_first_step_ratio(torch, got["params"], want["params"],
+                                   want["m"], tol)
+    line["param_vs_first_step_bound"] = ratio
+    check(ratio <= 1.0, f"{name}: params past AdamW's first-step bound "
+          f"({ratio} of it)")
+    if dtype == "float32":
+        if cfg.enc_dec:
+            path, loose = LM_TRAIN_BF16_CAST_LEAF
+            err, _ = leaf_rel_err(torch, *(dict(named_leaves(t["grads"]))[
+                path] for t in (got, want)))
+            line["bf16_cast_leaf"] = {"leaf": path, "max_rel_err": err,
+                                      "tol": loose}
+            check(err <= loose, f"{name}: gradient {path} off by {err} of "
+                  f"its largest (tol {loose})")
+            grad_err, grad_leaf = leaf_rel_err(torch, got["grads"],
+                                               want["grads"], skip=(path,))
+            line.update(grad_max_rel_err=grad_err, grad_worst_leaf=grad_leaf)
+        check(grad_err <= tol, f"{name}: gradient {grad_leaf} off by "
+              f"{grad_err} of its largest (tol {tol})")
+        return line
+    flips = []
+    if cfg.is_moe and grad_err > tol:
+        for i, (a, b) in enumerate(zip(
+                lm_routes(torch, lm, cfg, params, batch),
+                lm_routes(torch, lm, cfg, dparams, dbatch))):
+            differ = (a.sort(dim=-1).values != b.sort(dim=-1).values).any(-1)
+            flips += [{"router_call": i, "token": t}
+                      for t in differ.nonzero().tolist()]
+        line["route_flips"] = flips
+    if cfg.family in LM_RECURRENT or flips:
+        truth = lm_train_one(torch, lm, cfg, lm.common.tree_map(
+            lambda a: a.float(), params), batch, cpu)
+        line["grad_tol"] = (f"no farther from the float32 gradients than "
+                            f"the CPU's bf16, x{LM_BF16_NOISE_RATIO}")
+        line["bf16_noise_vs_f32_max_mean"] = noise_check(
+            torch, cfg.name, "bf16 gradient", flat_cpu(torch, got["grads"]),
+            flat_cpu(torch, want["grads"]), flat_cpu(torch, truth["grads"]),
+            LM_BF16_NOISE_RATIO, labels=("card", "cpu"))
+    else:
+        check(grad_err <= tol, f"{name}: gradient {grad_leaf} off by "
+              f"{grad_err} of its largest (tol {tol})")
+    return line
+
+
+def lm_train_bound(cfg, params, opt_name: str, tokens: int) -> dict:
+    """The least time the card could take for a bf16 training step (H100
+    SXM peaks): 6 flops a param a token over the params a token runs (an
+    MoE layer's top_k experts of n_experts), against the bytes of the
+    clip (reading and writing each bf16 gradient) and the update (AdamW
+    reads the bf16 param and gradient and the float32 m and v and writes
+    all but the gradient, 22 B a param; adafactor reads the param and
+    gradient and writes the param, 6 B, its factored statistics
+    negligible)."""
+    n_all = tree_numel(params)
+    n_exp = (sum(tree_numel(params["moe_layers"]["moe"].get(k))
+                 for k in ("w1", "w2", "w3")) if cfg.is_moe else 0)
+    n_active = n_all - n_exp + n_exp * cfg.top_k / max(cfg.n_experts, 1)
+    ops = 6 * n_active * tokens
+    per_param = 4 + {"adamw": 22, "adafactor": 6}[opt_name]
+    ms, by = bound(n_all * per_param, ops, PEAK_16BIT_S)
+    return {"params": n_all, "active_params": n_active, "bound_ops": ops,
+            "bound_bytes": n_all * per_param, "bound_ms": ms,
+            "bound_by": by}
+
+
+def lm_train_full(torch, lm, name: str, spec: dict, seed: int, dev) -> dict:
+    """One arch at published widths (depth cut by `spec`) trained on the
+    card in bf16 from params drawn there: `spec`'s warm-up steps, then its
+    timed steps (median ms a step, tokens a second, peak memory), one step
+    split into forward / backward / clip + update, one step under the
+    profiler; every loss and param finite, the batch's embedding rows
+    moved."""
+    uncut = lm.registry.ARCHS[name]
+    cfg = dataclasses.replace(uncut, **spec["cut"])
+    B, S = spec["batch"], spec["seq"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, _ = lm.common.split_pl(lm.tf.init_model(cfg, gen, device=dev))
+    opt = lm_train_opt(lm, lm.steps.count_params(
+        lm.steps.abstract_params(uncut)[0]))
+    state = opt.init(params)
+    rules = lm.sharding.make_rules(lm.elastic.make_mesh_from([dev], 1))
+    step = lm.steps.build_train_step(cfg, rules, opt)
+    batches = iter(lm_train_batch(lm, cfg, B, S, seed, i, dev)
+                   for i in range(10 ** 6))
+    first = next(batches)
+    rows = torch.unique(first["tokens"])
+    embed0 = params["embed"][rows].float()
+    torch.cuda.synchronize()
+    line = {"arch": cfg.name, "cut": spec["cut"], "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "dtype": "bfloat16",
+            "dispatch": cfg.resolved_dispatch() if cfg.is_moe else None,
+            "capacity_factor": cfg.capacity_factor if cfg.is_moe else None,
+            "optimizer": opt.name, "batch": B, "seq": S,
+            "tokens_per_step": B * S, "seed": seed,
+            "init_s": time.perf_counter() - t0}
+    losses = []
+
+    def run_step(batch):
+        nonlocal params, state
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()          # the update after the loss
+
+    run_step(first)
+    for _ in range(spec["warmup"] - 1):
+        run_step(next(batches))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(spec["steps"]):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_step(batch)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    # one step in three synchronised parts, as build_train_step runs it
+    batch = next(batches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with lm.sharding.use_rules(rules):
+        tracked, leaves = lm.steps.track(params)
+        with torch.enable_grad():
+            loss, _ = lm.tf.model_loss(tracked, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = lm.steps.grads_of(loss, tracked, leaves)
+        del tracked, leaves
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads, _ = lm.optim.clip_by_global_norm(grads, lm.steps.GRAD_CLIP)
+        params, state = opt.update(grads, state, params)
+        del grads
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    losses.append(float(loss.detach()))
+    del loss
+    batch = next(batches)
+    prof = profile_run(torch, lambda: run_step(batch))
+    moved = float((params["embed"][rows].float() - embed0).abs().max())
+    check(all(math.isfinite(x) for x in losses),
+          f"lm_train {cfg.name}: losses {losses}")
+    check(all(bool(torch.isfinite(p).all())
+              for _, p in named_leaves(params)),
+          f"lm_train {cfg.name}: a param is not finite")
+    check(moved > 0, f"lm_train {cfg.name}: the embedding did not move")
+    med = sorted(ms)[len(ms) // 2]
+    line.update(
+        step_ms=med, step_ms_all=ms, tok_s=B * S / med * 1e3,
+        split_ms={"forward": (t1 - t0) * 1e3, "backward": (t2 - t1) * 1e3,
+                  "clip_update": (t3 - t2) * 1e3},
+        peak_memory_gb=peak / 1e9, loss_first=losses[0],
+        loss_last=losses[-1], losses=losses, embed_rows_moved=moved,
+        profile_step=prof,
+        kernels_a_step=prof["kernels_launched"],
+        device_busy_share=prof["device_busy_share"],
+        **lm_train_bound(cfg, params, opt.name, B * S))
+    del params, state, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def lm_train_launch(torch, *arg_lists) -> list:
+    """`python -m repro_torch.launch.train <args>` as a user runs it, on
+    the card, for each of `arg_lists` (started together): exit 0, the
+    card's name, the trained-steps and loss lines (finite), and its
+    events, one dict each."""
+    return [lm_train_result(args, out, seconds) for args, (out, seconds) in
+            zip(arg_lists, run_launchers(
+                torch, "repro_torch.launch.train", arg_lists,
+                LM_TRAIN_LAUNCH_TIMEOUT_S))]
+
+
+def lm_train_result(args, out: str, seconds: float) -> dict:
+    import ast
+    import re
+    trained = re.findall(r"^trained (\d+) steps in ([\d.]+)s "
+                         r"\(([\d.]+)s/step\)$", out, re.M)
+    loss = re.findall(r"^loss: first=(\S+) last=(\S+)$", out, re.M)
+    check(len(trained) == 1 and len(loss) == 1,
+          f"train launcher {args} output:\n{out[-2000:]}")
+    first, last = float(loss[0][0]), float(loss[0][1])
+    check(math.isfinite(first) and math.isfinite(last),
+          f"train launcher {args}: losses {first}, {last}")
+    return {"args": args, "exit_code": 0, "seconds": seconds,
+            "steps": int(trained[0][0]), "train_s": float(trained[0][1]),
+            "loss_first": first, "loss_last": last,
+            "events": [ast.literal_eval(e) for e in
+                       re.findall(r"^event: (.*)$", out, re.M)]}
+
+
+def ckpt_tensors(torch, directory: str, step: int) -> list:
+    """A checkpoint's leaves as float32 CPU tensors (bf16 ones from their
+    bits), read from the files."""
+    import os
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    out = []
+    for i, meta in enumerate(leaves):
+        arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
+        t = torch.from_numpy(arr.view(np.int16) if meta["dtype"] ==
+                             "bfloat16" else np.array(arr))
+        out.append((t.view(torch.bfloat16) if meta["dtype"] == "bfloat16"
+                    else t).float())
+    return out
+
+
+def ckpt_bytes(directory: str, step: int) -> dict:
+    import os
+    path = os.path.join(directory, f"step_{step:08d}")
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def memory_gb() -> dict:
+    """The machine's available memory and this process's resident set,
+    from /proc (GB)."""
+    out = {}
+    for path, key, name in (("/proc/meminfo", "MemAvailable:", "available"),
+                            ("/proc/self/status", "VmRSS:", "rss")):
+        with open(path) as f:
+            for line in f:
+                if line.startswith(key):
+                    out[f"{name}_gb"] = int(line.split()[1]) * 1024 / 1e9
+    return out
+
+
+def lm_train_launch_phase(torch, lm) -> dict:
+    """The training launcher as users run it (LM_TRAIN_LAUNCH*): the
+    injected failure's events, and its final checkpoint against the
+    uninterrupted run's (bit for bit; else within the spread of two
+    uninterrupted runs); the full-size run into a temporary directory,
+    removed afterwards, with each checkpoint's bytes and write seconds
+    (from the first leaf file's mtime to the manifest's: the first leaf's
+    own write is not counted); the reduced MoE + MTP and enc-dec archs."""
+    import os
+    import shutil
+    out = {}
+    n = int(LM_TRAIN_LAUNCH[LM_TRAIN_LAUNCH.index("--steps") + 1])
+    every = int(LM_TRAIN_LAUNCH[LM_TRAIN_LAUNCH.index("--ckpt-every") + 1])
+    restored = LM_TRAIN_FAIL_AT - 1 - (LM_TRAIN_FAIL_AT - 1) % every
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        # the two runs, and the reduced archs', side by side: the card
+        # idles through their start-up; only the full-size run is timed
+        # alone
+        fail, whole, *reduced = lm_train_launch(
+            torch, LM_TRAIN_LAUNCH + [
+                "--inject-failure", str(LM_TRAIN_FAIL_AT), "--ckpt-dir",
+                os.path.join(tmp, "fail")],
+            LM_TRAIN_LAUNCH + ["--ckpt-dir", os.path.join(tmp, "whole")],
+            *[["--arch", arch, "--reduced", "--steps", "4", "--ckpt-dir",
+               os.path.join(tmp, arch)] for arch in LM_TRAIN_LAUNCH_ARCHS])
+        want = [("failure", LM_TRAIN_FAIL_AT,
+                 f"injected loss at step {LM_TRAIN_FAIL_AT}"),
+                ("remesh", restored + 1, 1)]
+        check([e for e in fail["events"] if e[0] != "straggler"] == want,
+              f"train launcher events {fail['events']}, not {want}")
+        check(fail["steps"] == n + LM_TRAIN_FAIL_AT - restored - 1
+              and whole["steps"] == n, f"steps {fail['steps']}, "
+              f"{whole['steps']}")
+        same = (ckpt_bytes(os.path.join(tmp, "fail"), n - 1)
+                == ckpt_bytes(os.path.join(tmp, "whole"), n - 1))
+        recovery = {"events": fail["events"], "final_checkpoint_equal": same,
+                    "loss_last": [fail["loss_last"], whole["loss_last"]],
+                    "seconds": [fail["seconds"], whole["seconds"]]}
+        if not same:
+            again, = lm_train_launch(torch, LM_TRAIN_LAUNCH + [
+                "--ckpt-dir", os.path.join(tmp, "again")])
+            a, b, c = (ckpt_tensors(torch, os.path.join(tmp, d), n - 1)
+                       for d in ("fail", "whole", "again"))
+            diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+            spread = max(float((y - z).abs().max()) for y, z in zip(b, c))
+            recovery.update(max_abs_diff=diff, uninterrupted_spread=spread,
+                            again_seconds=again["seconds"])
+            check(spread > 0 and diff <= spread, f"train launcher: the "
+                  f"recovered run's final params differ from the "
+                  f"uninterrupted run's by {diff}, two uninterrupted runs "
+                  f"by {spread}")
+        else:
+            check(fail["loss_last"] == whole["loss_last"],
+                  f"train launcher last losses {recovery['loss_last']}")
+        out["recovery"] = recovery
+        for r in reduced:
+            check(r["steps"] == 4 and not r["events"],
+                  f"train launcher {r['args']}: {r}")
+        out["reduced"] = reduced
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_full_") as d:
+        free = shutil.disk_usage(d).free
+        mem = memory_gb()
+        check(mem["available_gb"] >= LM_TRAIN_FULL_RUN_RAM_GB,
+              f"full-size train launcher: {mem} available, it needs "
+              f"{LM_TRAIN_FULL_RUN_RAM_GB} GB")
+        r, = lm_train_launch(torch, LM_TRAIN_LAUNCH_FULL + ["--ckpt-dir", d])
+        check(not r["events"], f"full-size train launcher events "
+              f"{r['events']}")
+        saves = []
+        for st in lm.ckpt.latest_steps(d):
+            path = os.path.join(d, f"step_{st:08d}")
+            names = os.listdir(path)
+            saves.append({
+                "step": st,
+                "bytes": sum(os.path.getsize(os.path.join(path, x))
+                             for x in names),
+                "write_s": (os.path.getmtime(os.path.join(
+                    path, "manifest.json")) - os.path.getmtime(
+                        os.path.join(path, "leaf_00000.npy")))})
+        check(len(saves) == 2, f"full-size checkpoints {saves}")
+        r.update(disk_free_gb=free / 1e9, memory_before=mem,
+                 checkpoints=saves)
+        out["full_size"] = r
+    return out
+
+
+def lm_train_phase(torch, seed, dev) -> dict:
+    """Language-model training on the card. (1) Each arch's reduced config
+    in float32 and bf16, and LM_TRAIN_WIDE_CUTS in float32: one step card
+    against the CPU (`lm_train_card_vs_cpu`). (2) LM_TRAIN_FULL at
+    published widths in bf16, timed (`lm_train_full`, one `lm_train_full`
+    line each). (3) The training launcher as users run it
+    (`lm_train_launch_phase`)."""
+    lm = lm_modules()
+    t_phase = time.perf_counter()
+    seconds = {}
+    memory = {"start": memory_gb()}
+    t0 = time.perf_counter()
+    parity = []
+    for i, name in enumerate(LM_ARCHS):
+        for dtype in ("float32", "bfloat16"):
+            parity.append(lm_train_card_vs_cpu(
+                torch, lm, lm.registry.reduced(lm.registry.ARCHS[name]),
+                dtype, seed + i, dev))
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = []
+    for name, cut in LM_TRAIN_WIDE_CUTS.items():
+        row = lm_train_card_vs_cpu(torch, lm, dataclasses.replace(
+            lm.registry.ARCHS[name], **cut), "float32", seed, dev)
+        row["cut"] = cut
+        wide.append(row)
+        torch.cuda.empty_cache()
+    seconds["full_width"] = time.perf_counter() - t0
+    full = []
+    for name, spec in LM_TRAIN_FULL.items():
+        t0 = time.perf_counter()
+        row = lm_train_full(torch, lm, name, spec, seed, dev)
+        row["seconds"] = time.perf_counter() - t0
+        emit({"phase": "lm_train_full", **row})
+        full.append(row)
+    seconds["full_size"] = sum(r["seconds"] for r in full)
+    t0 = time.perf_counter()
+    launch = lm_train_launch_phase(torch, lm)
+    seconds["launch"] = time.perf_counter() - t0
+    memory["end"] = memory_gb()
+    return {"phase": "lm_train", "seconds": time.perf_counter() - t_phase,
+            "part_seconds": seconds, "memory": memory,
+            "card_vs_cpu": parity,
+            "full_width": wide,
+            "full_size": [{k: r[k] for k in (
+                "arch", "cut", "optimizer", "step_ms", "split_ms", "tok_s",
+                "peak_memory_gb", "loss_first", "loss_last", "bound_ms",
+                "bound_by", "kernels_a_step", "device_busy_share")}
+                for r in full],
+            "launch": launch}
+
 
 def kernel_ops_inputs(torch, field, cfg, cam, rendering, sparse, seed, dev):
     """The kernel_ops phase's inputs, made before its launch counts are
@@ -3022,7 +3690,7 @@ def profile_chunk(torch, engine, rendering, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--views", type=int, default=4)
+    ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--res", type=int, default=200)
     args = ap.parse_args()
     if args.res < 64:
@@ -3077,6 +3745,16 @@ def main() -> int:
           "flash_f32_hgmma": hgmma["float32"],
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
+
+    # -- lm_train: language-model training on the card, first: its
+    # full-size launcher run needs the machine's memory (LM_TRAIN_FULL_*)
+    emit(lm_train_phase(torch, args.seed, dev))
+    torch.cuda.empty_cache()
+
+    # -- lm: language-model serving of the ten archs on the card, its six
+    # launcher runs side by side while the machine's memory is free ------
+    emit(lm_phase(torch, args.seed, dev))
+    torch.cuda.empty_cache()
 
     # -- field ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -3279,9 +3957,6 @@ def main() -> int:
         emit(line)
         emit(launch_phase(torch, root))
 
-    # -- lm: language-model serving of the ten archs on the card ---------
-    torch.cuda.empty_cache()
-    emit(lm_phase(torch, args.seed, dev))
 
     # -- kernels: each against its plain version on captured inputs ------
     rows = []

@@ -19,7 +19,8 @@ either package restores in the other:
     renamed, so a crash never leaves a readable partial checkpoint;
   * `manifest.json` holds `{step, treedef, leaves, extra}` with
     `leaves[i] = {shape, dtype, crc}`, `crc = zlib.crc32(arr.tobytes())`,
-    checked on restore;
+    checked on restore; a bfloat16 leaf is its raw bits (`<V2` in the
+    .npy header, "bfloat16" in the manifest) and restores bit for bit;
   * `leaf_NNNNN.npy` holds leaf i, in the reference's flatten order: a
     dict's keys sorted, lists and tuples in order, None dropped
     (`flatten`). `treedef` is written for readers only; neither package
@@ -98,10 +99,39 @@ def unflatten(like, leaves: List[Any]):
     return out
 
 
+# A bfloat16 leaf travels as its raw bits: numpy has no bfloat16, and the
+# reference (through ml_dtypes) writes such a leaf as a '<V2' .npy whose
+# manifest dtype is "bfloat16", with the crc over the same bytes.
+_BF16_BITS = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host array; a bfloat16 tensor as a V2 array of its bits
+    (the other tensors keep their dtype)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.contiguous().view(torch.int16).numpy().view(
+                _BF16_BITS)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_BITS else str(arr.dtype)
+
+
+def _save_leaf(path: str, arr: np.ndarray) -> None:
+    """`np.save`, except that a bfloat16 leaf's header says '<V2', as the
+    reference's does (numpy writes '|V2' for a plain V2 array)."""
+    if arr.dtype != _BF16_BITS:
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": "<V2", "fortran_order": False,
+            "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
 
 
 # -- step directories ---------------------------------------------------------
@@ -120,9 +150,9 @@ def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3,
                 "extra": extra_meta or {}}
     for i, leaf in enumerate(flat):
         arr = _host(leaf)
-        np.save(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
+        _save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
         manifest["leaves"].append({
-            "shape": list(arr.shape), "dtype": str(arr.dtype),
+            "shape": list(arr.shape), "dtype": _dtype_name(arr),
             "crc": zlib.crc32(arr.tobytes()) & 0xFFFFFFFF,
         })
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -168,11 +198,23 @@ def read_manifest(directory: str, step: int) -> dict:
 
 
 def _load_leaf(path: str, i: int, meta: dict) -> np.ndarray:
+    """Leaf i as a fresh, writable array of its manifest dtype; a bfloat16
+    leaf as int16 holding its bits (`_tensor` makes it bfloat16 again)."""
     arr = np.load(os.path.join(path, f"leaf_{i:05d}.npy"))
     crc = zlib.crc32(arr.tobytes()) & 0xFFFFFFFF
     if crc != meta["crc"]:
         raise IOError(f"checkpoint corruption in leaf {i} of {path}")
+    if meta["dtype"] == "bfloat16":
+        if arr.dtype.itemsize != 2:
+            raise IOError(f"leaf {i} of {path}: bfloat16 in the manifest, "
+                          f"{arr.dtype} on disk")
+        return arr.view(np.int16)
     return arr.astype(np.dtype(meta["dtype"]))
+
+
+def _tensor(arr: np.ndarray, meta: dict) -> torch.Tensor:
+    t = torch.from_numpy(arr)
+    return t.view(torch.bfloat16) if meta["dtype"] == "bfloat16" else t
 
 
 def restore_checkpoint(directory: str, step: int, like: Any, *,
@@ -186,8 +228,8 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     if len(flat_like) != len(manifest["leaves"]):
         raise ValueError(f"leaf count mismatch: {len(flat_like)} vs "
                          f"{len(manifest['leaves'])}")
-    # _load_leaf's astype is a fresh, writable copy (0-d arrays stay 0-d)
-    out = [torch.from_numpy(_load_leaf(path, i, meta)).to(dev)
+    # _load_leaf's arrays are fresh and writable (0-d arrays stay 0-d)
+    out = [_tensor(_load_leaf(path, i, meta), meta).to(dev)
            for i, meta in enumerate(manifest["leaves"])]
     return unflatten(like, out)
 

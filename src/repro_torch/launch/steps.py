@@ -1,14 +1,175 @@
-"""The prefill and decode steps: the port of the serving part of
-`repro/launch/steps.py`. Each step runs under the mesh's axis rules
-(`models.sharding.use_rules`) and without autograd."""
+"""The train, prefill and decode steps, and the shapes and specs around
+them: the port of `repro/launch/steps.py`. Each step runs under the mesh's
+axis rules (`models.sharding.use_rules`); the serve steps without
+autograd. The train step takes its gradients by autograd over the plain
+PyTorch model (the reference differentiates its jnp model with
+`jax.value_and_grad`; no kernel of the port lies on this path)."""
 from __future__ import annotations
+
+from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.data import tokens as tok_lib
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import log_parse, tree_map
+from repro_torch.models.common import (MetaMaker, TensorSpec, log_parse,
+                                       split_pl, tree_map)
 from repro_torch.models.sharding import AxisRules, resolve_spec, use_rules
+from repro_torch.optim import clip_by_global_norm
+from repro_torch.optim.optimizers import Optimizer, tree_leaves
+
+GRAD_CLIP = 1.0
+
+
+# --------------------------------------------------------------------------
+# abstract params + specs
+# --------------------------------------------------------------------------
+
+
+def _spec(t) -> TensorSpec:
+    return TensorSpec(tuple(t.shape), t.dtype)
+
+
+def abstract_params(cfg: ModelConfig):
+    """(TensorSpec tree, logical tree) of `cfg`'s params without drawing or
+    allocating a number (the tree is built on the meta device)."""
+    params, logical = split_pl(tf.init_with(MetaMaker(), cfg))
+    return tree_map(_spec, params), logical
+
+
+def count_params(specs) -> int:
+    n = 0
+    for s in tree_leaves(specs):
+        k = 1
+        for d in s.shape:
+            k *= d
+        n += k
+    return n
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig, rules: AxisRules):
+    """(TensorSpec dict, spec dict) of one batch: each spec the
+    `resolve_spec` tuple over the activation rules, the entries of the
+    reference's `batch_sharding` PartitionSpecs."""
+    specs = tok_lib.input_specs(cfg, shape)
+    logical = tok_lib.input_logical(cfg, shape)
+    return specs, {k: resolve_spec(s.shape, log_parse(logical[k]),
+                                   rules.act_rules, rules)
+                   for k, s in specs.items()}
+
+
+def opt_state_spec(opt: Optimizer, param_specs, param_spec_tree,
+                   rules: AxisRules):
+    """(TensorSpec tree, spec tree) of `opt`'s state, the entries of the
+    reference's `opt_state_sharding`: AdamW's m and v take their param's
+    spec; adafactor's vr drops its param's last axis and vc the one before
+    it; a step counter (and any other optimizer's state) is replicated,
+    `()`. `param_spec_tree` is `models.sharding.param_spec`'s."""
+    meta = tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), param_specs)
+    state = tree_map(_spec, opt.init(meta))
+    if opt.name == "adamw":
+        return state, {"step": (), "m": param_spec_tree,
+                       "v": param_spec_tree}
+    if opt.name == "adafactor":
+        def one(spec, v):
+            return {k: (spec[:-1] if k == "vr" else
+                        spec[:-2] + spec[-1:] if k == "vc" else spec)
+                    for k in v}
+        return state, {"step": (), "v": tree_map(one, param_spec_tree,
+                                                 state["v"])}
+    return state, tree_map(lambda _: (), state)
+
+
+# --------------------------------------------------------------------------
+# train step
+# --------------------------------------------------------------------------
+
+
+def track(params) -> Tuple[Dict, List[torch.Tensor]]:
+    """(a tree of the params as leaves that autograd tracks, those leaves
+    in the tree's order). The leaves share the params' storage."""
+    leaves: List[torch.Tensor] = []
+
+    def one(p):
+        t = p.detach().requires_grad_(True)
+        leaves.append(t)
+        return t
+    return tree_map(one, params), leaves
+
+
+def grads_of(loss, tracked, leaves):
+    """d loss / d each tracked leaf, as a tree of `tracked`'s structure (a
+    leaf the loss does not read gets zeros, as `jax.grad` gives)."""
+    grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                     materialize_grads=True))
+    return tree_map(lambda _: next(grads), tracked)
+
+
+def loss_and_grads(cfg: ModelConfig, params, batch):
+    """(loss, metrics, grads) of `tf.model_loss` at `params`; the loss and
+    metrics detached, the grads in the params' dtypes."""
+    tracked, leaves = track(params)
+    with torch.enable_grad():
+        loss, metrics = tf.model_loss(tracked, cfg, batch)
+    grads = grads_of(loss, tracked, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def _microbatches(batch, m: int):
+    """The batch's rows in `m` consecutive microbatches (the reference's
+    reshape to (m, B / m, ...))."""
+    for k, v in batch.items():
+        if v.shape[0] % m:
+            raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
+                             f"split into grad_accum={m} microbatches")
+    return [{k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
+             for k, v in batch.items()} for i in range(m)]
+
+
+def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
+                     param_sh=None):
+    """train_step(params, opt_state, batch) -> (new params, new state,
+    metrics with grad_norm). With cfg.grad_accum = m > 1 the batch splits
+    into m microbatches whose gradients are summed in a bfloat16
+    accumulator and divided by m, as the reference's are (and the metrics
+    are then the mean loss alone). The gradients are clipped to global
+    norm GRAD_CLIP, then `opt.update`d. `param_sh` and
+    cfg.constrain_grads pin each gradient to its param's sharding in the
+    reference; on the port's one device there is nothing to pin."""
+
+    def train_step(params, opt_state, batch):
+        with use_rules(rules):
+            if cfg.grad_accum > 1:
+                m = cfg.grad_accum
+                g_acc = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.bfloat16, device=p.device), params)
+                loss_sum = None
+                for mb in _microbatches(batch, m):
+                    loss, _, grads = loss_and_grads(cfg, params, mb)
+                    g_acc = tree_map(lambda a, g: a + g.to(a.dtype), g_acc,
+                                     grads)
+                    del grads
+                    loss_sum = loss if loss_sum is None else loss_sum + loss
+                grads = tree_map(lambda g: g / torch.tensor(
+                    m, dtype=g.dtype, device=g.device), g_acc)
+                del g_acc
+                metrics = {"loss": loss_sum / torch.tensor(
+                    m, dtype=loss_sum.dtype, device=loss_sum.device)}
+            else:
+                loss, metrics, grads = loss_and_grads(cfg, params, batch)
+            grads, gn = clip_by_global_norm(grads, GRAD_CLIP)
+            new_params, new_state = opt.update(grads, opt_state, params)
+        metrics["grad_norm"] = gn
+        return new_params, new_state, metrics
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# serve steps
+# --------------------------------------------------------------------------
 
 
 def build_prefill_step(cfg: ModelConfig, rules: AxisRules):

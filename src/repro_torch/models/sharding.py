@@ -26,6 +26,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.models.common import log_parse, tree_map
+
 AxisEntry = Union[str, Tuple[str, ...], None]
 
 # Default rules for the production meshes. `batch` spans the pure-data axes
@@ -170,3 +172,17 @@ def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
             f"a mesh of {mesh_size(rules.mesh)} devices: the port shards "
             f"over one device only (ROADMAP.md Queue 1 item 10)")
     return x
+
+
+def param_spec(params, logical, rules: AxisRules):
+    """The spec tree of a param tree (tensors or TensorSpecs) and its
+    logical tree ('|'-joined strings): each leaf's `resolve_spec` over the
+    param rules, as the reference's `param_sharding` resolves its
+    PartitionSpecs (a logical string of another rank than the leaf's
+    resolves to no axis)."""
+    def one(arr, log):
+        axes = log_parse(log)
+        if len(axes) != len(arr.shape):
+            axes = (None,) * len(arr.shape)
+        return resolve_spec(tuple(arr.shape), axes, rules.param_rules, rules)
+    return tree_map(one, params, logical)

@@ -13,16 +13,20 @@ reference's `split_pl` trees (`params_from_numpy` carries those across).
 Entry points:
 
   init_model(cfg, generator, device=)           -> PL tree
+  init_with(maker, cfg)                         -> PL tree
   model_prefill(params, cfg, batch)             -> (last_logits, cache)
   model_decode(params, cfg, token, pos, cache, seq_len=) -> (logits, cache)
   serve_cache_spec(cfg, batch, seq, enc_len=)   -> (spec tree, logical tree)
 
+  model_loss(params, cfg, batch)                -> (loss, metrics)
+
 Decode writes the cache's tensors in place (K/V rows, latent rows and
-recurrent states) and returns the same tree. Tokens index the embedding
-directly: every token must be < cfg.vocab (PyTorch raises on an index
-past the table, where the reference's `jnp.take` clamps). The MTP head
-of deepseek-v3 is drawn so that the trees match; serving does not read
-it, and training (its loss) is not ported yet.
+recurrent states) and returns the same tree; the training path
+(`model_loss`, differentiated by autograd) writes nothing in place that
+autograd saved. Tokens index the embedding directly: every token must be
+< cfg.vocab (PyTorch raises on an index past the table, where the
+reference's `jnp.take` clamps). The MTP head of deepseek-v3 is read by
+`model_loss` only.
 """
 from __future__ import annotations
 
@@ -38,8 +42,9 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.common import (PL, Maker, TensorSpec, gelu, geglu,
-                                       rms_norm, swiglu, tree_map)
+from repro_torch.models.common import (PL, Maker, TensorSpec, cross_entropy,
+                                       gelu, geglu, rms_norm, swiglu,
+                                       tree_map)
 from repro_torch.models.sharding import shard_act
 
 # window kicks in only for long-context decode (the zamba2 deviation)
@@ -128,7 +133,13 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *,
     card (the full-width models). The numbers are PyTorch's, not the
     reference's: parity tests carry the reference's params across
     (`params_from_numpy`)."""
-    mk = Maker(generator, dtype=dtype, device=resolve_device(device))
+    return init_with(Maker(generator, dtype=dtype,
+                           device=resolve_device(device)), cfg)
+
+
+def init_with(mk: Maker, cfg: ModelConfig) -> Dict[str, Any]:
+    """The PL tree of `cfg` with every leaf made by `mk` (a `MetaMaker`
+    gives the shapes without drawing a number)."""
     d, Vp = cfg.d_model, cfg.vocab_padded
     p: Dict[str, Any] = {
         "embed": mk.w((Vp, d), ("vocab", "embed"), fan_in=d),
@@ -387,6 +398,50 @@ def _trunk(params, cfg, x, positions, *, memory=None, window=0):
         h, caches = _scan_dense(params["layers"], cfg, x, positions,
                                 window=window)
     return h, aux, caches
+
+
+# --------------------------------------------------------------------------
+# training loss
+# --------------------------------------------------------------------------
+
+MOE_AUX_WEIGHT = 0.01
+MTP_WEIGHT = 0.3
+
+
+def model_loss(params, cfg: ModelConfig, batch):
+    """(loss, metrics) of one batch: the mean next-token cross-entropy over
+    `loss_mask`, plus MOE_AUX_WEIGHT x the MoE layers' load-balance loss,
+    plus (deepseek-v3) MTP_WEIGHT x the MTP head's cross-entropy, where
+    the head predicts token t + 2 from the trunk's state at t and token
+    t + 1's embedding. Metrics: ce, aux, loss (and mtp_ce)."""
+    memory = (_encode(params, cfg, batch["enc_frames"]) if cfg.enc_dec
+              else None)
+    x, positions = _assemble_input(params, cfg, batch)
+    h, aux, _ = _trunk(params, cfg, x, positions, memory=memory)
+    logits = _logits(params, cfg, h)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    ce = cross_entropy(logits, labels, mask)
+    del logits
+    loss = ce + MOE_AUX_WEIGHT * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mtp = params["mtp"]
+        hn = rms_norm(h[:, :-1], mtp["norm_h"], cfg.norm_eps)
+        nxt = _embed(params, cfg, batch["tokens"][:, 1:])
+        if cfg.frontend and "frontend" in batch:     # align to h positions
+            nxt = torch.cat([batch["frontend"].to(nxt.dtype), nxt],
+                            dim=1)[:, :hn.shape[1]]
+        en = rms_norm(nxt[:, :hn.shape[1]], mtp["norm_e"], cfg.norm_eps)
+        hm = torch.einsum("bsd,de->bse", torch.cat([hn, en], dim=-1),
+                          mtp["proj"])
+        hm, _ = _dense_layer_fwd(mtp["layer"], cfg, hm, positions[:-1])
+        mtp_ce = cross_entropy(_logits(params, cfg, hm), labels[:, 1:],
+                               mask[:, 1:] if mask is not None else None)
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------

@@ -1,73 +1,227 @@
-"""Optimizers as pairs of pure functions over dicts of tensors. The port
-of the part of `repro/optim/optimizers.py` that NeRF training uses:
-`Optimizer` and the exact `adamw` update.
+"""Optimizers as pairs of pure functions over trees of tensors (nested
+dicts; NeRF training passes a flat one). The port of
+`repro/optim/optimizers.py`: `Optimizer`, `clip_by_global_norm`, `adamw`,
+`adafactor`, `sgd` and the size rule `pick_optimizer`.
 
-Not `torch.optim.AdamW`: the same update in exact arithmetic, but it
-divides sqrt(v) by sqrt(bc2) rather than taking sqrt(v / bc2), and decays
-the weights in a multiply of their own, so its floats differ in the last
-bits. Here every operation is the reference's, in float32:
-the bias corrections 1 - b ** step are computed in float32, constants
-enter as float32 0-dim tensors (a CUDA tensor divided by a Python scalar
-is a product with its reciprocal), and the root goes through
-`core.rendering.sqrt_rn` (PyTorch's vectorised CPU sqrt is not correctly
-rounded; XLA's and the card's are).
+Not `torch.optim`: `torch.optim.AdamW` computes the same update in exact
+arithmetic, but it divides sqrt(v) by sqrt(bc2) rather than taking
+sqrt(v / bc2), and decays the weights in a multiply of their own, so its
+floats differ in the last bits. Here every operation is the reference's,
+in float32: the bias corrections 1 - b ** step are computed in float32,
+constants enter as float32 0-dim tensors (a CUDA tensor divided by a
+Python scalar is a product with its reciprocal), and roots of values go
+through `core.rendering.sqrt_rn` (PyTorch's vectorised CPU sqrt is not
+correctly rounded; XLA's and the card's are).
+
+Each update works leaf by leaf and frees a leaf's float32 temporaries
+before the next: grok-1's expert leaves are 6.4 GB each in float32.
+Nothing passed in is updated in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
 from repro_torch.core.rendering import sqrt_rn
+from repro_torch.models.common import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Dict[str, torch.Tensor]], Any]
-    update: Callable[..., Tuple[Dict[str, torch.Tensor], Any]]
+    init: Callable[[Any], Any]
+    update: Callable[..., Tuple[Any, Any]]
     name: str = "opt"
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts in the reference's order (`jax.tree.leaves`:
+    keys sorted; None is an empty subtree)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def _unzip(fn, n: int, tree, *rest):
+    """`fn(leaf, *rest_leaves)` -> an n-tuple at every leaf of `tree`
+    (nested dicts; `rest` share its structure down to its leaves, where
+    they may hold subtrees); returns n trees of `tree`'s structure. The
+    leaves are visited one after another, so a leaf's temporaries die
+    before the next leaf's are made."""
+    if isinstance(tree, dict):
+        parts = {k: _unzip(fn, n, v, *(r[k] for r in rest))
+                 for k, v in tree.items()}
+        return tuple({k: parts[k][i] for k in tree} for i in range(n))
+    return fn(tree, *rest)
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=dev)
+
+
+def _step_scale(schedule, step, lr, dev) -> torch.Tensor:
+    """lr x schedule(step) in float32 (lr alone without a schedule)."""
+    lr_t = _f32(lr, dev)
+    return lr_t * schedule(step) if schedule is not None else lr_t
+
+
+def _first_device(tree) -> torch.device:
+    leaves = tree_leaves(tree)
+    if not leaves:
+        raise ValueError("an optimizer needs at least one parameter")
+    return leaves[0].device
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / global norm), the global norm).
+    The squares are summed in float32 leaf by leaf in the reference's leaf
+    order; each leaf is scaled in float32 and cast back to its dtype."""
+    leaves = tree_leaves(grads)
+    dev = _first_device(grads)
+    total = None
+    for g in leaves:
+        s = torch.sum(torch.square(g.to(torch.float32)))
+        total = s if total is None else total + s
+    gn = sqrt_rn(total)
+    scale = torch.minimum(_f32(1.0, dev), _f32(max_norm, dev)
+                          / torch.maximum(gn, _f32(1e-9, dev)))
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
+                    grads), gn
+
+
 def adamw(lr: float = 1e-3, b1: float = 0.9, b2: float = 0.95,
-          eps: float = 1e-8, wd: float = 0.0) -> Optimizer:
-    """AdamW over a dict of tensors: `init(params)` -> state {"step" (int32
-    0-dim), "m", "v" (float32 like params)}; `update(grads, state,
-    params)` -> (new params, new state), nothing updated in place."""
+          eps: float = 1e-8, wd: float = 0.0,
+          schedule: Optional[Callable] = None) -> Optimizer:
+    """AdamW over a tree of tensors: `init(params)` -> state {"step" (int32
+    0-dim), "m", "v" (float32 trees like params)}; `update(grads, state,
+    params, _loss=None)` -> (new params, new state). `schedule(step)`
+    scales lr (step counted from 1)."""
     def init(params):
-        some = next(iter(params.values()))
+        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,  # noqa: E731
+                                      device=p.device)
         return {
-            "step": torch.zeros((), dtype=torch.int32, device=some.device),
-            "m": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                  for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device)
-                  for k, p in params.items()},
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=_first_device(params)),
+            "m": tree_map(zeros, params),
+            "v": tree_map(zeros, params),
         }
 
-    def update(grads, state, params):
+    def update(grads, state, params, _loss=None):
         step = state["step"] + 1
         dev = step.device
-
-        def f32(x):
-            return torch.tensor(x, dtype=torch.float32, device=dev)
-        lr_t = f32(lr)
+        lr_t = _step_scale(schedule, step, lr, dev)
         stepf = step.to(torch.float32)
-        bc1 = 1.0 - torch.pow(f32(b1), stepf)
-        bc2 = 1.0 - torch.pow(f32(b2), stepf)
-        c_b1, c_b2, c_eps = f32(b1), f32(b2), f32(eps)
-        c_1b1, c_1b2 = f32(1 - b1), f32(1 - b2)
-        p_out, m_out, v_out = {}, {}, {}
-        for k, p in params.items():
-            g = grads[k].to(torch.float32)
-            m2 = c_b1 * state["m"][k] + c_1b1 * g
-            v2 = c_b2 * state["v"][k] + c_1b2 * g * g
+        bc1 = 1.0 - torch.pow(_f32(b1, dev), stepf)
+        bc2 = 1.0 - torch.pow(_f32(b2, dev), stepf)
+        c_b1, c_b2, c_eps = _f32(b1, dev), _f32(b2, dev), _f32(eps, dev)
+        c_1b1, c_1b2 = _f32(1 - b1, dev), _f32(1 - b2, dev)
+        c_wd = _f32(wd, dev)
+
+        def upd(p, g, m, v):
+            g = g.to(torch.float32)
+            m2 = c_b1 * m + c_1b1 * g
+            v2 = c_b2 * v + c_1b2 * g * g
+            del g
             u = (m2 / bc1) / (sqrt_rn(v2 / bc2) + c_eps)
             if wd:
-                u = u + f32(wd) * p.to(torch.float32)
-            p_out[k] = (p.to(torch.float32) - lr_t * u).to(p.dtype)
-            m_out[k], v_out[k] = m2, v2
-        return p_out, {"step": step, "m": m_out, "v": v_out}
+                u = u + c_wd * p.to(torch.float32)
+            return (p.to(torch.float32) - lr_t * u).to(p.dtype), m2, v2
+
+        p, m, v = _unzip(upd, 3, params, grads, state["m"], state["v"])
+        return p, {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update, "adamw")
+
+
+def adafactor(lr: float = 1e-2, decay: float = 0.8, eps: float = 1e-30,
+              clip_thresh: float = 1.0,
+              schedule: Optional[Callable] = None) -> Optimizer:
+    """Factored second moment (row and column means) for tensors of 2 or
+    more dims whose last two dims are both >= 2, a full one otherwise; no
+    momentum, no master copy; updates clipped to RMS clip_thresh."""
+
+    def _factored(p) -> bool:
+        return p.dim() >= 2 and p.shape[-1] >= 2 and p.shape[-2] >= 2
+
+    def init(params):
+        def one(p):
+            z = dict(dtype=torch.float32, device=p.device)
+            if _factored(p):
+                return {"vr": torch.zeros(p.shape[:-1], **z),
+                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
+            return {"v": torch.zeros(p.shape, **z)}
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=_first_device(params)),
+                "v": tree_map(one, params)}
+
+    def update(grads, state, params, _loss=None):
+        step = state["step"] + 1
+        dev = step.device
+        lr_t = _step_scale(schedule, step, lr, dev)
+        beta = 1.0 - torch.pow(step.to(torch.float32) + 1.0,
+                               _f32(-decay, dev))
+        one_beta = 1.0 - beta
+        c_eps, c_one = _f32(eps, dev), _f32(1.0, dev)
+        c_clip, c_tiny = _f32(clip_thresh, dev), _f32(1e-12, dev)
+
+        def upd(p, g, v):
+            # the float32 temporaries of one leaf are freed as soon as
+            # they are used; in-place ops touch only those temporaries
+            g = g.to(torch.float32)
+            g2 = g * g
+            g2.add_(c_eps)
+            if _factored(p):
+                vr = beta * v["vr"] + one_beta * torch.mean(g2, dim=-1)
+                vc = beta * v["vc"] + one_beta * torch.mean(g2, dim=-2)
+                del g2
+                denom = torch.maximum(torch.mean(vr, dim=-1, keepdim=True),
+                                      c_eps)
+                u = g * torch.rsqrt(vr[..., None] / denom[..., None])
+                del g
+                u.mul_(torch.rsqrt(vc[..., None, :]))
+                nv = {"vr": vr, "vc": vc}
+            else:
+                nv = {"v": beta * v["v"] + one_beta * g2}
+                del g2
+                u = g * torch.rsqrt(nv["v"])
+                del g
+            rms = sqrt_rn(torch.mean(torch.square(u)) + c_tiny)
+            u.div_(torch.maximum(c_one, rms / c_clip))
+            u.mul_(lr_t)
+            p2 = p.to(torch.float32, copy=True)
+            p2.sub_(u)
+            del u
+            return p2.to(p.dtype), nv
+
+        p, v = _unzip(upd, 2, params, grads, state["v"])
+        return p, {"step": step, "v": v}
+
+    return Optimizer(init, update, "adafactor")
+
+
+def sgd(lr: float = 1e-2) -> Optimizer:
+    def init(params):
+        return {"step": torch.zeros((), dtype=torch.int32,
+                                    device=_first_device(params))}
+
+    def update(grads, state, params, _loss=None):
+        lr_t = _f32(lr, state["step"].device)
+        p = tree_map(lambda pp, g: (pp.to(torch.float32)
+                                    - lr_t * g.to(torch.float32)
+                                    ).to(pp.dtype), params, grads)
+        return p, {"step": state["step"] + 1}
+
+    return Optimizer(init, update, "sgd")
+
+
+ADAFACTOR_PARAM_THRESHOLD = 30_000_000_000  # 30B
+
+
+def pick_optimizer(n_params: int, lr: float = 1e-4,
+                   schedule: Optional[Callable] = None) -> Optimizer:
+    """AdamW below 30B params, Adafactor at or above (the memory rule of
+    the reference)."""
+    if n_params >= ADAFACTOR_PARAM_THRESHOLD:
+        return adafactor(lr=lr, schedule=schedule)
+    return adamw(lr=lr, schedule=schedule)

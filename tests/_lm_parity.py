@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from _train_bounds import adamw_first_step_excess
 
 from repro.configs import registry as jreg
 from repro.models import common as jcommon
@@ -133,3 +134,114 @@ def check_prefill_and_decode(name, dtype):
                                        pos, gcache, seq_len=S)
         close(got, want, tol)
     close_trees(gcache, wcache, tol)
+
+
+# -- training (tests/test_torch_lm_train*.py) --------------------------------
+
+TRAIN_B, TRAIN_S = 2, 16
+# one bf16 ulp: the seamless encoder's first norm gain is read through the
+# reference's bf16 cast of the frames, so its gradient's cotangent rounds
+# to bf16 in both packages and may land on neighbouring bf16 values
+BF16_ULP = 2.0 ** -8
+# RWKV6's float32 gradients through its WKV recurrence carry 1e-4 of
+# rounding against their leaf's largest, in the reference's own runs too
+# (jitted against op by op; ROADMAP.md Queue 3 item 23): its leaves are
+# held to this, 4x the largest seen
+RWKV_F32_GRAD_TOL = 5e-4
+
+
+def carry_batch(jbatch):
+    """The reference's batch as the port's, on the CPU: integer and float32
+    arrays as they are, bf16 ones through float32 (exact)."""
+    out = {}
+    for k, v in jbatch.items():
+        if v.dtype == jnp.bfloat16:
+            out[k] = torch.from_numpy(np.array(v.astype(jnp.float32))).to(
+                torch.bfloat16)
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
+
+
+def train_batch(jcfg, batch=TRAIN_B, seq=TRAIN_S, step=0):
+    """The reference's TokenStream batch (labels, loss_mask, and the
+    frontend or encoder frames of the family)."""
+    from repro.configs.base import ShapeConfig
+    from repro.data.tokens import TokenStream
+    return TokenStream(jcfg, ShapeConfig("t", seq, batch, "train")).batch(
+        step)
+
+
+def leaf_items(jtree, ttree):
+    """(path string, reference leaf, port leaf) for every leaf of the
+    reference's tree, the port's found under the same keys."""
+    for path, want in jax.tree_util.tree_flatten_with_path(jtree)[0]:
+        got = ttree
+        for key in path:
+            got = got[key.key]
+        yield jax.tree_util.keystr(path), want, got
+
+
+def close_leaves(ttree, jtree, tol, loose=()):
+    """Every leaf within `tol` times that leaf's largest magnitude (exactly
+    where it is all zero); the paths in `loose` within BF16_ULP."""
+    for path, want, got in leaf_items(jtree, ttree):
+        w, g = f32(want), f32(got)
+        assert g.shape == w.shape, path
+        scale = float(np.abs(w).max())
+        t = BF16_ULP if path in loose else tol
+        err = float(np.abs(g - w).max()) if w.size else 0.0
+        assert err <= t * scale, f"{path}: {err} > {t} x {scale}"
+
+
+def check_loss_and_grads(name, dtype, seed=None, jit=None):
+    """`model_loss` and every gradient leaf of the port (autograd) against
+    `jax.value_and_grad(model_loss)` on the reference's params (constant
+    leaves moved; `seed` default len(name)) and its TokenStream batch.
+    bf16 and the enc-dec arch's reference run op by op (ROADMAP.md Queue
+    3 items 16 and 18) unless `jit` says otherwise. Returns both gradient
+    trees (the reference's, the port's)."""
+    from repro_torch.launch import steps as tsteps
+    jdt, tdt, tol = DTYPES[dtype]
+    jcfg = jreg.reduced(jreg.ARCHS[name])
+    tcfg = treg.reduced(treg.ARCHS[name])
+    np_params = family_params(jcfg, len(name) if seed is None else seed)
+    jparams = jax.tree.map(lambda a: jnp.asarray(a).astype(jdt), np_params)
+    tparams = ttf.params_from_numpy(np_params, device=CPU, dtype=tdt)
+    jbatch = train_batch(jcfg)
+    eager = (dtype == "bfloat16" or jcfg.enc_dec) if jit is None else not jit
+    with (jax.disable_jit() if eager else contextlib.nullcontext()):
+        (_, jm), jg = jax.jit(jax.value_and_grad(
+            lambda p: jtf.model_loss(p, jcfg, jbatch), has_aux=True))(jparams)
+    loss, tm, tg = tsteps.loss_and_grads(tcfg, tparams, carry_batch(jbatch))
+    assert set(tm) == set(jm)
+    assert float(loss) == float(tm["loss"])
+    for k in jm:
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=tol,
+                                   atol=1e-7, err_msg=k)
+    for _, _, g in leaf_items(jg, tg):
+        assert g.dtype == tdt
+    loose = ({"['enc']['ln1']"} if jcfg.enc_dec and dtype == "float32"
+             else ())
+    if jcfg.family == "ssm" and dtype == "float32":
+        tol = RWKV_F32_GRAD_TOL
+    close_leaves(tg, jg, tol, loose)
+    return jg, tg
+
+
+def leaf_rel_errs(ttree, jtree) -> dict:
+    """{path: max|port - reference| / the reference leaf's largest}."""
+    return {path: float(np.abs(f32(got) - f32(want)).max()
+                        / np.abs(f32(want)).max())
+            for path, want, got in leaf_items(jtree, ttree)}
+
+
+def close_adamw_first_step(tp, jp, jm, lr, b1, eps, tol):
+    """Params after one AdamW step, the port's against the reference's,
+    each leaf within `_train_bounds.adamw_first_step_excess`'s bound (jm:
+    the reference's first moment)."""
+    for (path, want, got), m in zip(leaf_items(jp, tp), jax.tree.leaves(jm)):
+        assert f32(got).shape == f32(want).shape, path
+        excess = adamw_first_step_excess(f32(got), f32(want), f32(m), lr,
+                                         b1, eps, tol)
+        assert excess <= 1.0, f"{path}: {excess} of the first-step bound"

@@ -109,6 +109,105 @@ def test_checkpoint_files_are_the_references_byte_for_byte(tmp_path, name):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
+def _mixed_tree(seed=0):
+    """A tree of bfloat16, float32 and int32 leaves as numpy: bf16 values
+    are float32 numbers rounded to bf16."""
+    rng = np.random.RandomState(seed)
+    w = np.asarray(jnp.asarray(rng.randn(3, 4).astype(np.float32)).astype(
+        jnp.bfloat16).astype(jnp.float32))
+    return {"w": w, "m": rng.randn(5).astype(np.float32),
+            "z": {"e": np.asarray(jnp.asarray(rng.randn(2, 1, 3).astype(
+                np.float32)).astype(jnp.bfloat16).astype(jnp.float32)),
+                  "step": np.int32(9)}}
+
+
+_BF16 = {"w", "e"}
+
+
+def _as_jax(tree):
+    return {k: _as_jax(v) if isinstance(v, dict) else
+            jnp.asarray(v).astype(jnp.bfloat16) if k in _BF16 else
+            jnp.asarray(v) for k, v in tree.items()}
+
+
+def _as_torch(tree):
+    return {k: _as_torch(v) if isinstance(v, dict) else
+            torch.from_numpy(np.array(v)).to(torch.bfloat16) if k in _BF16
+            else torch.from_numpy(np.array(v)) for k, v in tree.items()}
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    """A tensor's bits (bf16 as int16), to compare bit for bit."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def test_bf16_leaves_are_written_as_the_references_byte_for_byte(tmp_path):
+    """A tree with bf16, float32 and int32 leaves: the port's leaf files
+    equal the reference's byte for byte (a bf16 leaf is its raw bits under
+    a '<V2' header), and so do the manifests' leaf entries (shape, dtype
+    "bfloat16", crc over the same bytes)."""
+    tree = _mixed_tree()
+    jpath = jckpt.save_checkpoint(str(tmp_path / "j"), 1, _as_jax(tree))
+    tpath = tckpt.save_checkpoint(str(tmp_path / "t"), 1, _as_torch(tree))
+    assert _tree_files(jpath) == _tree_files(tpath)
+    man = tckpt.read_manifest(str(tmp_path / "t"), 1)
+    assert man == jckpt.read_manifest(str(tmp_path / "j"), 1)
+    assert [m["dtype"] for m in man["leaves"]] == [
+        "float32", "bfloat16", "bfloat16", "int32"]
+    with open(os.path.join(tpath, "leaf_00001.npy"), "rb") as f:
+        assert b"'descr': '<V2'" in f.read(128)
+
+
+def test_port_restores_the_references_bf16_checkpoint_bit_for_bit(tmp_path):
+    tree = _mixed_tree(1)
+    jckpt.save_checkpoint(str(tmp_path), 4, _as_jax(tree))
+    like = _as_torch(tree)
+    got = tckpt.restore_checkpoint(str(tmp_path), 4, like, device=CPU)
+    for a, b in zip(tckpt.flatten(got)[0], tckpt.flatten(like)[0]):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
+def test_manager_round_trips_an_adamw_state_of_bf16_params(tmp_path):
+    """The training loop's checkpoint: (bf16 params, AdamW state with its
+    int32 step and float32 moments) saved through save_async and
+    restore_latest bit for bit."""
+    from repro_torch.optim import adamw
+    tree = _as_torch(_mixed_tree(2))
+    params = {"w": tree["w"], "z": {"e": tree["z"]["e"]}}
+    opt = adamw(lr=1e-2)
+    state = opt.init(params)
+    gen = torch.Generator().manual_seed(3)
+    grads = tckpt.unflatten(params, [
+        torch.randn(p.shape, generator=gen).to(p.dtype)
+        for p in tckpt.flatten(params)[0]])
+    params, state = opt.update(grads, state, params)
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    mgr.save_async(1, (params, state))
+    mgr.wait(timeout=30)
+    like = opt.init(params)
+    step, got = mgr.restore_latest((params, like), device=CPU)
+    assert step == 1
+    want = tckpt.flatten((params, state))[0]
+    got = tckpt.flatten(got)[0]
+    assert len(got) == len(want) == 7
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert got[0].dtype == torch.bfloat16 and int(got[4]) == 1
+
+
+def test_reference_cannot_restore_its_bf16_checkpoint(tmp_path):
+    """ROADMAP.md Queue 3 item 22: the reference writes a bf16 leaf as a
+    '<V2' .npy and its restore casts that V2 array to bfloat16, which
+    numpy cannot do, so it cannot restore its own LM training state."""
+    tree = _mixed_tree(3)
+    jckpt.save_checkpoint(str(tmp_path), 0, _as_jax(tree))
+    with pytest.raises(ValueError, match="No cast function"):
+        jckpt.restore_checkpoint(str(tmp_path), 0, _as_jax(tree))
+
+
 def test_state_dict_interop_keeps_sorted_key_order(tmp_path):
     rng = np.random.RandomState(0)
     state = {k: rng.randn(3, 2).astype(np.float32) for k in ("zeta", "a/b",

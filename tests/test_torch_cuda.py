@@ -20,6 +20,7 @@ from repro_torch.kernels import _build, bitmap_decode, coo_gather, fused_sample
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import volume_render as tvr
 from repro_torch.serving import RenderEngine
+from _train_bounds import adamw_first_step_excess
 from test_torch_kernel_plans import occupancy_coo_calls
 
 pytestmark = pytest.mark.gpu
@@ -1556,3 +1557,91 @@ def test_lm_launcher_runs_on_the_card(cuda, capsys):
     out = capsys.readouterr().out
     assert toks.device.type == "cuda" and tuple(toks.shape) == (2, 4)
     assert f"[serve] device: {torch.cuda.get_device_name(cuda)}" in out
+
+
+def test_lm_train_step_on_card_equals_the_cpus(cuda):
+    """One `build_train_step` step of reduced llama3.2-1b in float32
+    (AdamW with the launcher's schedule, the clip), the same params and
+    TokenStream batch on both devices: loss 1e-5 relative, every gradient
+    leaf within 1e-4 of its largest, the params to AdamW's first-step
+    rule at 1e-4 (`_train_bounds`)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import elastic, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import split_pl, tree_map
+    from repro_torch.models.sharding import make_rules
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = reduced(ARCHS["llama3.2-1b"])
+    gen = torch.Generator().manual_seed(5)
+    params, _ = split_pl(tf.init_model(cfg, gen, dtype=torch.float32,
+                                       device="cpu"))
+    stream = TokenStream(cfg, ShapeConfig("t", 16, 4, "train"), device="cpu")
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_map(lambda a: a.to(dev), params)
+        batch = {k: v.to(dev) for k, v in stream.batch(0).items()}
+        loss, _, grads = steps.loss_and_grads(cfg, p, batch)
+        opt = adamw(lr=3e-4, schedule=cosine_schedule(1, 20))
+        step = steps.build_train_step(
+            cfg, make_rules(elastic.make_mesh_from([dev], 1)), opt)
+        new, state, metrics = step(p, opt.init(p), batch)
+        runs.append((loss, grads, new, state, metrics))
+    (l0, g0, p0, s0, m0), (l1, g1, p1, _, m1) = runs
+    assert abs(float(l1) - float(l0)) <= 1e-5 * abs(float(l0))
+    assert abs(float(m1["grad_norm"]) - float(m0["grad_norm"])) <= \
+        1e-5 * float(m0["grad_norm"])
+    for a, b in zip(tree_leaves(g1), tree_leaves(g0)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(
+            b.abs().max())
+    for a, b, m in zip(tree_leaves(p1), tree_leaves(p0),
+                       tree_leaves(s0["m"])):
+        assert adamw_first_step_excess(
+            a.float().cpu().numpy(), b.float().numpy(), m.numpy(), 3e-4,
+            0.9, 1e-8, 1e-4) <= 1.0
+
+
+def test_token_stream_is_the_same_on_card(cuda):
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.data.tokens import TokenStream
+    for name in ("internvl2-76b", "seamless-m4t-large-v2"):
+        cfg = reduced(ARCHS[name])
+        shape = ShapeConfig("t", 24, 4, "train")
+        on_card = TokenStream(cfg, shape, seed=2).batch(7)
+        on_cpu = TokenStream(cfg, shape, seed=2, device="cpu").batch(7)
+        assert list(on_card) == list(on_cpu)
+        for k in on_cpu:
+            assert on_card[k].device.type == "cuda"
+            assert torch.equal(on_card[k].cpu(), on_cpu[k]), (name, k)
+
+
+def test_bf16_checkpoint_round_trip_from_the_card(cuda, tmp_path):
+    """bf16 params and their AdamW state saved from the card through the
+    manager's async save, restored onto the card and onto the CPU bit for
+    bit."""
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.optim import adamw
+    from repro_torch.optim.optimizers import tree_leaves
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    params = {"w": torch.randn(64, 48, generator=gen, device=cuda).to(
+        torch.bfloat16), "b": {"c": torch.randn(7, generator=gen,
+                                                device=cuda).to(
+        torch.bfloat16)}}
+    opt = adamw(lr=1e-2)
+    params, state = opt.update(params, opt.init(params), params)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(0, (params, state))
+    mgr.wait(timeout=60)
+    for dev in (cuda, torch.device("cpu")):
+        step, got = mgr.restore_latest((params, opt.init(params)),
+                                       device=dev)
+        assert step == 0
+        for a, b in zip(tree_leaves(got[0]) + tree_leaves(got[1]),
+                        tree_leaves(params) + tree_leaves(state)):
+            assert a.device.type == dev.type and a.dtype == b.dtype
+            if a.dtype == torch.bfloat16:
+                a, b = a.view(torch.int16), b.view(torch.int16)
+            assert torch.equal(a.cpu(), b.cpu())

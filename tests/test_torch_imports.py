@@ -206,6 +206,50 @@ def test_lm_entry_points_without_device_and_card_raise(monkeypatch):
         tserve.main(["--arch", "seamless-m4t-large-v2"])
 
 
+LM_TRAIN_MODULES = ("optim/schedule.py", "optim/compression.py",
+                    "data/tokens.py", "launch/elastic.py", "launch/train.py")
+
+
+def test_the_checks_cover_the_lm_training_modules():
+    """The import checks walk LM training's modules too, and each keeps its
+    own copy of the reference's constants."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert set(LM_TRAIN_MODULES) <= files
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.optim import ADAFACTOR_PARAM_THRESHOLD
+    assert (transformer.MOE_AUX_WEIGHT, transformer.MTP_WEIGHT,
+            steps.GRAD_CLIP) == (0.01, 0.3, 1.0)
+    assert ADAFACTOR_PARAM_THRESHOLD == 30_000_000_000
+
+
+def test_lm_training_entry_points_without_device_and_card_raise(monkeypatch,
+                                                               tmp_path):
+    """The train launcher trains on the card unless told `--device cpu`,
+    the elastic runner runs on the card unless given devices, and a token
+    stream puts its batches on the card unless given a device: with no
+    card each raises, before a checkpoint is written."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import ARCHS, reduced
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch import elastic, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = tmp_path / "ck"
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            train.main(["--arch", "llama3.2-1b", "--steps", "1", "--batch",
+                        "2", "--seq", "8", "--ckpt-dir", str(ck)] + extra)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        elastic.ElasticRunner(lambda mesh: None, str(ck)).run(
+            1, lambda s: {})
+    assert not ck.exists()
+    stream = TokenStream(reduced(ARCHS["llama3.2-1b"]),
+                         ShapeConfig("t", 8, 2, "train"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream.batch(0)
+
+
 def test_the_checks_cover_the_serving_tier_modules():
     """The import checks below walk every file of the port; the serving
     tier's subpackages are among them."""

@@ -6,7 +6,12 @@ and through the fleet (marked `fleet`: it spawns worker processes). The
 language-model path: the reference's greedy tokens on its own params and
 prompt in float32 (exact) for llama3.2-1b and the five archs beyond the
 dense trunk, and each dense arch served. The flags the reference
-refuses, the port refuses alike."""
+refuses, the port refuses alike. The training launcher
+(`python -m repro_torch.launch.train`) and its elastic runner: the
+reference's straggler flags and event log (float32 params, losses within
+1e-5), recovery from the port's own bf16 checkpoint with the losses of
+an uninterrupted run exactly, resume, and a step's own errors
+propagating."""
 import dataclasses
 import re
 import sys
@@ -278,3 +283,189 @@ def test_lm_launcher_decodes_a_vlm_at_its_true_positions(capsys):
     first = cfg.n_frontend_tokens + 6 - 1
     want = logits[:, first:].argmax(dim=-1)
     assert torch.equal(got, want)
+
+
+# -- the training launcher and the elastic runner ----------------------------
+
+TRAIN_ARGS = ["--arch", "llama3.2-1b", "--steps", "4", "--batch", "2",
+              "--seq", "16", "--device", "cpu"]
+
+
+def test_health_monitor_flags_the_references_stragglers():
+    from repro.launch import elastic as jelastic
+    from repro_torch.launch import elastic as telastic
+    times = [1.0, 0.5, 0.5, 0.6, 3.5, 0.4, 9.0, 0.5, 0.5, 30.0, 0.1, 2.0]
+    jm, tm = jelastic.HealthMonitor(), telastic.HealthMonitor()
+    flags = [(tm.observe(t), jm.observe(t)) for t in times]
+    assert [a for a, _ in flags] == [b for _, b in flags]
+    assert any(a for a, _ in flags)
+    assert tm.ewma == jm.ewma
+
+
+def test_make_mesh_from_holds_one_device():
+    from repro_torch.launch import elastic as telastic
+    cpu = torch.device("cpu")
+    mesh = telastic.make_mesh_from([cpu, "cpu"], 4)
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.device == cpu
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        telastic.make_mesh_from([cpu, torch.device("meta")], 1)
+
+
+def test_elastic_runner_gives_the_references_log(tmp_path):
+    """Reduced llama3.2-1b on float32 params (the reference's runner
+    cannot restore bf16 ones: ROADMAP.md Queue 3 item 22), AdamW, a
+    checkpoint every step and a failure injected at step 2: the same
+    events at the same steps (failure, remesh back to step 2), and every
+    step's loss within 1e-5 of the reference's; the batches are the
+    reference's TokenStream's."""
+    from _lm_parity import carry_batch, family_params
+    from repro import optim as joptim
+    from repro.configs.base import ShapeConfig
+    from repro.data.tokens import TokenStream
+    from repro.launch import elastic as jelastic
+    from repro.launch import steps as jsteps
+    from repro.models.sharding import make_rules as jrules
+    from repro_torch import optim as toptim
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import elastic as telastic
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models.sharding import make_rules as trules
+
+    jcfg = jreg.reduced(jreg.ARCHS["llama3.2-1b"])
+    tcfg = treg.reduced(treg.ARCHS["llama3.2-1b"])
+    np_params = family_params(jcfg, 0)
+    stream = TokenStream(jcfg, ShapeConfig("t", 16, 2, "train"))
+    jopt = joptim.adamw(lr=1e-3, schedule=joptim.cosine_schedule(1, 4))
+    topt = toptim.adamw(lr=1e-3, schedule=toptim.cosine_schedule(1, 4))
+
+    def jbuild(mesh):
+        fn = jax.jit(jsteps.build_train_step(jcfg, jrules(mesh), jopt))
+        params = jax.tree.map(jnp.asarray, np_params)
+
+        def step_fn(state, batch):
+            p, s, m = fn(*state, batch)
+            return (p, s), m
+        return step_fn, (params, jopt.init(params)), None
+
+    def tbuild(mesh):
+        fn = tsteps.build_train_step(tcfg, trules(mesh), topt)
+        params = ttf.params_from_numpy(np_params, device=mesh.device,
+                                       dtype=torch.float32)
+
+        def step_fn(state, batch):
+            p, s, m = fn(*state, batch)
+            return (p, s), m
+        return step_fn, (params, topt.init(params))
+
+    _, want = jelastic.ElasticRunner(jbuild, str(tmp_path / "j"),
+                                     ckpt_every=1).run(
+        4, stream.batch, inject_failure_at=2)
+    _, got = telastic.ElasticRunner(tbuild, str(tmp_path / "t"),
+                                    ckpt_every=1).run(
+        4, lambda s: carry_batch(stream.batch(s)),
+        devices=[torch.device("cpu")], inject_failure_at=2)
+    want = [e for e in want if e[0] != "straggler"]      # timing
+    got = [e for e in got if e[0] != "straggler"]
+    assert [e[:2] for e in got] == [e[:2] for e in want] == [
+        ("step", 0), ("step", 1), ("failure", 2), ("remesh", 2),
+        ("step", 2), ("step", 3)]
+    for g, w in zip(got, want):
+        if g[0] == "step":
+            np.testing.assert_allclose(g[2], w[2], rtol=1e-5)
+        else:
+            assert g[2] == w[2]
+
+
+def test_train_launcher_recovers_from_its_own_bf16_checkpoint(tmp_path,
+                                                              capsys):
+    """`python -m repro_torch.launch.train ... --inject-failure 2` prints
+    the device, the trained-steps, loss and event lines; its checkpoint
+    holds bf16 params; and after the restore (from step 0, the launcher
+    checkpointing every 25 steps) the losses of steps 1 to 3 equal an
+    uninterrupted run's exactly."""
+    import json
+    import os
+    import subprocess
+    from pathlib import Path
+
+    from repro_torch.launch import train as ttrain
+    repo = Path(__file__).resolve().parent.parent
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGS,
+         "--inject-failure", "2", "--ckpt-dir", str(tmp_path / "sub")],
+        env=dict(os.environ, PYTHONPATH=str(repo / "src")), cwd=str(repo),
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    assert lines[0] == "[train] device: cpu"
+    assert re.match(r"trained 5 steps in [\d.]+s \([\d.]+s/step\)$",
+                    lines[1])
+    assert re.match(r"loss: first=[\d.]+ last=[\d.]+$", lines[2])
+    assert lines[3:] == ["event: ('failure', 2, 'injected loss at step 2')",
+                         "event: ('remesh', 1, 1)"]
+    with open(tmp_path / "sub" / "step_00000003" / "manifest.json") as f:
+        assert "bfloat16" in {m["dtype"] for m in json.load(f)["leaves"]}
+
+    _, failed = ttrain.main(TRAIN_ARGS + ["--inject-failure", "2",
+                                          "--ckpt-dir", str(tmp_path / "a")])
+    _, whole = ttrain.main(TRAIN_ARGS + ["--ckpt-dir", str(tmp_path / "b")])
+    capsys.readouterr()
+    assert [e[:2] for e in failed] == [
+        ("step", 0), ("step", 1), ("failure", 2), ("remesh", 1),
+        ("step", 1), ("step", 2), ("step", 3)]
+    after = [e for e in failed[failed.index(("remesh", 1, 1)):]
+             if e[0] == "step"]
+    assert after == [e for e in whole if e[0] == "step"][1:]
+    assert failed[:2] == whole[:2]
+
+
+def test_train_launcher_resumes_from_its_checkpoint(tmp_path, capsys):
+    """A second run on the same --ckpt-dir restores the last step and goes
+    on from there, where the reference's raises (Queue 3 item 22)."""
+    from repro_torch.launch import train as ttrain
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    _, first = ttrain.main(TRAIN_ARGS + ck)
+    argv = [a if a != "4" else "6" for a in TRAIN_ARGS]
+    _, second = ttrain.main(argv + ck)
+    out = capsys.readouterr().out
+    assert "event: ('restore', 3, 1)" in out
+    assert [e[:2] for e in second] == [("restore", 3), ("step", 4),
+                                       ("step", 5)]
+    assert len([e for e in first if e[0] == "step"]) == 4
+
+
+def test_a_shape_error_in_a_step_propagates(tmp_path):
+    """Only NodeFailure (and a device error) is taken for a lost node: any
+    other error of a step propagates at once, with no rebuild."""
+    from repro_torch.launch import elastic as telastic
+    builds = []
+
+    def build(mesh):
+        builds.append(mesh)
+
+        def step_fn(state, batch):
+            return state, {"loss": torch.zeros(2) + torch.zeros(3)}
+        return step_fn, {"w": torch.zeros(2)}
+
+    runner = telastic.ElasticRunner(build, str(tmp_path))
+    with pytest.raises(RuntimeError, match="size of tensor"):
+        runner.run(3, lambda s: {}, devices=["cpu"])
+    assert len(builds) == 1
+    assert not isinstance(RuntimeError("x"), telastic.NodeFailure)
+
+
+def test_elastic_runner_gives_up_after_max_recoveries(tmp_path):
+    from repro_torch.launch import elastic as telastic
+    builds = []
+
+    def build(mesh):
+        builds.append(mesh)
+
+        def step_fn(state, batch):
+            raise telastic.NodeFailure("lost")
+        return step_fn, {"w": torch.zeros(2)}
+
+    runner = telastic.ElasticRunner(build, str(tmp_path), max_recoveries=2)
+    with pytest.raises(telastic.NodeFailure, match="lost"):
+        runner.run(3, lambda s: {}, devices=["cpu"])
+    assert len(builds) == 3
