@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--views 2] [--res 200]
+    python3 chip_smoke.py [--seed 0] [--views 1] [--res 200]
 
 Serves novel views from a compressed TensoRF field at the full width of
 `NeRFConfig()` (grid 160, R 16 + 48, app_dim 27, 8192 cubes) through the
@@ -104,11 +104,23 @@ line each:
            and the live ones replayed; each worker's device, dispatch
            path and kernel launches from its `stats` reply; the `fleet_*`
            metric families; close() leaving no child process;
-  launch   `python -m repro_torch.launch.serve --arch rtnerf` run three
-           times on one checkpoint root (train, restore, fleet of two
-           workers with the hot scene on both): exit codes, seconds, the
-           device each printed, views, fps, kernel launches, and PSNRs
-           equal to 0.01 dB across the runs;
+  launch   `python -m repro_torch.launch.serve --arch rtnerf` run twice
+           on one checkpoint root (train, fleet of two workers with the
+           hot scene on both): exit codes, seconds, the device each
+           printed, views, fps, kernel launches, and PSNRs equal to
+           0.01 dB across the runs;
+  mesh     `RenderEngine(mesh=)` across ranks spawned on the card: (a)
+           one rank over NCCL, (b) two ranks sharing the card over gloo,
+           each restoring the serve phase's field, building its occupancy
+           through the gathers and rendering 2 views of 64 x 64 (one
+           chunk each; in (b) half of every chunk a rank), each image
+           within PARITY_TOL of the single-process engine's and the
+           counters equal; per rank its kernel launches, ms a view and
+           the engine's collectives' ms; (a) gpipe at one stage against
+           its reference, (b) which collectives gloo carries on CUDA
+           tensors; the serving launcher under `torchrun
+           --nproc-per-node 1` restoring the launch phase's lego, its
+           PSNRs equal to the launch phase's train run to 0.01 dB;
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
            kernel_ops or train), the largest error against its plain
            version
@@ -135,7 +147,8 @@ line each:
            a training step's appearance-plane call with the training
            run's launches; rows 1 to 3 a `fleet` entry, the launches of
            the fleet phase, summed from the workers' replies and the
-           parent's exports. Rows 7 and 8 are the gathers' backward
+           parent's exports, and a `mesh` entry, each mesh rank's
+           launches. Rows 7 and 8 are the gathers' backward
            kernels at that call, held against their plain versions
            within the reordering bound of fp32 sums, with `index_add_`
            on the precomputed slots as the library call.
@@ -296,6 +309,39 @@ LAUNCH_ARGS = ["--arch", "rtnerf", "--scenes", "lego,chair", "--views", "2",
 LAUNCH_FLEET_ARGS = ["--fleet-workers", "2", "--fleet-replicas", "2"]
 LAUNCH_PSNR_DB = 0.01
 LAUNCH_TIMEOUT_S = 300
+# the mesh phase: RenderEngine(mesh=) across ranks on the card, in ranks
+# spawned with the spawn start method: (a) one rank over NCCL on cuda:0;
+# (b) two ranks sharing cuda:0 over gloo (NCCL refuses two ranks on one
+# card), each rendering half of every chunk. Each world restores the
+# serve phase's field, builds its occupancy (the gather kernels) and
+# renders MESH_VIEWS views of MESH_RES x MESH_RES (one chunk each) at a
+# fixed pair budget above any step's hitting pairs (no pair may be
+# dropped, which the phase checks); each image within PARITY_TOL of the
+# single-process engine's on the card, the counters equal. The first view
+# warms the rank up; the second is timed. (a) also runs gpipe at one
+# stage (gpipe's point-to-point sends are what gloo cannot carry on CUDA
+# tensors, so (b) does not run it); two more ranks sharing the card probe
+# which collectives gloo carries on CUDA tensors. Then the serving
+# launcher under `torchrun --nproc-per-node 1` restores the
+# launch phase's lego; its PSNRs within LAUNCH_PSNR_DB of the launch
+# phase's train run.
+MESH_VIEWS = 2
+MESH_RES = 64
+MESH_PAIR_BUDGET = 2048
+MESH_WORLDS = (("nccl", 1), ("gloo", 2))
+MESH_COLLECTIVE_TIMEOUT_S = 60
+MESH_PROBE_TIMEOUT_S = 10
+MESH_TIMEOUT_S = 180
+MESH_COLLECTIVE_REPEATS = 20
+# send/recv last: gloo's send of a CUDA tensor killed the process with
+# torch 2.11 on the H100 machine (a TCP write from device memory)
+MESH_PROBES = ("all_reduce", "broadcast", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor", "reduce",
+               "gather", "scatter", "all_to_all_single", "barrier",
+               "send_recv")
+MESH_LAUNCH_ARGS = ["--scenes", "lego"]
+
+
 # the lm phase: language-model serving of the dense archs
 # (repro_torch.models.transformer through launch/steps.py). Card against
 # the CPU on the same params: float32 to 1e-4 (cuBLAS sums in another
@@ -2108,11 +2154,11 @@ def fleet_phase(torch, m, cfg, seed, dev, kernels, root) -> tuple:
 
 def launch_phase(torch, root) -> dict:
     """`python -m repro_torch.launch.serve --arch rtnerf` on the card, run
-    three times as a user would on one checkpoint root: (1) trains each
-    scene and checkpoints it, then serves; (2) restores and serves, its
-    PSNRs within LAUNCH_PSNR_DB of (1); (3) restores and serves through
-    the fleet (two workers, the hot scene on both), within LAUNCH_PSNR_DB
-    of (2). Each run must exit 0 on the card's device."""
+    twice as a user would on one checkpoint root: (1) trains each scene
+    and checkpoints it, then serves; (2) restores and serves through the
+    fleet (two workers, the hot scene on both), within LAUNCH_PSNR_DB of
+    (1). Each run must exit 0 on the card's device. (The plain restore
+    run is the mesh phase's, under torchrun.)"""
     import os
     import re
 
@@ -2123,8 +2169,7 @@ def launch_phase(torch, root) -> dict:
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     kind = torch.cuda.get_device_name(0)
     runs = []
-    for label, extra in (("train", []), ("restore", []),
-                         ("fleet", LAUNCH_FLEET_ARGS)):
+    for label, extra in (("train", []), ("fleet", LAUNCH_FLEET_ARGS)):
         t0 = time.perf_counter()
         res = subprocess.run(base + extra, cwd=str(ROOT), env=env,
                              capture_output=True, text=True,
@@ -2150,14 +2195,13 @@ def launch_phase(torch, root) -> dict:
         check(device == [kind], f"launch run {label} printed device "
               f"{device}, not {kind}")
         check(len(psnr) == 4, f"launch run {label}: views {psnr}")
-    train, restore, fleet = runs
+    train, fleet = runs
     check(train["trained"] == 2 and train["restored"] == 0,
           f"run 1 trained {train['trained']}")
-    for r in (restore, fleet):
-        check(r["restored"] == 2 and r["trained"] == 0,
-              f"run {r['run']} did not restore both scenes")
+    check(fleet["restored"] == 2 and fleet["trained"] == 0,
+          f"run {fleet['run']} did not restore both scenes")
     diffs = {}
-    for a, b in ((restore, train), (fleet, restore)):
+    for a, b in ((fleet, train),):
         check(sorted(a["psnr"]) == sorted(b["psnr"]), "views differ")
         d = max(abs(a["psnr"][k] - b["psnr"][k]) for k in a["psnr"])
         diffs[f"{a['run']}_vs_{b['run']}_db"] = d
@@ -2169,11 +2213,387 @@ def launch_phase(torch, root) -> dict:
         k = r["kernel_launches"]
         check(k is not None and k["bitmap_gather"] + k["coo_gather"] > 0,
               f"run {r['run']} built no occupancy through the gathers: {k}")
-    for r in (train, restore):
-        check(r["kernel_launches"]["fused_sigma_app"] > 0,
-              f"run {r['run']} launched no fused kernel")
+    check(train["kernel_launches"]["fused_sigma_app"] > 0,
+          f"run {train['run']} launched no fused kernel")
     return {"phase": "launch", "seconds": time.perf_counter() - t_phase,
             "runs": runs, "psnr_max_diff": diffs, "tol_db": LAUNCH_PSNR_DB}
+
+
+def mesh_cams(m, dev):
+    return [orbit_camera(m, a, MESH_RES, dev) for a in
+            2 * math.pi * (np.arange(MESH_VIEWS) + 0.125) / MESH_VIEWS]
+
+
+def mesh_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_render(torch, engine, cams) -> tuple:
+    """The views one flush a view: (results, seconds of the last view,
+    ended by a synchronise)."""
+    results, seconds = [], 0.0
+    for cam in cams:
+        mesh_sync(torch, engine.device)
+        t0 = time.perf_counter()
+        fut = engine.submit(cam)
+        engine.flush()
+        results.append(fut.result())
+        mesh_sync(torch, engine.device)
+        seconds = time.perf_counter() - t0
+    return results, seconds
+
+
+def mesh_probe(torch, dist, dev, path: str) -> dict:
+    """Each collective on small CUDA tensors, in MESH_PROBES order: "ok",
+    or what the backend raised; the record is rewritten to `path` after
+    each, so a collective that kills the process leaves the ones before
+    it."""
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(rank + 1), device=dev)
+
+    def send_recv():
+        peer = 1 - rank
+        ops = [dist.P2POp(dist.isend, x.clone(), peer),
+               dist.P2POp(dist.irecv, torch.empty_like(x), peer)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty((4 * world,)), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty((4 // world,)), x),
+        "reduce": lambda: dist.reduce(x.clone(), dst=0),
+        "gather": lambda: dist.gather(
+            x, [torch.empty_like(x) for _ in range(world)] if rank == 0
+            else None, dst=0),
+        "scatter": lambda: dist.scatter(
+            torch.empty_like(x), [x.clone() for _ in range(world)]
+            if rank == 0 else None, src=0),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "send_recv": send_recv,
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name in MESH_PROBES:
+        try:
+            calls[name]()
+            mesh_sync(torch, dev)
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+        with open(path, "w") as f:
+            json.dump(out, f)
+    return out
+
+
+def mesh_collective_ms(torch, dist, tdist, rules, n_rays: int, dev) -> dict:
+    """ms of the engine's two collectives a chunk, each over
+    MESH_COLLECTIVE_REPEATS calls ended by a synchronise: the pixel
+    gather (`distributed.gather_rays`, an all-gather into n_rays x 5
+    float32 in the data group) and the counters' all-reduce; a one-rank
+    group times an all-reduce of the same bytes on the world group (NCCL,
+    one rank)."""
+    parts = rules.mesh.shape["data"]
+    px = torch.rand((n_rays // parts, 5), device=dev)
+    counts = torch.zeros((2 + 1024,), dtype=torch.float64, device=dev)
+    if parts > 1:
+        fns = {"gather_ms": lambda: tdist.gather_rays(rules, px, n_rays),
+               "counts_ms": lambda: tdist.reduce_counts(rules, counts,
+                                                        n_rays)}
+    else:
+        full = torch.rand((n_rays, 5), device=dev)
+        fns = {"all_reduce_ms": lambda: dist.all_reduce(full),
+               "counts_ms": lambda: dist.all_reduce(counts)}
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        mesh_sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(MESH_COLLECTIVE_REPEATS):
+            fn()
+        mesh_sync(torch, dev)
+        out[name] = (time.perf_counter() - t0) / MESH_COLLECTIVE_REPEATS * 1e3
+    return out
+
+
+def mesh_probe_rank(rank: int, world: int, tmp: str, device: str) -> None:
+    """One rank of the gloo probe (a spawned process on `device`): writes
+    rank<r>.json as it goes. It leaves without a last collective: one
+    that the backend refused may have closed the connection (its exit
+    code is part of the record)."""
+    import os
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    dev = init_ranks(device, backend="gloo",
+                     init_method="file://" + os.path.join(tmp, "init"),
+                     rank=rank, world_size=world,
+                     timeout_s=MESH_PROBE_TIMEOUT_S)
+    mesh_probe(torch, dist, dev, os.path.join(tmp, f"rank{rank}.json"))
+    dist.destroy_process_group()
+
+
+def mesh_rank(rank: int, world: int, backend: str, tmp: str, device: str,
+              cfg_fields: dict) -> None:
+    """One rank of the mesh phase (a spawned process) on `device`, at the
+    parent's config: writes rank<r>.npz (the images) and rank<r>.json, or
+    rank<r>.err."""
+    import os
+    import traceback
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        from repro_torch.ckpt import checkpoint as ckpt_lib
+        from repro_torch.configs.rtnerf import NeRFConfig
+        from repro_torch.core import distributed as tdist
+        from repro_torch.core import pipeline, rendering
+        from repro_torch.kernels import bitmap_decode, coo_gather, fused_sample
+        from repro_torch.launch import pipeline as gpipe_lib
+        from repro_torch.launch.mesh import (init_ranks, make_host_mesh,
+                                             make_pipeline_mesh)
+        from repro_torch.models.sharding import make_rules
+        from repro_torch.serving import RenderEngine
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        t_start = time.perf_counter()
+        dev = init_ranks(device, backend=backend,
+                         init_method="file://" + os.path.join(tmp, "init"),
+                         rank=rank, world_size=world,
+                         timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+        m = types.SimpleNamespace(rendering=rendering)
+        cfg = NeRFConfig(**cfg_fields)
+        cams = mesh_cams(m, dev)
+        kernels = {"fused_sigma_app": fused_sample.fused_sigma_app,
+                   "bitmap_gather": bitmap_decode.bitmap_gather,
+                   "coo_gather": coo_gather.coo_gather}
+        field, _ = ckpt_lib.restore_field(os.path.join(tmp, "field"), 0, cfg,
+                                          device=dev)
+        mesh = make_host_mesh(dev)
+        mesh_sync(torch, dev)
+        # -- the main path: counts from 0, the engine built (occupancy
+        # through the gathers) and the views rendered --------------------
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        engine = RenderEngine(cfg, field, mesh=mesh, ray_chunk=MESH_RES ** 2,
+                              pair_budget=MESH_PAIR_BUDGET,
+                              adaptive_pair_budget=False,
+                              trace_requests=False)
+        mesh_sync(torch, dev)
+        setup_s = time.perf_counter() - t0
+        results, view_s = mesh_render(torch, engine, cams)
+        launches = launch_counts(kernels)
+        st = engine.stats()
+        line = {"rank": rank, "world": world, "backend": backend,
+                "device": str(dev), "n_devices": st["n_devices"],
+                "engine_setup_s": setup_s, "view_ms": view_s * 1e3,
+                "views_per_s": 1.0 / view_s, "cubes": engine.cubes.count,
+                "launches": launches,
+                "fused_points_per_call": MESH_PAIR_BUDGET
+                * pipeline.samples_per_segment(cfg),
+                "rays_per_rank": MESH_RES ** 2 // world,
+                "dropped_pairs": st["dropped_pairs"],
+                "pair_budget": st["pair_budget"],
+                "counters": [{k: r.stats[k] for k in (
+                    "active_pairs_max", "dropped_pairs",
+                    "processed_samples", "dispatch_path")}
+                    for r in results]}
+        line["collectives"] = mesh_collective_ms(
+            torch, dist, tdist, make_rules(mesh), MESH_RES ** 2, dev)
+        if world == 1:
+            # gpipe at one stage: the pipeline mesh of the one rank
+            rng = np.random.default_rng(0)
+            params = {k: torch.from_numpy(
+                (rng.standard_normal(s) * 0.1).astype(np.float32)).to(dev)
+                for k, s in (("w1", (8, 16, 32)), ("w2", (8, 32, 16)))}
+            x = torch.from_numpy(rng.standard_normal((6, 4, 16)).astype(
+                np.float32)).to(dev)
+            y = gpipe_lib.gpipe(gpipe_lib.mlp_stage, make_pipeline_mesh(
+                stages=1, data=1, model=1, device=dev))(params, x)
+            want = gpipe_lib.reference_apply(params, x)
+            line["gpipe_max_abs_err"] = float((y - want).abs().max())
+        # no rank tears its connections down under another's last
+        # collective (gloo's barrier would use a CUDA tensor here: a CPU
+        # all-reduce instead)
+        if backend == "nccl":
+            dist.barrier()
+        else:
+            dist.all_reduce(torch.zeros(1))
+        dist.destroy_process_group()
+        line["seconds"] = time.perf_counter() - t_start
+        np.savez(os.path.join(tmp, f"rank{rank}.npz"),
+                 **{f"img{i}": r.img for i, r in enumerate(results)},
+                 **{f"depth{i}": r.depth for i, r in enumerate(results)})
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(line, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def mesh_spawn(target, world: int, args: tuple, limit_s: float) -> list:
+    """`target(rank, world, *args)` in `world` processes started with the
+    spawn method, joined within `limit_s` (what is left is killed);
+    returns their exit codes."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, *args))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(t0 + limit_s - time.perf_counter(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [p.exitcode for p in procs]
+
+
+def mesh_world(backend: str, world: int, tmp: str, device: str,
+               cfg_fields: dict) -> list:
+    """The ranks of one world (`mesh_rank`): their lines and images."""
+    import os
+    t0 = time.perf_counter()
+    codes = mesh_spawn(mesh_rank, world, (backend, tmp, device, cfg_fields),
+                       MESH_TIMEOUT_S)
+    errors = []
+    for r, code in enumerate(codes):
+        err = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()[-3000:]}")
+        elif code != 0:
+            errors.append(f"rank {r}: exit code {code}")
+    check(not errors, f"mesh world {backend} x {world}:\n" + "\n".join(errors))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            line = json.load(f)
+        line["world_seconds"] = time.perf_counter() - t0
+        out.append((line, dict(np.load(os.path.join(tmp, f"rank{r}.npz")))))
+    return out
+
+
+def mesh_probe_world(world: int, tmp: str, device: str) -> dict:
+    """The gloo probe in `world` ranks (`mesh_probe_rank`): each rank's
+    record and exit code (a finding, not a check: what gloo refuses is
+    reported)."""
+    import os
+    codes = mesh_spawn(mesh_probe_rank, world, (tmp, device),
+                       MESH_PROBE_TIMEOUT_S * len(MESH_PROBES) + 30)
+    out = {}
+    for r, code in enumerate(codes):
+        path = os.path.join(tmp, f"rank{r}.json")
+        ops = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                ops = json.load(f)
+        out[f"rank{r}"] = {"exit_code": code, "ops": ops}
+    return out
+
+
+def mesh_phase(torch, m, cfg, field, dev, root, train_psnr) -> tuple:
+    """RenderEngine(mesh=) across ranks against the single-process engine
+    on the card, gpipe at one stage, the gloo probe on CUDA tensors, and
+    the serving launcher under torchrun. Returns (phase line, per kernel
+    {"launches_per_rank": {world: [...]}})."""
+    import os
+    import re
+    t_phase = time.perf_counter()
+    cams = mesh_cams(m, dev)
+    single = m.RenderEngine(cfg, field, device=dev, ray_chunk=MESH_RES ** 2,
+                            pair_budget=MESH_PAIR_BUDGET,
+                            adaptive_pair_budget=False, trace_requests=False)
+    want, want_s = mesh_render(torch, single, cams)
+    cubes = single.cubes.count
+    del single
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        m.ckpt.save_field(os.path.join(tmp, "field"), 0, field)
+        worlds = {}
+        for backend, world in MESH_WORLDS:
+            wdir = os.path.join(tmp, f"{backend}{world}")
+            os.makedirs(wdir)
+            os.symlink(os.path.join(tmp, "field"), os.path.join(wdir, "field"))
+            worlds[f"{backend}x{world}"] = mesh_world(
+                backend, world, wdir, str(dev), dataclasses.asdict(cfg))
+        probe_dir = os.path.join(tmp, "probe")
+        os.makedirs(probe_dir)
+        probe = mesh_probe_world(2, probe_dir, str(dev))
+    ranks, entries = {}, {}
+    for key, res in worlds.items():
+        ranks[key] = []
+        for line, imgs in res:
+            errs = [max_diff(imgs[f"img{i}"], w.img) for i, w in
+                    enumerate(want)]
+            line["max_abs_err"] = max(errs)
+            ranks[key].append(line)
+            world = line["world"]
+            check(line["n_devices"] == world, f"{key}: n_devices "
+                  f"{line['n_devices']}")
+            check(line["cubes"] == cubes, f"{key}: {line['cubes']} cubes, "
+                  f"the single-process engine {cubes}")
+            check(max(errs) <= PARITY_TOL, f"{key} rank {line['rank']}: "
+                  f"image error {errs} against the single-process engine")
+            for got, w in zip(line["counters"], want):
+                for k in ("active_pairs_max", "dropped_pairs",
+                          "processed_samples"):
+                    check(got[k] == w.stats[k], f"{key}: {k} {got[k]} "
+                          f"against {w.stats[k]}")
+                check(got["dispatch_path"] == "fused", f"{key}: "
+                      f"{got['dispatch_path']}")
+            check(line["dropped_pairs"] == 0, f"{key} dropped pairs")
+            for name, n in line["launches"].items():
+                check(n > 0, f"{key} rank {line['rank']}: {name} was not "
+                      f"launched")
+                entries.setdefault(name, {}).setdefault(
+                    key, []).append(n)
+        if world == 1:
+            check(res[0][0]["gpipe_max_abs_err"] <= 1e-5,
+                  f"gpipe at one stage: {res[0][0]['gpipe_max_abs_err']}")
+    args = ["--standalone", "--nproc-per-node", "1", "-m",
+            "repro_torch.launch.serve", *LAUNCH_ARGS, *MESH_LAUNCH_ARGS,
+            "--ckpt-dir", os.path.join(root, "ckpt")]
+    out, seconds = run_launcher(torch, "torch.distributed.run", args)
+    psnr = {f"{s} view {i}": float(p) for s, i, p in re.findall(
+        r"^(\w+) view (\d+): psnr=([-\d.]+)", out, re.M)}
+    launches = [json.loads(x) for x in re.findall(
+        r"^\[serve\] kernel launches: (.*)$", out, re.M)]
+    check(len(psnr) == 2 and out.count("[engine] restoring scene") == 1,
+          f"torchrun launcher output:\n{out[-3000:]}")
+    diff = max(abs(p - train_psnr[k]) for k, p in psnr.items())
+    check(diff <= LAUNCH_PSNR_DB, f"torchrun launcher PSNRs {psnr} against "
+          f"the launch phase's {train_psnr}")
+    check(launches and launches[-1]["fused_sigma_app"] > 0,
+          f"torchrun launcher launched no fused kernel: {launches}")
+    line = {"phase": "mesh", "seconds": time.perf_counter() - t_phase,
+            "views": MESH_VIEWS, "res": MESH_RES,
+            "pair_budget": MESH_PAIR_BUDGET, "tol": PARITY_TOL,
+            "single_process": {"view_ms": want_s * 1e3,
+                               "views_per_s": 1.0 / want_s,
+                               "cubes": cubes},
+            "ranks": ranks, "gloo_on_cuda": probe,
+            "launcher": {"args": args, "seconds": seconds, "psnr": psnr,
+                         "psnr_max_diff_db": diff,
+                         "kernel_launches": launches[-1]}}
+    return line, {name: {"launches_per_rank": v}
+                  for name, v in entries.items()}
 
 
 def lm_serve(torch, lm, cfg, params, tokens, frontend, n_decode, dev,
@@ -3690,7 +4110,7 @@ def profile_chunk(torch, engine, rendering, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--views", type=int, default=2)
+    ap.add_argument("--views", type=int, default=1)
     ap.add_argument("--res", type=int, default=200)
     args = ap.parse_args()
     if args.res < 64:
@@ -3714,6 +4134,7 @@ def main() -> int:
     from repro_torch.kernels import (_build, bitmap_decode, coo_gather,
                                      flash_attention, fused_sample, ops,
                                      volume_render)
+    from repro_torch.ckpt import checkpoint as ckpt_lib
     from repro_torch.serving import FineTuneLoop, FleetRouter, RenderEngine
     from repro_torch.serving import fleet
 
@@ -3880,7 +4301,7 @@ def main() -> int:
         tensorf=tensorf, fused_sample=fused_sample, pipeline=pipeline,
         train=train, rays=rays, ops=ops, coo_gather=coo_gather,
         RenderEngine=RenderEngine, FineTuneLoop=FineTuneLoop, fleet=fleet,
-        FleetRouter=FleetRouter)
+        FleetRouter=FleetRouter, ckpt=ckpt_lib)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_spill_") as spill:
         line, store_engine = store_phase(torch, m, cfg, args.seed, dev, spill,
                                          kernels)
@@ -3955,7 +4376,15 @@ def main() -> int:
         line, fleet_entries = fleet_phase(torch, m, cfg, args.seed, dev,
                                           kernels, root)
         emit(line)
-        emit(launch_phase(torch, root))
+        line = launch_phase(torch, root)
+        emit(line)
+        # -- mesh: the engine across ranks, gpipe, the launcher under
+        # torchrun (restoring the launch phase's lego) ---------------------
+        train_psnr = {k: v for k, v in line["runs"][0]["psnr"].items()
+                      if k.startswith("lego ")}
+        line, mesh_entries = mesh_phase(torch, m, cfg, field, dev, root,
+                                        train_psnr)
+        emit(line)
 
 
     # -- kernels: each against its plain version on captured inputs ------
@@ -4023,6 +4452,7 @@ def main() -> int:
     for row in rows:
         row["eval"] = eval_entries[row["name"]]
         row["fleet"] = fleet_entries[row["name"]]
+        row["mesh"] = mesh_entries[row["name"]]
         if row["name"] in train_entries:
             row["train"] = train_entries[row["name"]]
     rows += ops_rows + bwd_rows

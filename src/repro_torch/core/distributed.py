@@ -1,28 +1,43 @@
-"""Distributed NeRF on one device. The port of `repro/core/distributed.py`.
+"""Distributed NeRF over a mesh of ranks. The port of
+`repro/core/distributed.py`.
 
 The reference places the serving field and each ray chunk on a JAX mesh:
-the encoded streams replicated (`stream_sharding`), the rays split over the
-batch axes (`ray_sharding`), the VM components over "model"
-(`nerf_param_sharding`). On a one-device mesh each of these is a plain
-device placement, and that is what this module does: the card's machine
-has one card, so every placement here is `.to(device)`.
+the encoded streams replicated (`stream_sharding`), the rays split over
+the batch axes (`ray_sharding`), the VM components over "model"
+(`nerf_param_sharding`). The port runs one process a device
+(`launch.mesh`), so the specs become DTensor placements
+(`models.sharding.placements`) and the placements become data movement:
 
-Not ported yet: `nerf_param_sharding`, `ray_sharding` and
-`stream_sharding` need a mesh abstraction (`models/sharding.AxisRules`,
-with the language-model substrate and `torch.distributed`'s DeviceMesh);
+  * a field is placed whole on this rank's device (`place_field`): every
+    rank walks the whole stream, which is KB to MB and read-only;
+  * a ray chunk that divides the data axis is split into contiguous
+    slices, one a rank in rank order (`shard_rays`), and reassembled
+    (`gather_rays`, an all-gather); one that does not is rendered whole
+    on every rank;
+  * a chunk's counters are reduced to what one device counts
+    (`reduce_counts`, an all-reduce).
+
+Both collectives run in the mesh's "data" group. NCCL and gloo both
+carry them on CUDA tensors, so ranks that share one card (gloo) run the
+same code as ranks on cards of their own (NCCL); gloo's point-to-point
+send of a CUDA tensor is what it cannot carry (`launch/pipeline.gpipe`
+needs NCCL or CPU ranks). `place_field` and `shard_rays` also take a
+plain device, the one-device path.
+
+The R channels over "model" (`nerf_param_sharding`'s Shard) and the
+language models across ranks are ROADMAP.md Queue 1 item 10b;
 `nerf_input_specs` and `lower_nerf_cell` belong to the dry-run tooling
-(`launch/dryrun.py`), which lowers XLA programs and has no one-to-one
-counterpart here.
-
-Training uses the differentiable uniform pipeline (as TensoRF does); the
-cube-centric RT-NeRF pipeline is the serving path.
+(item 11). Training uses the differentiable uniform pipeline (as TensoRF
+does); the cube-centric RT-NeRF pipeline is the serving path.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.rtnerf import NeRFConfig
 from repro_torch.core import field as field_lib
@@ -30,58 +45,195 @@ from repro_torch.core import rendering
 from repro_torch.core import train as train_lib
 from repro_torch.core.occupancy import CubeSet
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.sharding import AxisRules, placements
+
+BATCH_AXES = ("pod", "data")
 
 
-def place_field(field, device: DeviceLike):
-    """A resident serving field on `device`: every stream tensor, the
-    integer metadata and the MLP (a `FieldBackend`, or a params dict), as
-    the reference's one placement call over the whole tree does on a
-    one-device mesh."""
-    dev = resolve_device(device)
+def nerf_param_sharding(cfg: NeRFConfig, params,
+                        rules: AxisRules) -> Dict[str, tuple]:
+    """Placements per param: planes and lines over "model" on their R
+    dim where it divides, the rest replicated."""
+    mesh = rules.mesh
+
+    def spec_for(name, arr):
+        if "planes" in name or "lines" in name:
+            m = mesh.shape.get("model", 1)
+            if m > 1 and arr.shape[1] % m == 0:
+                return (None, "model")
+        return ()
+
+    return {k: placements(spec_for(k, v), mesh) for k, v in params.items()}
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in BATCH_AXES if a in mesh.shape)
+
+
+def ray_sharding(rules: AxisRules, n_rays: int) -> tuple:
+    """Placements of a chunk of `n_rays` rays: dim 0 over the batch axes
+    when it divides them, else replicated."""
+    axes = _batch_axes(rules.mesh)
+    size = math.prod(rules.mesh.shape[a] for a in axes)
+    if size > 1 and n_rays % size == 0:
+        spec = (axes if len(axes) > 1 else axes[0],)
+    else:
+        spec = ()
+    return placements(spec, rules.mesh)
+
+
+def stream_sharding(rules: AxisRules) -> tuple:
+    """Placements of the resident field's encoded streams (bitmap words,
+    rowptr, values; COO coords and values; dense factors; the MLP):
+    replicated."""
+    return placements((), rules.mesh)
+
+
+def _device(where) -> torch.device:
+    if isinstance(where, AxisRules):
+        return where.mesh.device
+    return resolve_device(where)
+
+
+def _split(rules: Optional[AxisRules], n_rays: int) -> Tuple[int, int]:
+    """(parts, this rank's part) of a chunk of `n_rays` rays: the data
+    axis when it divides the chunk, else (1, 0)."""
+    if not isinstance(rules, AxisRules):
+        return 1, 0
+    mesh = rules.mesh
+    for a in _batch_axes(mesh):
+        if a != "data" and mesh.shape[a] > 1:
+            raise NotImplementedError(
+                f"rays over the '{a}' axis: the port's meshes split rays "
+                f"over 'data' (the production meshes are ROADMAP.md Queue "
+                f"1 item 11)")
+    parts = mesh.shape.get("data", 1)
+    if parts == 1 or n_rays % parts:
+        return 1, 0
+    return parts, mesh.coordinate("data")
+
+
+def place_field(field, where):
+    """A resident serving field on this rank's device (`where`: the rules
+    of its mesh, or a device): every stream tensor, the integer metadata
+    and the MLP (a `FieldBackend`, or a params dict), whole on every rank
+    (`stream_sharding`)."""
+    dev = _device(where)
     if isinstance(field, dict):
         return {k: torch.as_tensor(v).to(dev) for k, v in field.items()}
     return field.to(dev)
 
 
-def shard_rays(device: DeviceLike, rays_o, rays_d
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One micro-batched ray chunk (numpy arrays or tensors) on `device`:
-    the reference's single-device path, where the chunk is replicated."""
-    dev = resolve_device(device)
+def shard_rays(where, rays_o, rays_d) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One micro-batched ray chunk (numpy arrays or tensors) on this
+    rank's device: its contiguous slice of the chunk when the chunk
+    divides the mesh's data axis, the whole chunk otherwise (the
+    reference's replicated fallback, and the one-device path; `where`: the
+    rules of the mesh, or a device)."""
+    dev = _device(where)
+    parts, i = _split(where, rays_o.shape[0])
+    n = rays_o.shape[0] // parts
+    lo, hi = i * n, (i + 1) * n
 
     def put(a):
         if isinstance(a, np.ndarray):
-            a = torch.from_numpy(a)
+            a = torch.from_numpy(a[lo:hi])
+        else:
+            a = a[lo:hi]
         return a.to(dev)
     return put(rays_o), put(rays_d)
 
 
-def build_render_step(cfg: NeRFConfig):
+def gather_rays(rules: Optional[AxisRules], x: torch.Tensor,
+                n_rays: int) -> torch.Tensor:
+    """Per-ray outputs of this rank's `shard_rays` slice reassembled into
+    the whole chunk of `n_rays` rays, in rank order, on every rank. A
+    chunk rendered whole is returned as it is."""
+    parts, _ = _split(rules, n_rays)
+    if parts == 1:
+        return x
+    if x.shape[0] * parts != n_rays:
+        raise ValueError(f"{x.shape[0]} rows of a chunk of {n_rays} rays "
+                         f"split {parts} ways")
+    full = x.new_empty((n_rays, *x.shape[1:]))
+    dist.all_gather_into_tensor(full, x.contiguous(),
+                                group=rules.mesh.group("data"))
+    return full
+
+
+def reduce_counts(rules: Optional[AxisRules], counts: torch.Tensor,
+                  n_rays: int) -> torch.Tensor:
+    """A chunk's counters (a tensor of counts) as one device counts them:
+    summed over the ranks that split the chunk; where every rank rendered
+    it whole, the largest across the data group, so that every rank holds
+    the same numbers (and so decides the same pair budget)."""
+    if not isinstance(rules, AxisRules) or rules.mesh.shape.get(
+            "data", 1) == 1:
+        return counts
+    parts, _ = _split(rules, n_rays)
+    op = dist.ReduceOp.SUM if parts > 1 else dist.ReduceOp.MAX
+    counts = counts.clone()
+    dist.all_reduce(counts, op=op, group=rules.mesh.group("data"))
+    return counts
+
+
+def build_render_step(cfg: NeRFConfig, rules: Optional[AxisRules] = None):
     """Batched novel-view rendering: rays -> rgb through the uniform
     pipeline, with the occupancy grid as one cube's (the serving analogue
-    of Step 2-1/2-2/3)."""
+    of Step 2-1/2-2/3). With `rules`, each rank renders its slice of the
+    rays (`shard_rays`) and every rank returns the whole image."""
 
     def render_step(params, occ, rays_o, rays_d):
         dev = occ.device
         cubes = CubeSet(centers=torch.zeros((1, 3), device=dev),
                         valid=torch.ones((1,), dtype=torch.bool, device=dev),
                         count=1, radius=0.0, occ=occ)
-        rgb, _ = rendering.render_uniform(params, cfg, cubes, rays_o, rays_d)
-        return rgb
+        n = rays_o.shape[0]
+        ro, rd = (rays_o, rays_d) if rules is None else shard_rays(
+            rules, rays_o, rays_d)
+        rgb, _ = rendering.render_uniform(params, cfg, cubes, ro, rd)
+        return gather_rays(rules, rgb, n)
 
     return render_step
 
 
-def build_nerf_train_step(cfg: NeRFConfig, opt):
+def build_nerf_train_step(cfg: NeRFConfig, opt,
+                          rules: Optional[AxisRules] = None):
     """One optimizer step on a params dict and a batch {"rays_o",
     "rays_d", "rgb"}: the uniform render without occupancy, loss = MSE +
     sigma_sparsity_l1 * L1 + tv_weight * TV (`train.loss_and_grads`),
-    then `opt.update`. Returns (params, optimizer state, loss)."""
+    then `opt.update`. Returns (params, optimizer state, loss).
+
+    With `rules`, each rank takes its slice of the batch (`shard_rays`'s
+    split over "data") and the data group averages the loss and the
+    gradients, so the step is the one-device step: the MSE is the mean
+    over the whole batch, and the L1 and TV terms, equal on every rank,
+    count once. A "model" axis above 1 raises (the R channels over
+    "model" are ROADMAP.md Queue 1 item 10b)."""
+    if rules is not None and rules.mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a train step over a 'model' axis: the field's R channels over "
+            "'model' are ROADMAP.md Queue 1 item 10b")
 
     def train_step(params, opt_state, batch):
         field = field_lib.DenseField(params, cfg)
+        parts, i = _split(rules, batch["rays_o"].shape[0])
+        n = batch["rays_o"].shape[0] // parts
+        part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
         loss, _mse, grads = train_lib.loss_and_grads(
-            field, cfg, batch["rays_o"], batch["rays_d"], batch["rgb"])
+            field, cfg, part["rays_o"], part["rays_d"], part["rgb"])
+        if parts > 1:
+            # one all-reduce of every gradient and the loss, averaged
+            names = list(grads)
+            flat = torch.cat([grads[k].reshape(-1) for k in names]
+                             + [loss.reshape(1)])
+            dist.all_reduce(flat, group=rules.mesh.group("data"))
+            flat = flat / parts
+            out, at = {}, 0
+            for k in names:
+                out[k] = flat[at:at + grads[k].numel()].view_as(grads[k])
+                at += grads[k].numel()
+            grads, loss = out, flat[-1]
         params, opt_state = opt.update(grads, opt_state, field.trainable())
         return params, opt_state, loss
 

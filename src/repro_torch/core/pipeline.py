@@ -337,7 +337,9 @@ def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
     the hitting pairs, compacted into `pair_budget` slots, go through the
     field and the MLP; pairs beyond the budget are dropped and counted in
     `aux["dropped_pairs"]`, and `aux["active_pairs_max"]` is the largest
-    hitting-pair count of any step (the serving engine's budget signal).
+    hitting-pair count of any step (the serving engine's budget signal),
+    `aux["active_pairs"]` the count of each step (a mesh sums them across
+    the ranks that split a chunk before taking the largest).
     `aux` also carries per-ray transmittance, depth, opacity and the
     processed-sample count, all as device tensors.
     """
@@ -367,7 +369,7 @@ def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
         depth = torch.zeros((n_rays,), dtype=torch.float32, device=dev)
         processed = torch.zeros((), dtype=torch.float32, device=dev)
         dropped = torch.zeros((), dtype=torch.int32, device=dev)
-        pairs_max = torch.zeros((), dtype=torch.int32, device=dev)
+        step_hits = []
         ctr_all = centers.reshape(n_chunks, chunk, 3)
         vld_all = valid.reshape(n_chunks, chunk)
 
@@ -432,16 +434,19 @@ def make_ray_renderer(cfg: NeRFConfig, *, chunk: int = 8,
                 processed = processed + s_mask.sum(dtype=torch.float32)
                 n_hit = flat_hit.sum(dtype=torch.int32)
                 dropped = dropped + torch.clamp(n_hit - budget, min=0)
-                pairs_max = torch.maximum(pairs_max, n_hit)
+                step_hits.append(n_hit)
 
         t_final = torch.exp(log_t)
         if white_bg:
             color = color + t_final[:, None]
+        pairs = (torch.stack(step_hits) if step_hits
+                 else torch.zeros((1,), dtype=torch.int32, device=dev))
         return color, {"t_final": t_final, "depth": depth,
                        "opacity": 1.0 - t_final,
                        "processed_samples": processed,
                        "dropped_pairs": dropped,
-                       "active_pairs_max": pairs_max}
+                       "active_pairs_max": pairs.max(),
+                       "active_pairs": pairs}
 
     return render
 

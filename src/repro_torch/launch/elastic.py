@@ -14,11 +14,11 @@ The contract is the reference's:
   4. the data stream is a pure function of (step, shard)
      (`data/tokens.py`), so a resumed run replays no batch and skips none.
 
-The port's meshes hold one device (`launch/mesh.HostMesh`): remeshing
-onto fewer devices waits for meshes of several (ROADMAP.md Queue 1 item
-10), so an injected failure here rebuilds on the same device. Any other
-exception of a step (a shape error, say) is not a node failure and
-propagates at once.
+The runner drives one device: remeshing a run of several ranks onto the
+survivors, with a re-sharded restore, is ROADMAP.md Queue 1 item 10b,
+and a device list of several raises. An injected failure here rebuilds
+on the same device. Any other exception of a step (a shape error, say)
+is not a node failure and propagates at once.
 """
 from __future__ import annotations
 
@@ -68,22 +68,32 @@ class HealthMonitor:
 
 
 def make_mesh_from(devices: Sequence, model_axis: int) -> HostMesh:
-    """The largest (data, model) mesh on the surviving devices. The port's
-    meshes hold one device: a list of several distinct devices raises."""
-    devs = []
-    for d in devices:
-        d = torch.device(d)
-        if d not in devs:
-            devs.append(d)
-    if len(devs) != 1:
-        raise NotImplementedError(
-            f"a mesh of devices {[str(d) for d in devs]}: the port's meshes "
-            f"hold one device (meshes of several are ROADMAP.md Queue 1 "
-            f"item 10)")
+    """The largest (data, model) mesh on the surviving devices, as the
+    reference's: 8 -> (4, 2), 4 -> (2, 2), 3 -> (3, 1) at `model_axis` 2.
+    `devices` are devices or ranks (ints), one rank a device; a repeated
+    entry counts once, and entries of several device types raise. One
+    device gives the one-device mesh on it. Several give the mesh's
+    shape alone (device and DeviceMesh None): the live mesh of several
+    ranks is `launch.mesh`'s, over the process group."""
     if model_axis < 1:
         raise ValueError(f"model_axis {model_axis} < 1")
-    return HostMesh({"data": 1, "model": 1}, ("data", "model"),
-                    resolve_device(devs[0]))
+    ranks = []
+    for d in devices:
+        d = d if isinstance(d, int) else torch.device(d)
+        if d not in ranks:
+            ranks.append(d)
+    kinds = sorted({"rank" if isinstance(d, int) else d.type for d in ranks})
+    if len(kinds) != 1:
+        raise ValueError(f"a mesh of devices {[str(d) for d in ranks]}: "
+                         f"entries of one device type only, not {kinds}")
+    n = len(ranks)
+    model = min(model_axis, n)
+    while n % model:
+        model -= 1
+    shape = {"data": n // model, "model": model}
+    if n == 1 and not isinstance(ranks[0], int):
+        return HostMesh(shape, ("data", "model"), resolve_device(ranks[0]))
+    return HostMesh(shape, ("data", "model"), None)
 
 
 @dataclasses.dataclass
@@ -111,6 +121,11 @@ class ElasticRunner:
         log = []
         recoveries = 0
         mesh = make_mesh_from(devices, self.model_axis)
+        if mesh.size > 1:
+            raise NotImplementedError(
+                f"a run on {len(devices)} devices: the elastic runner drives "
+                f"one device (remeshing across ranks is ROADMAP.md Queue 1 "
+                f"item 10b)")
         step_fn, state = self.build(mesh)
         start, restored = mgr.restore_latest(state, device=mesh.device)
         step0 = 0

@@ -1,27 +1,168 @@
-"""Meshes for the port's launchers: the port of `repro/launch/mesh.py`'s
-host mesh. The port runs on one device; meshes of several devices wait
-for ROADMAP.md Queue 1 item 10."""
+"""Meshes for the port's launchers: the port of `repro/launch/mesh.py`.
+
+The port runs SPMD, one process (rank) per device, as PyTorch does:
+`init_ranks` starts the process group (from `torchrun`'s environment or
+an explicit `init_method`) and gives the rank its device, and the meshes
+below are `torch.distributed.device_mesh` DeviceMeshes over that group
+with the reference's axis names. Without a process group, the host mesh
+is the one-device mesh. `models.sharding.make_rules` and `resolve_spec`
+read only a mesh's `shape` and `axis_names`.
+
+The production meshes (256 or 512 ranks, `make_production_mesh`) belong
+to the dry-run tooling (ROADMAP.md Queue 1 item 11).
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+import datetime
+import functools
+import math
+import os
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+
+# every collective of a process group started here fails after this long,
+# so ranks that disagree on the order of collectives raise instead of
+# hanging
+COLLECTIVE_TIMEOUT_S = 300.0
 
 
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
-    """A mesh's shape (axis -> size) and axis names over its device: all
-    that `models.sharding.make_rules` and `resolve_spec` read."""
+    """A mesh's shape (axis -> size) and axis names, this rank's device,
+    and the DeviceMesh over the process group (None for one rank, and for
+    a mesh that only carries a shape, as sharding specs need)."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
-    device: torch.device
+    device: Optional[torch.device]
+    device_mesh: Any = None
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape[a] for a in self.axis_names)
+
+    def group(self, axis: str):
+        """The process group along `axis` that holds this rank; None where
+        the axis has one rank."""
+        if self.shape.get(axis, 1) == 1:
+            return None
+        return self._live().get_group(axis)
+
+    def coordinate(self, axis: str) -> int:
+        """This rank's index along `axis` (0 where the axis has one rank)."""
+        if self.shape.get(axis, 1) == 1:
+            return 0
+        return self._live().get_local_rank(axis)
+
+    @property
+    def rank(self) -> int:
+        """This rank's place in the mesh (0 on a one-rank mesh)."""
+        if self.size == 1:
+            return 0
+        return self._live().get_rank()
+
+    def _live(self):
+        if self.device_mesh is None:
+            raise ValueError(
+                f"the mesh {self.shape} carries a shape only: build it over "
+                f"a process group (launch.mesh.init_ranks) to communicate")
+        return self.device_mesh
+
+
+def init_ranks(device: DeviceLike = None, *, backend: Optional[str] = None,
+               init_method: Optional[str] = None, rank: Optional[int] = None,
+               world_size: Optional[int] = None,
+               timeout_s: float = COLLECTIVE_TIMEOUT_S) -> torch.device:
+    """Start this process's rank of the process group and return its
+    device. `init_method` None reads `torchrun`'s environment (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT); otherwise pass it
+    with `rank` and `world_size` (the tests use "file://<path>").
+    `device` None is the card `cuda:<local rank>`; "cpu" runs the rank on
+    the CPU; a named card ("cuda:0") puts ranks that share it there. The
+    backend is NCCL for a CUDA device and gloo for the CPU unless given:
+    ranks that share one card need `backend="gloo"` (NCCL refuses two
+    ranks on one card). Every collective fails after `timeout_s`."""
+    if dist.is_initialized():
+        raise RuntimeError("the process group is already initialised")
+    if init_method is None:
+        init_method = "env://"
+        rank = int(os.environ["RANK"]) if rank is None else rank
+        world_size = (int(os.environ["WORLD_SIZE"]) if world_size is None
+                      else world_size)
+    if rank is None or world_size is None:
+        raise ValueError("an explicit init_method needs rank and world_size")
+    if device is None:
+        dev = resolve_device(
+            f"cuda:{int(os.environ.get('LOCAL_RANK', rank))}")
+    else:
+        dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        # before the group starts, so NCCL and DeviceMesh take this card
+        torch.cuda.set_device(dev)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            device_id=dev if backend == "nccl" else None)
+    return dev
+
+
+def _mesh_device_type(dev: torch.device) -> str:
+    return "cuda" if dev.type == "cuda" else "cpu"
+
+
+@functools.lru_cache(maxsize=None)
+def _device_mesh(world_group, device_type: str, shape: Tuple[int, ...],
+                 names: Tuple[str, ...]):
+    """One DeviceMesh per (process group, device type, shape): building
+    one creates process groups, a collective every rank must enter, so
+    the ranks build each mesh once and share it."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+
+
+def _world_mesh(shape: Dict[str, int], names: Tuple[str, ...],
+                device: DeviceLike) -> HostMesh:
+    dev = resolve_device(device)
+    dims = tuple(shape[a] for a in names)
+    world = dist.get_world_size()
+    if math.prod(dims) != world:
+        raise ValueError(f"a mesh of {dict(shape)} needs {math.prod(dims)} "
+                         f"ranks, the process group has {world}")
+    dm = _device_mesh(dist.group.WORLD, _mesh_device_type(dev), dims, names)
+    return HostMesh(dict(shape), names, dev, dm)
 
 
 def make_host_mesh(device: DeviceLike = None) -> HostMesh:
-    """The one-device mesh {"data": 1, "model": 1} on `device` (None: the
-    card)."""
-    return HostMesh({"data": 1, "model": 1}, ("data", "model"),
-                    resolve_device(device))
+    """Whatever this host runs: the (world, 1) ("data", "model") mesh over
+    the initialised process group, or without one the one-device mesh,
+    on `device` (None: the card)."""
+    names = ("data", "model")
+    if not dist.is_initialized():
+        return HostMesh({"data": 1, "model": 1}, names,
+                        resolve_device(device))
+    return _world_mesh({"data": dist.get_world_size(), "model": 1}, names,
+                       device)
+
+
+def make_pipeline_mesh(*, stages: int = 4, data: int = 8, model: int = 8,
+                       device: DeviceLike = None) -> HostMesh:
+    """The (stage, data, model) mesh for `launch/pipeline.gpipe` over the
+    initialised process group, which must hold stages x data x model
+    ranks (one rank needs none)."""
+    shape = {"stage": stages, "data": data, "model": model}
+    names = ("stage", "data", "model")
+    if not dist.is_initialized():
+        if stages * data * model != 1:
+            raise ValueError(
+                f"a mesh of {shape} needs a process group of "
+                f"{stages * data * model} ranks (launch.mesh.init_ranks)")
+        return HostMesh(shape, names, resolve_device(device))
+    return _world_mesh(shape, names, device)

@@ -15,10 +15,18 @@ archs) or batched novel-view rendering (rtnerf) on the card. The port of
         --scenes lego,chair,mic --fleet-workers 2 --max-resident-mb 2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rtnerf \
         --scene lego --views 1 --res 16 --train-steps 2 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch rtnerf --scene lego --ckpt-dir /tmp/lego-ckpt
 
 `--device` (default `cuda`) is where models run, fields train and views
 render; the CPU runs only when asked for (`--device cpu`, the plain
 PyTorch versions of the kernels), and without a card the default raises.
+Under `torchrun` the NeRF path serves across the ranks: one rank a card
+(`cuda:<local rank>`, NCCL) or CPU ranks (`--device cpu`, gloo); ranks
+that share one card (`--device cuda:0`) need `--backend gloo`. Rank 0
+trains or restores each field into `--ckpt-dir` (required across ranks),
+every rank restores it, the engine splits each ray chunk over the ranks
+(`RenderEngine(mesh=)`), and rank 0 prints.
 Fleet workers get the same device through their engine arguments. The
 NeRF paths use the reference launcher's `NeRFConfig`, so a checkpoint
 written by either package's launcher restores in the other. The LM path
@@ -35,6 +43,8 @@ import tempfile
 import time
 
 import torch
+
+import torch.distributed as dist
 
 from repro_torch.configs.base import mib_to_bytes
 from repro_torch.configs.registry import ARCHS, get_arch, reduced
@@ -188,16 +198,30 @@ def serve_nerf(args):
     store every --finetune-every steps while the request streams keep
     rendering.
     """
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.obs import (MetricsRegistry, MetricsServer,
                                  StatsReporter, snapshot_json)
     from repro_torch.serving import FineTuneLoop, RenderEngine
+    from repro_torch.serving.engine import prepare_field
     from repro_torch.serving.fleet import kernel_launches
 
     dev = resolve_device(args.device)
+    mesh = make_host_mesh(dev)
+    lead = mesh.rank == 0
     name_of_device = device_name(dev)
-    print(f"[serve] device: {name_of_device}", flush=True)
+    print(f"[serve] device: {name_of_device}"
+          + (f", {mesh.size} ranks" if mesh.size > 1 else ""), flush=True)
     scenes = _scenes(args)
     cfg = launcher_config(args.max_resident_mb)
+    if mesh.size > 1:
+        # rank 0 trains (or restores) each field once; every rank then
+        # restores the same checkpoint
+        if lead:
+            for s in scenes:
+                prepare_field(cfg, s, ckpt_dir=os.path.join(args.ckpt_dir, s),
+                              train_steps=args.train_steps, n_views=8,
+                              image_hw=args.res, device=dev)
+        dist.barrier()
 
     # the registry is created BEFORE the engine (which may train scenes for
     # minutes) so the exposition endpoint answers scrapes from the start;
@@ -210,7 +234,7 @@ def serve_nerf(args):
         return eng.stats() if eng is not None else {"phase": "loading"}
 
     mserver = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and lead:
         mserver = MetricsServer(registry, port=args.metrics_port,
                                 extra=_extra_stats)
         print(f"[obs] metrics: http://127.0.0.1:{mserver.port}/metrics "
@@ -222,11 +246,11 @@ def serve_nerf(args):
         prune_sparsity=args.prune_sparsity, encode=not args.dense,
         ray_chunk=args.res * args.res, max_batch_views=args.views,
         auto_flush_interval=(0.25 if args.finetune_steps else None),
-        registry=registry, device=dev)
+        registry=registry, device=dev, mesh=mesh)
     holder["engine"] = engine
 
     reporter = None
-    if args.stats_interval:
+    if args.stats_interval and lead:
         def _stats_line():
             s = engine.stats()
             return (f"[obs] views={s['views_served']} fps={s['fps']:.3f} "
@@ -258,7 +282,7 @@ def serve_nerf(args):
 
     cams, gts = _ground_truth(scenes, args, dev)
     rounds = 1 if not loops else max(args.finetune_rounds, 1)
-    with profile_to(args.profile_dir, dev):
+    with profile_to(args.profile_dir if lead else None, dev):
         for rnd in range(rounds):
             futures = [(name, engine.submit(cam, gt, scene=name,
                                             deadline_s=args.deadline))
@@ -302,7 +326,7 @@ def serve_nerf(args):
                   f"p99={d['p99_s'] * 1e3:8.2f}ms "
                   f"total={d['total_s']:7.3f}s")
     print(f"[serve] kernel launches: {json.dumps(kernel_launches())}")
-    if args.metrics_dump:
+    if args.metrics_dump and lead:
         snap = snapshot_json(registry, extra=s)
         with open(args.metrics_dump, "w") as f:
             json.dump(snap, f, indent=2)
@@ -527,21 +551,53 @@ def build_parser() -> argparse.ArgumentParser:
                          "subdirectories of this root when checkpoints "
                          "exist; otherwise train once and save there "
                          "(repeated serves reuse them instead of "
-                         "retraining)")
+                         "retraining); required under torchrun")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="rtnerf under torchrun: the process group's "
+                         "backend; gloo for ranks that share one card "
+                         "(default: nccl on cards, gloo on the CPU)")
     return ap
 
 
 def main(argv=None):
+    from repro_torch.launch.mesh import init_ranks
+
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.fleet_workers and args.arch != "rtnerf":
         ap.error("--fleet-workers requires --arch rtnerf")
-    if args.arch != "rtnerf":
-        serve_lm(args)
-    elif args.fleet_workers:
-        serve_fleet(args)
-    else:
-        serve_nerf(args)
+    started = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        # torchrun: this process is one rank ("cuda" means its own card)
+        if args.arch != "rtnerf" or args.fleet_workers:
+            ap.error("under torchrun only --arch rtnerf without "
+                     "--fleet-workers serves across ranks (ROADMAP.md "
+                     "Queue 1 item 10b)")
+        args.device = str(init_ranks(
+            None if args.device == "cuda" else args.device,
+            backend=args.backend))
+        started = True
+    ranks = dist.get_world_size() if dist.is_initialized() else 1
+    if ranks > 1 and not args.ckpt_dir:
+        ap.error("--ckpt-dir is required across ranks: rank 0 trains each "
+                 "field there and every rank restores it")
+    if ranks > 1 and args.finetune_steps:
+        ap.error("--finetune-steps serves on one rank only")
+    try:
+        with contextlib.ExitStack() as stack:
+            if dist.is_initialized() and dist.get_rank() != 0:
+                # rank 0 prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            if args.arch != "rtnerf":
+                serve_lm(args)
+            elif args.fleet_workers:
+                serve_fleet(args)
+            else:
+                serve_nerf(args)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,12 +11,14 @@ assignment when
   (b) the dim size does not divide the mesh-axis size.
 
 A mesh is anything with `shape` (a dict axis -> size) and `axis_names`
-(`launch.mesh.make_host_mesh` gives the one-device mesh). A spec is a
-tuple with one entry per dim: a mesh axis, a tuple of axes, or `fill`
-(the reference's `PartitionSpec` is a tuple of the same entries). The
-port runs on one device: `shard_act` constrains nothing there, and
-meshes of several devices (DeviceMesh / DTensor shardings) wait for
-ROADMAP.md Queue 1 item 10.
+(`launch.mesh` builds them over the process group, one rank per device).
+A spec is a tuple with one entry per dim: a mesh axis, a tuple of axes,
+or `fill` (the reference's `PartitionSpec` is a tuple of the same
+entries). `placements` turns a spec into DTensor placements, one per
+mesh dim, and `param_sharding` gives them for a whole param tree.
+`shard_act` constrains nothing on one device; the language models on a
+mesh of several ranks (activation, batch and cache shardings) wait for
+ROADMAP.md Queue 1 item 10b.
 """
 from __future__ import annotations
 
@@ -159,9 +161,10 @@ def mesh_size(mesh) -> int:
 
 
 def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Check an activation's logical axes and return it unchanged: the
-    port's meshes hold one device, so there is nothing to constrain.
-    Without rules it checks nothing, as in the reference."""
+    """Check an activation's logical axes and return it unchanged: on one
+    device there is nothing to constrain. Without rules it checks
+    nothing, as in the reference; on a mesh of several ranks it raises
+    (the language models across ranks are ROADMAP.md Queue 1 item 10b)."""
     rules = current_rules()
     if rules is None:
         return x
@@ -169,8 +172,8 @@ def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
         raise ValueError(f"logical {logical} vs shape {tuple(x.shape)}")
     if mesh_size(rules.mesh) > 1:
         raise NotImplementedError(
-            f"a mesh of {mesh_size(rules.mesh)} devices: the port shards "
-            f"over one device only (ROADMAP.md Queue 1 item 10)")
+            f"activations on a mesh of {mesh_size(rules.mesh)} ranks: the "
+            f"language models across ranks are ROADMAP.md Queue 1 item 10b")
     return x
 
 
@@ -186,3 +189,27 @@ def param_spec(params, logical, rules: AxisRules):
             axes = (None,) * len(arr.shape)
         return resolve_spec(tuple(arr.shape), axes, rules.param_rules, rules)
     return tree_map(one, params, logical)
+
+
+def placements(spec: Sequence, mesh) -> tuple:
+    """A spec as DTensor placements, one per mesh dim in `axis_names`
+    order: `Shard(d)` on each mesh dim that the spec names at tensor dim
+    d, `Replicate()` on the others."""
+    # imported here: DTensor's modules take most of a second to import
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for axis in mesh.axis_names:
+        dims = [d for d, entry in enumerate(spec)
+                if entry == axis or (isinstance(entry, tuple)
+                                     and axis in entry)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def param_sharding(params, logical, rules: AxisRules):
+    """The placements tree of a param tree and its logical tree: each
+    leaf's `param_spec` as DTensor placements on `rules.mesh`, as the
+    reference's `param_sharding` gives a NamedSharding per leaf."""
+    specs = param_spec(params, logical, rules)
+    return tree_map(lambda _p, spec: placements(spec, rules.mesh), params,
+                    specs)

@@ -49,6 +49,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import checkpoint as ckpt_lib
 from repro_torch.configs.rtnerf import NeRFConfig
@@ -61,6 +62,8 @@ from repro_torch.core import train as train_lib
 from repro_torch.core.occupancy import CubeSet
 from repro_torch.core.rendering import Camera
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S, make_host_mesh
+from repro_torch.models.sharding import make_rules
 from repro_torch.obs import REPORT_STAGES, MetricsRegistry, Tracer, lockdebug
 from repro_torch.obs.tracing import ViewTrace
 from repro_torch.serving import temporal
@@ -253,8 +256,8 @@ def _train_field(cfg: NeRFConfig, scene: str, *, ckpt_dir: Optional[str],
 
 
 class RenderEngine:
-    """Batched novel-view serving on one device, scene-routed over a
-    SceneStore.
+    """Batched novel-view serving on one device or across the ranks of a
+    mesh, scene-routed over a SceneStore.
 
     The single-scene constructor `RenderEngine(cfg, field, cubes, ...)`
     builds a one-scene store (under `scene_name`, default "default") and
@@ -262,7 +265,19 @@ class RenderEngine:
     Multi-scene serving passes `store=` (or calls `register_scene` on a
     running engine) and keys each call with `scene=`. `device` is where
     the store keeps its scenes and the renderer runs (None: the card; with
-    `store=`, the store's device)."""
+    `store=`, the store's device).
+
+    `mesh` (None: `launch.mesh.make_host_mesh(device)`, the world mesh
+    when a process group is up) spreads each ray chunk over the mesh's
+    "data" ranks (`core.distributed`): every rank runs the same program
+    (the same submits in the same order), renders its slice of each chunk
+    and receives the whole image, and the chunk's counters are reduced to
+    what one device counts, so every rank keeps the same pair budget.
+    Rank 0 decides which queued views each flush renders and which have
+    expired, and sends that to the other ranks before any renders: a
+    flush is a collective, and so is `submit` when it fills the queue.
+    With the background flusher, rank 0's thread times the flushes and
+    the other ranks' threads follow it (`start_auto_flush`)."""
 
     def __init__(self, cfg: NeRFConfig, field=None,
                  cubes: Optional[CubeSet] = None, *,
@@ -278,7 +293,7 @@ class RenderEngine:
                  spill_dir: Optional[str] = None,
                  registry: Optional[MetricsRegistry] = None,
                  trace_requests: bool = True,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.cfg = cfg
         self.ray_chunk = int(ray_chunk)
         self.cube_chunk = int(cube_chunk)
@@ -295,17 +310,33 @@ class RenderEngine:
             if device is not None and resolve_device(device) != store.device:
                 raise ValueError(f"device {device} differs from the store's "
                                  f"{store.device}")
+            if mesh is not None and mesh is not store.rules.mesh:
+                raise ValueError("mesh= conflicts with store=: the engine "
+                                 "serves on its store's mesh")
             self.store = store
         else:
+            if mesh is None:
+                mesh = make_host_mesh(device)
+            elif device is not None and resolve_device(device) != \
+                    mesh.device:
+                raise ValueError(f"device {device} differs from the mesh's "
+                                 f"{mesh.device}")
             self.store = SceneStore(
-                cfg, device=device, encode=encode, order_mode=order_mode,
-                max_resident_bytes=max_resident_bytes, spill_dir=spill_dir,
-                registry=registry)
+                cfg, rules=make_rules(mesh), encode=encode,
+                order_mode=order_mode, max_resident_bytes=max_resident_bytes,
+                spill_dir=spill_dir, registry=registry)
             if field is not None:
                 self.store.register(scene_name, field, cubes)
             elif cubes is not None:
                 raise ValueError("cubes given without a field")
         self.device = self.store.device
+        self.rules = self.store.rules
+        self.n_devices = self.rules.mesh.size
+        if self.n_devices > 1 and self.n_devices != dist.get_world_size():
+            raise ValueError(
+                f"a mesh of {self.n_devices} ranks in a process group of "
+                f"{dist.get_world_size()}: the engine's flushes are "
+                f"collectives of the whole group")
 
         # ONE registry for the store's whole serving stack: engine totals,
         # per-scene records and request-stage histograms. trace_requests
@@ -438,14 +469,22 @@ class RenderEngine:
         (submit never renders inline); the flusher renders when the queue
         reaches `max_batch_views` or every `interval_s` seconds, whichever
         comes first. Pair with `close()` (or use the engine as a context
-        manager): the thread is not a daemon, so a leak is loud."""
+        manager): the thread is not a daemon, so a leak is loud.
+
+        On a mesh of several ranks only rank 0's thread times flushes; on
+        every other rank the thread follows rank 0 (`_follow_loop`),
+        rendering each flush rank 0 announces, and `flush()` there waits
+        for the views queued so far. Every rank starts it and closes the
+        engine alike."""
         with self._lock:
             if self._flusher is not None:
                 raise RuntimeError("auto-flush thread already running")
             self.auto_flush_interval = float(interval_s)
             self._flusher_stop.clear()
+            follow = self.n_devices > 1 and dist.get_rank() != 0
             self._flusher = threading.Thread(
-                target=self._flush_loop, name="engine-auto-flush")
+                target=self._follow_loop if follow else self._flush_loop,
+                name="engine-auto-flush")
             self._flusher.start()
 
     def _flush_loop(self):
@@ -471,21 +510,92 @@ class RenderEngine:
             with self._lock:
                 self._flush_error = e
 
+    def _follow_loop(self):
+        """A flush thread on a rank other than 0: render each flush that
+        rank 0 announces (its view ids and expiries), once this rank has
+        queued those views, until rank 0 closes its engine (an empty
+        announcement)."""
+        while True:
+            header = [None]
+            try:
+                dist.broadcast_object_list(header, src=0)
+                if header[0] is None:
+                    return
+                with self._render_lock:
+                    reqs, expired = self._take(header[0],
+                                               COLLECTIVE_TIMEOUT_S)
+                    with self._lock:
+                        render_fn, budget = self._render, self._pair_budget
+                    self._render_claimed(reqs, expired, render_fn, budget)
+            except BaseException as e:   # surfaced via result()/close()
+                with self._lock:
+                    self._flush_error = e
+                return
+
+    def _take(self, header, wait_s: float):
+        """(requests, expired): the views rank 0 announced (`header`: view
+        ids and expiries), taken off this rank's queue, waiting up to
+        `wait_s` for this rank's program to submit them. The same submits
+        in the same order give the same ids on every rank; a view still
+        missing means the ranks ran different programs: it raises."""
+        ids = [v for v, _ in header]
+        deadline = time.monotonic() + wait_s
+        with self._flush_cv:
+            while True:
+                have = {r.future._view_id: r for r in self._queue}
+                missing = [v for v in ids if v not in have]
+                left = deadline - time.monotonic()
+                if not missing:
+                    break
+                if left <= 0:
+                    raise RuntimeError(
+                        f"rank {dist.get_rank()} never queued views "
+                        f"{missing} that rank 0 flushes: every rank must "
+                        f"submit the same views in the same order")
+                self._flush_cv.wait(left)
+            take = set(ids)
+            self._queue = [r for r in self._queue
+                           if r.future._view_id not in take]
+            self._g_queue.set(len(self._queue))
+        return [have[v] for v in ids], [e for _, e in header]
+
+    def _following(self) -> bool:
+        return (self.n_devices > 1 and dist.get_rank() != 0
+                and self._auto_flush_on())
+
     def close(self, timeout: Optional[float] = None):
         """Stop the background flush thread (joining it), drain the queue,
         and surface any deferred flush error. With a `timeout`, a flush
         thread still running after that many seconds raises TimeoutError
-        (it has been told to stop, and exits after its current flush)."""
+        (it has been told to stop, and exits after its current flush).
+        On a mesh, rank 0 then tells the following ranks' threads to
+        stop, and a following rank's thread ends there."""
         with self._lock:
             t, self._flusher = self._flusher, None
             self._flusher_stop.set()
             self._flush_cv.notify_all()
-        if t is not None:
+        lead = self.n_devices == 1 or dist.get_rank() == 0
+        if t is not None and lead:
             t.join(timeout)
             if t.is_alive():
                 raise TimeoutError(
                     f"auto-flush thread still running after {timeout}s")
-        self.flush()
+            self.flush()
+            if self.n_devices > 1:
+                dist.broadcast_object_list([None], src=0)
+        elif t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(
+                    f"rank {dist.get_rank()}'s flush thread still follows "
+                    f"rank 0 after {timeout}s")
+            with self._lock:
+                stranded = [r.future._view_id for r in self._queue]
+            if stranded:
+                raise RuntimeError(f"views {stranded} were never flushed by "
+                                   f"rank 0")
+        else:
+            self.flush()
         self._raise_flush_error()
 
     def __enter__(self) -> "RenderEngine":
@@ -599,6 +709,8 @@ class RenderEngine:
                     trace.add(name, s0, s1, **attrs)
                 trace.add("submit", now, time.perf_counter())
             full = len(self._queue) >= self.max_batch_views
+            if self.n_devices > 1:
+                self._flush_cv.notify_all()    # a following thread waits
             if full and self._auto_flush_on():
                 self._flush_cv.notify()
                 full = False
@@ -650,42 +762,77 @@ class RenderEngine:
         each group from its scene's snapshot. Renders are serialized on
         `_render_lock` but run outside the engine lock. If a render fails,
         unresolved requests go back on the queue before the error
-        propagates."""
+        propagates. On a rank that follows rank 0's flush thread, it waits
+        for the views queued so far instead."""
+        if self._following():
+            with self._lock:
+                futs = [r.future for r in self._queue]
+            return [f.result() for f in futs]
         with self._render_lock:
             with self._lock:
                 if not self._queue:
                     return []
-                reqs, self._queue = self._queue, []
-                self._g_queue.set(0)
                 render_fn = self._render
                 budget = self._pair_budget
+            reqs, expired = self._claim()
+            return self._render_claimed(reqs, expired, render_fn, budget)
+
+    def _render_claimed(self, reqs: List[_Request], expired: List[bool],
+                        render_fn, budget: int) -> List[ViewResult]:
+        try:
+            # snapshots are taken outside the engine lock (reviving a scene
+            # evicted since its submit reads the disk) but inside this try,
+            # so a failed revival requeues the batch
+            snaps: Dict[str, SceneSnapshot] = {}
+            for r in reqs:
+                if r.scene not in snaps:
+                    snaps[r.scene] = self.store.snapshot(r.scene)
+            return self._flush(reqs, expired, snaps, render_fn, budget)
+        except BaseException:
+            with self._lock:
+                self._queue = [r for r in reqs
+                               if r.future._result is None] + self._queue
+            raise
+
+    def _claim(self):
+        """(requests, expired): take this flush's views off the queue. On
+        one rank, all of them, expired where the deadline has passed. On
+        a mesh, rank 0 decides for every rank by its own queue and clock,
+        and broadcasts the view ids and expiries; the other ranks take
+        those views (`_take`)."""
+        if self.n_devices > 1 and dist.get_rank() != 0:
+            header = [None]
+            dist.broadcast_object_list(header, src=0)
+            return self._take(header[0], 0.0)
+        with self._lock:
+            reqs, self._queue = self._queue, []
+            self._g_queue.set(0)
+        now = time.perf_counter()
+        expired = [r.deadline is not None and now > r.deadline for r in reqs]
+        if self.n_devices > 1:
             try:
-                # snapshots are taken outside the engine lock (reviving a
-                # scene evicted since its submit reads the disk) but inside
-                # this try, so a failed revival requeues the batch
-                snaps: Dict[str, SceneSnapshot] = {}
-                for r in reqs:
-                    if r.scene not in snaps:
-                        snaps[r.scene] = self.store.snapshot(r.scene)
-                return self._flush(reqs, snaps, render_fn, budget)
+                dist.broadcast_object_list(
+                    [[(r.future._view_id, e) for r, e in zip(reqs, expired)]],
+                    src=0)
             except BaseException:
                 with self._lock:
-                    self._queue = [r for r in reqs
-                                   if r.future._result is None] + self._queue
+                    self._queue = reqs + self._queue
                 raise
+        return reqs, expired
 
-    def _flush(self, reqs: List[_Request], snaps: Dict[str, SceneSnapshot],
-               render_fn, budget: int) -> List[ViewResult]:
+    def _flush(self, reqs: List[_Request], expired: List[bool],
+               snaps: Dict[str, SceneSnapshot], render_fn,
+               budget: int) -> List[ViewResult]:
         t0 = time.perf_counter()
         results: List[ViewResult] = []
 
         # deadline pass: fail expired requests now, render the rest. Every
         # request's queue span closes here.
         live: List[_Request] = []
-        for r in reqs:
+        for r, late in zip(reqs, expired):
             if r.trace is not None:
                 r.trace.add("queue", r.t_submit, t0)
-            if r.deadline is not None and t0 > r.deadline:
+            if late:
                 trace_tree = None
                 if r.trace is not None:
                     r.trace.add("deliver", t0, t0, timed_out=True)
@@ -734,7 +881,7 @@ class RenderEngine:
                       results: List[ViewResult],
                       snaps: Dict[str, SceneSnapshot], render_fn,
                       flush_pairs: List[int], flush_dropped: List[int]):
-        dev = self.device
+        rules = self.rules
         for (scene, _okey, is_delta), reqs_g in groups.items():
             snap = snaps[scene]
             ordering = snap.ordering
@@ -769,15 +916,25 @@ class RenderEngine:
             g_dropped, g_pairs = 0, 0
             g_processed = 0.0
             for i in range(plan.n_chunks):
-                ro, rd = distributed.shard_rays(dev, plan.rays_o[i],
+                n = plan.rays_o[i].shape[0]
+                ro, rd = distributed.shard_rays(rules, plan.rays_o[i],
                                                 plan.rays_d[i])
                 rgb, aux = render_fn(snap.field, centers, valid, ro, rd)
-                outs.append(rgb.cpu().numpy())
-                geo_outs.append(torch.stack([aux["depth"], aux["opacity"]],
-                                            dim=-1).cpu().numpy())
-                g_dropped += int(aux["dropped_pairs"])
-                g_pairs = max(g_pairs, int(aux["active_pairs_max"]))
-                g_processed += float(aux["processed_samples"])
+                # this rank's rays, then the whole chunk: rgb, depth,
+                # opacity in one tensor, the counters in another
+                px = torch.cat([rgb, aux["depth"][:, None],
+                                aux["opacity"][:, None]], dim=-1)
+                px = distributed.gather_rays(rules, px, n).cpu().numpy()
+                counts = torch.cat([
+                    aux["dropped_pairs"].reshape(1).double(),
+                    aux["processed_samples"].reshape(1).double(),
+                    aux["active_pairs"].double()])
+                counts = distributed.reduce_counts(rules, counts, n).tolist()
+                outs.append(px[:, :3])
+                geo_outs.append(px[:, 3:])
+                g_dropped += int(counts[0])
+                g_processed += counts[1]
+                g_pairs = max(g_pairs, int(max(counts[2:])))
                 flush_pairs[1] += 1
             flush_pairs[0] = max(flush_pairs[0], g_pairs)
             flush_dropped[0] += g_dropped
@@ -937,7 +1094,7 @@ class RenderEngine:
                 "auto_flush_running": self._auto_flush_on(),
                 "ray_chunk": self.ray_chunk,
                 "cube_chunk": self.cube_chunk,
-                "n_devices": 1,             # one device per engine
+                "n_devices": self.n_devices,
                 "delta": {
                     "views": int(self._m_delta_views.value),
                     "fresh_rays": int(self._m_delta_rays.value),

@@ -49,6 +49,8 @@ from repro_torch.core import occupancy as occ_lib
 from repro_torch.core import pipeline as rt_pipe
 from repro_torch.core.occupancy import CubeSet
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.sharding import AxisRules, make_rules
 from repro_torch.obs import Counter, Histogram, MetricsRegistry, lockdebug
 
 CUBES_FILE = "cubes.npz"
@@ -172,8 +174,8 @@ class SceneRecord:
 class SceneStore:
     """Named resident scenes with LRU eviction under a byte budget."""
 
-    def __init__(self, cfg: NeRFConfig, *, device: DeviceLike = None,
-                 encode: bool = True,
+    def __init__(self, cfg: NeRFConfig, *, rules: Optional[AxisRules] = None,
+                 device: DeviceLike = None, encode: bool = True,
                  order_mode: str = "octant",
                  max_resident_bytes: Optional[int] = None,
                  spill_dir: Optional[str] = None,
@@ -185,8 +187,22 @@ class SceneStore:
             max_resident_bytes = cfg.max_resident_bytes
         self.max_resident_bytes = (int(max_resident_bytes)
                                    if max_resident_bytes else None)
+        if rules is None:
+            rules = make_rules(make_host_mesh(device))
+        elif device is not None and resolve_device(device) != \
+                rules.mesh.device:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"{rules.mesh.device}")
+        # the rules' mesh: fields are placed whole on this rank's device
+        # (`distributed.place_field`); on a mesh of several ranks every
+        # rank keeps its own store, which the same calls in the same order
+        # keep equal (the eviction order is a function of them), and
+        # spills into its own directory
+        self.rules = rules
+        self.device = rules.mesh.device
+        if spill_dir is not None and rules.mesh.size > 1:
+            spill_dir = os.path.join(spill_dir, f"rank{rules.mesh.rank}")
         self._spill_dir = spill_dir
-        self.device = resolve_device(device)
         self._lock = lockdebug.make_lock("store", kind="rlock")
         self._records: Dict[str, SceneRecord] = {}
         self._clock = 0
@@ -233,7 +249,7 @@ class SceneStore:
         placed before it is encoded, so the encode runs on the store's
         device."""
         field = distributed.place_field(field_lib.as_backend(field, self.cfg),
-                                        self.device)
+                                        self.rules)
         field = field.encode() if self.encode_fields else field.decode()
         if cubes is None:
             occ = occ_lib.build_occupancy(field, self.cfg)
@@ -414,7 +430,7 @@ class SceneStore:
                 # placement only: the representation is already encoded
                 field, _ = ckpt_lib.unspill_field(rec.spill_path, self.cfg,
                                                   device="cpu")
-                field = distributed.place_field(field, self.device)
+                field = distributed.place_field(field, self.rules)
                 cubes = load_cubes(rec.spill_path, device=self.device)
                 self._install(rec, field, cubes)
                 rec.m.revivals.inc()

@@ -303,11 +303,16 @@ def test_health_monitor_flags_the_references_stragglers():
 
 
 def test_make_mesh_from_holds_one_device():
+    """One device (a repeat counts once) gives the one-device mesh on it;
+    several ranks the reference's shapes; CPU beside meta raises."""
     from repro_torch.launch import elastic as telastic
     cpu = torch.device("cpu")
     mesh = telastic.make_mesh_from([cpu, "cpu"], 4)
     assert mesh.shape == {"data": 1, "model": 1} and mesh.device == cpu
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    for n, want in ((8, {"data": 4, "model": 2}), (4, {"data": 2, "model": 2}),
+                    (3, {"data": 3, "model": 1})):
+        assert telastic.make_mesh_from(list(range(n)), 2).shape == want
+    with pytest.raises(ValueError, match="one device type"):
         telastic.make_mesh_from([cpu, torch.device("meta")], 1)
 
 
