@@ -33,9 +33,10 @@ line each:
            (published widths, depth cut) in float32, prefill and decode
            on the card against the CPU on the same params, tokens and
            encoder frames; each of LM_FULL_CUTS at published widths on
-           the card in bf16 (llama3.2-1b, zamba2-7b, rwkv6-1.6b and
-           seamless-m4t-large-v2 whole, deepseek-v3 1 dense + 1 MoE
-           layer, grok-1 2 layers), one `lm_full` line each: prefill ms,
+           the card in bf16 (llama3.2-1b whole; zamba2-7b 15 of its 81
+           blocks, rwkv6-1.6b 6 of 24 layers, seamless-m4t-large-v2 6
+           + 6 of 24 + 24, deepseek-v3 1 dense + 1 MoE layer, grok-1 2
+           layers), one `lm_full` line each: prefill ms,
            decode ms a step and tok/s at LM_FULL (batch 4, prompt 128,
            32 greedy tokens), peak memory, the least time the card could
            take, a profile of a prefill and 4 decode steps (not for
@@ -48,6 +49,19 @@ line each:
            llama3.2-1b and the five archs beyond the dense trunk, on
            cuda, the six side by side; after lm_train, while the
            machine's memory is free;
+  lm_mesh  language-model serving across ranks (DTensors over a (data,
+           model) mesh; no kernel of the port): two ranks spawned on the
+           card over gloo, each world once, llama3.2-1b whole on 1 x 2
+           and 2 x 1 and grok-1 cut to 1 layer on 1 x 2 (4 of 8 experts
+           a rank, each dispatch), at LM_MESH (batch 4, prompt 128, 8
+           greedy tokens): float32 `serve_lm` tokens equal to the single
+           process's and its logits within LM_MESH_TOL, bf16 logits
+           (teacher-forced) by the noise rule; per mesh prefill ms,
+           decode ms a step, the ms of gloo's collectives in a profiled
+           step, each rank's param bytes against the whole tree's, which
+           collectives gloo carries on bf16 CUDA tensors; then the LM
+           launcher under `torchrun --nproc-per-node 2 --backend gloo`
+           beside one process, the same sample tokens;
   field    a full-width field made from --seed with numpy, density
            confined to a few blobs, pruned and hybrid-encoded;
   serve    RenderEngine(cfg, field, device="cuda") builds the occupancy on
@@ -69,7 +83,7 @@ line each:
            512 samples in passes, the gather kernels), each timed, with
            its launches, stats and the paper's ratio of occupancy
            accesses; each held against the port's CPU path
-           (render_rtnerf at 64 x 64, the baseline on 1,024 strided rays
+           (render_rtnerf at 64 x 64, the baseline on 512 strided rays
            of the view, the ground truth at 800 x 800 under a tie rule);
   kernel_ops  the kernel entry points `repro_torch.kernels.ops` offers
            beside the serve path, driven at full width: bitmap_matmul on
@@ -234,13 +248,13 @@ GEO_PAIR_BUDGET = 4096
 # store phase's orbit angle; render_rtnerf composites EVAL_CHUNK cubes a
 # scan step. Its CPU parity: render_rtnerf at EVAL_PARITY_RES, the
 # uniform baseline on every EVAL_UNIFORM_STRIDE-th ray of the view
-# (1,024 rays), the ground truth at the full view
+# (512 rays), the ground truth at the full view
 EVAL_RES = 800
 EVAL_ANGLE = 0.3
 EVAL_CHUNK = 8
 EVAL_SCENE = "lego"
 EVAL_PARITY_RES = 64
-EVAL_UNIFORM_STRIDE = 625
+EVAL_UNIFORM_STRIDE = 1250
 GT_TOL = 1e-4         # ground-truth colours off the tie pixels
 GT_TIE = 1e-5         # a final SDF this close to the hit threshold is a tie
 GT_TIE_SHARE = 1e-3   # ... and at most this share of pixels may flip
@@ -370,10 +384,15 @@ LM_WIDE_CUTS = {"llama3.2-1b": {"n_layers": 2},
                 "seamless-m4t-large-v2": {"n_layers": 2, "n_enc_layers": 2},
                 "zamba2-7b": {"n_layers": 6}}
 # published widths on the card in bf16 at LM_FULL; the two MoE archs'
-# depth cut to fit one card's 80 GB beside a float32 copy (PERF.md §4)
+# depth cut to fit one card's 80 GB beside a float32 copy (PERF.md §4),
+# the recurrent and enc-dec archs' to a quarter of their depth (zamba2: 2
+# groups of 6 blocks and 3 trailing) to keep the smoke inside its time
+# limit beside the lm_mesh phase: their per-layer loops are launch-bound
 LM_FULL = {"batch": 4, "prompt": 128, "gen": 32}
-LM_FULL_CUTS = {"llama3.2-1b": {}, "zamba2-7b": {}, "rwkv6-1.6b": {},
-                "seamless-m4t-large-v2": {},
+LM_FULL_CUTS = {"llama3.2-1b": {}, "zamba2-7b": {"n_layers": 15},
+                "rwkv6-1.6b": {"n_layers": 6},
+                "seamless-m4t-large-v2": {"n_layers": 6,
+                                          "n_enc_layers": 6},
                 "deepseek-v3-671b": {"n_layers": 2, "n_dense_layers": 1},
                 "grok-1-314b": {"n_layers": 2}}
 LM_PREFILL_REPEATS = 3
@@ -414,6 +433,38 @@ LM_LAUNCH_ARCHS = ("llama3.2-1b", "deepseek-v3-671b", "grok-1-314b",
                    "zamba2-7b", "rwkv6-1.6b", "seamless-m4t-large-v2")
 LM_LAUNCH_ARGS = ["--reduced", "--batch", "4", "--prompt-len", "32",
                   "--gen", "16"]
+# the lm_mesh phase: the language models on DTensors over a (data, model)
+# mesh of ranks spawned on the card, sharing it over gloo (NCCL refuses
+# two ranks on one card), each world spawned once: llama3.2-1b whole at
+# LM_MESH on a 1 x 2 (tensor parallel) and a 2 x 1 (the launcher's)
+# mesh; grok-1 cut to 1 layer at published widths on 1 x 2 (4 of its 8
+# experts a rank), each dispatch, at capacity E / top_k. Against the
+# single process on the same params: float32 greedy tokens exactly and
+# every step's logits (teacher-forced on those tokens) to LM_MESH_TOL;
+# bf16 logits no farther from the float32 logits of the same params than
+# the single process's bf16 logits are, by LM_BF16_NOISE_RATIO in max and
+# in mean. Each rank draws the params placed a leaf at a time
+# (`init_model(rules=)`): two ranks drawing grok-1's float32 tree (26 GB)
+# whole would not fit. The single process runs once for each arch, cut and
+# dispatch (`lm_mesh_ref`), however many meshes run them.
+# Then `python -m repro_torch.launch.serve --arch llama3.2-1b` under
+# `torchrun --nproc-per-node 2 --backend gloo` beside one process: the
+# same sample tokens.
+LM_MESH = {"batch": 4, "prompt": 128, "gen": 8}
+LM_MESH_TOL = 1e-4
+LM_MESH_WORLDS = ((1, 2), (2, 1))
+LM_MESH_RUNS = (
+    {"key": "llama3.2-1b@1x2", "world": (1, 2), "arch": "llama3.2-1b",
+     "cut": {}, "dispatch": None},
+    {"key": "grok-1-314b/bitmap@1x2", "world": (1, 2),
+     "arch": "grok-1-314b", "cut": {"n_layers": 1}, "dispatch": "bitmap"},
+    {"key": "grok-1-314b/coo@1x2", "world": (1, 2), "arch": "grok-1-314b",
+     "cut": {"n_layers": 1}, "dispatch": "coo"},
+    {"key": "llama3.2-1b@2x1", "world": (2, 1), "arch": "llama3.2-1b",
+     "cut": {}, "dispatch": None})
+LM_MESH_TIMEOUT_S = 300
+LM_MESH_LAUNCH = ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len",
+                  "32", "--gen", "8"]
 # the lm_train phase: language-model training (launch/steps.py's
 # build_train_step over models/transformer.model_loss and autograd, the
 # optim package, data/tokens.py, launch/elastic.py, launch/train.py; no
@@ -3064,21 +3115,23 @@ def lm_full(torch, lm, cfg, seed, dev, timed: bool = True) -> dict:
     return line
 
 
-def run_launchers(torch, module: str, arg_lists, timeout=LAUNCH_TIMEOUT_S):
+def run_launchers(torch, module, arg_lists, timeout=LAUNCH_TIMEOUT_S):
     """`python -m <module> <args>` from the checkout for each of
-    `arg_lists`, all started together, as a user runs them; fails unless
-    each exits 0 and prints the card's name as its device (a run past
-    `timeout` is killed, with the rest). Returns [(stdout, seconds)]."""
+    `arg_lists`, all started together, as a user runs them (`module`: one
+    for all, or a list, one a run); fails unless each exits 0 and prints
+    the card's name as its device (a run past `timeout` is killed, with
+    the rest). Returns [(stdout, seconds)]."""
     import os
     import re
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(SRC)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    modules = [module] * len(arg_lists) if isinstance(module, str) else module
     runs = []
     try:
-        for args in arg_lists:
+        for mod, args in zip(modules, arg_lists):
             out, err = tempfile.TemporaryFile(), tempfile.TemporaryFile()
             runs.append((args, subprocess.Popen(
-                [sys.executable, "-m", module, *args], cwd=str(ROOT),
+                [sys.executable, "-m", mod, *args], cwd=str(ROOT),
                 env=env, stdout=out, stderr=err), out, err,
                 time.perf_counter()))
         ended = {}
@@ -3223,6 +3276,420 @@ def lm_phase(torch, seed, dev) -> dict:
                  "vs_f64_forward": r["f32_vs_f64_forward_max_mean"]}
                 for _, r in recurrent],
             "launch": launch}
+
+
+# --------------------------------------------------------------------------
+# lm_mesh: language-model serving across ranks
+# --------------------------------------------------------------------------
+
+
+def lm_mesh_cfg(lm, run: dict):
+    """A run's config: the arch cut to `run["cut"]`, with its dispatch and
+    at capacity E / top_k (no token drops; random weights overflow the
+    published 1.25)."""
+    cfg = dataclasses.replace(lm.registry.ARCHS[run["arch"]], **run["cut"])
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, moe_dispatch=run["dispatch"],
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def lm_mesh_ref(run: dict) -> str:
+    """The single-process reference's key of a run: its arch, cut and
+    dispatch (the same for every mesh)."""
+    cut = ",".join(f"{k}={v}" for k, v in sorted(run["cut"].items()))
+    return f"{run['arch']}/{run['dispatch']}/{cut}"
+
+
+def lm_mesh_params(torch, lm, cfg, dtype, seed: int, dev, rules=None):
+    """`cfg`'s params drawn on the card from a CUDA generator seeded
+    `seed` (every process on the card draws the same numbers), in
+    `dtype`. With `rules` over a mesh of several ranks each leaf is
+    placed as it is drawn (`init_model(rules=)`, as `serve_lm` draws
+    them): each rank's shards only, by `param_sharding`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params, logical = lm.common.split_pl(lm.tf.init_model(
+        cfg, gen, dtype=getattr(torch, dtype), device=dev, rules=rules))
+    if rules is None:
+        return params
+    want = lm.sharding.param_sharding(params, logical, rules)
+    bad = [p for p, ok in named_leaves(lm.common.tree_map(
+        lambda t, pls: tuple(t.placements) == tuple(pls), params, want))
+        if not ok]
+    check(not bad, f"{cfg.name}: leaves placed off their param_sharding: "
+          f"{bad[:5]}")
+    return params
+
+
+def lm_mesh_file(key: str) -> str:
+    """A run's key as a file name."""
+    return "".join(c if c.isalnum() or c in ".-" else "_" for c in key)
+
+
+def lm_mesh_teacher(torch, lm, cfg, params, rules, tokens, fed, dev,
+                    profile: bool = False) -> tuple:
+    """Prefill `tokens`, grow the cache to P + gen, then decode `fed`'s
+    columns on `rules`' mesh: (the logits of every step (B, gen, Vp) as
+    float32 on the CPU, times {prefill_ms, decode_ms_per_step}; with
+    `profile`, the last step under torch.profiler: the host ms of its
+    collectives)."""
+    B, P = tokens.shape
+    n = fed.shape[1]
+    total = P + n + 1
+    prefill = lm.steps.build_prefill_step(cfg, rules)
+    decode = lm.steps.build_decode_step(cfg, rules, total)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens.to(dev)})
+    cache = lm.tf.grow_cache(cache, lm.tf.serve_cache_spec(cfg, B, total)[0])
+    out = [lm.sharding.whole(logits)]
+    torch.cuda.synchronize()
+    times = {"prefill_ms": (time.perf_counter() - t0) * 1e3}
+    steps = n - 1 if profile else n
+    t0 = time.perf_counter()
+    for i in range(steps):
+        logits, cache = decode(params, fed[:, i:i + 1].to(dev), P + i, cache)
+        out.append(lm.sharding.whole(logits))
+    torch.cuda.synchronize()
+    times["decode_ms_per_step"] = (time.perf_counter() - t0) / steps * 1e3
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            logits, cache = decode(params, fed[:, n - 1:n].to(dev),
+                                   P + n - 1, cache)
+            out.append(lm.sharding.whole(logits))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        coll = {e.key: (e.count, e.cpu_time_total * 1e-3)
+                for e in prof.key_averages()
+                if e.key.startswith(("gloo:", "_c10d_functional::"))}
+        gloo = [v for k, v in coll.items() if k.startswith("gloo:")]
+        times["profiled_step_ms"] = step_ms
+        # gloo's own spans (each collective's run), and any collective
+        # that DTensor issued itself (`_c10d_functional::`: none is
+        # expected, `sharding.redistribute` issues them over gloo)
+        times["collective_ms_per_step"] = (
+            sum(v[1] for v in gloo) if gloo else "not measured")
+        times["collectives"] = {k: {"calls": c, "host_ms": ms}
+                                for k, (c, ms) in sorted(coll.items())}
+    return torch.cat([o.float() for o in out], dim=1).cpu(), times
+
+
+def lm_mesh_bytes(params) -> dict:
+    """The bytes of this rank's shards of a placed tree and of the whole
+    tree."""
+    local = whole = 0
+    for _, t in named_leaves(params):
+        local += t.to_local().numel() * t.element_size()
+        whole += t.numel() * t.element_size()
+    return {"local_param_bytes": local, "whole_param_bytes": whole}
+
+
+def lm_mesh_probe(torch, dist, dev) -> dict:
+    """The collectives DTensor's redistributions call, on bf16 CUDA
+    tensors over gloo: "ok" or what gloo raised."""
+    world = dist.get_world_size()
+    x = torch.arange(8, dtype=torch.bfloat16, device=dev)
+    calls = {
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            x.new_empty((8 * world,)), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            x.new_empty((8 // world,)), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0)}
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
+                 shape: tuple, runs: list, seed: int) -> None:
+    """One rank of an lm_mesh world (a spawned process sharing the card
+    over gloo): the mesh `shape` (data, model); per run and dtype its
+    param bytes, float32 `serve_lm` greedy tokens, the teacher-forced
+    logits and times (rank 0 writes the logits). Writes rank<r>.json, or
+    rank<r>.err."""
+    import faulthandler
+    import os
+    import traceback
+    # a crash inside a collective leaves the Python stack on stderr
+    faulthandler.enable()
+    try:
+        sys.path.insert(0, str(SRC))
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch import serve
+        from repro_torch.launch.mesh import init_ranks, make_mesh
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        t_start = time.perf_counter()
+        dev = init_ranks(device, backend="gloo",
+                         init_method="file://" + os.path.join(tmp, "init"),
+                         rank=rank, world_size=world,
+                         timeout_s=MESH_COLLECTIVE_TIMEOUT_S * 4)
+        lm = lm_modules()
+        mesh = make_mesh(*shape, device=dev)
+        rules = lm.sharding.make_rules(mesh)
+        probe = lm_mesh_probe(torch, dist, dev)
+        bf16_ok = all(v == "ok" for v in probe.values())
+        data = np.load(os.path.join(tmp, "inputs.npz"))
+        line = {"rank": rank, "world": world, "mesh": dict(mesh.shape),
+                "device": str(dev), "gloo_bf16": probe, "runs": []}
+        for run in runs:
+            cfg = lm_mesh_cfg(lm, run)
+            key = run["key"]
+            ref = lm_mesh_file(lm_mesh_ref(run))
+            tokens = torch.from_numpy(data[f"{ref}_tokens"])
+            fed = torch.from_numpy(data[f"{ref}_fed"])
+            for dtype in ("float32", "bfloat16"):
+                if dtype == "bfloat16" and not bf16_ok:
+                    continue
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                params = lm_mesh_params(torch, lm, cfg, dtype, seed, dev,
+                                        rules)
+                torch.cuda.synchronize()
+                r = {"key": key, "dtype": dtype,
+                     "params_s": time.perf_counter() - t0,
+                     **lm_mesh_bytes(params)}
+                if dtype == "float32":
+                    # the launcher's loop: greedy tokens, and the logits
+                    # they were read from (the single process's path when
+                    # the tokens are equal)
+                    args = serve.build_parser().parse_args(
+                        ["--arch", run["arch"], "--device", str(dev),
+                         "--batch", str(tokens.shape[0]), "--prompt-len",
+                         str(tokens.shape[1]), "--gen",
+                         str(fed.shape[1] + 1)])
+                    seen = []
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    toks = serve.serve_lm(args, params=params, tokens=tokens,
+                                          mesh=mesh, cfg=cfg,
+                                          logits_out=seen)
+                    torch.cuda.synchronize()
+                    r["serve_lm_s"] = time.perf_counter() - t0
+                    r["greedy"] = toks.cpu().tolist()
+                    logits = torch.cat([o.float() for o in seen], 1).cpu()
+                    del seen
+                else:
+                    # teacher-forced on the float32 greedy tokens, timed,
+                    # the last step profiled
+                    logits, times = lm_mesh_teacher(
+                        torch, lm, cfg, params, rules, tokens, fed, dev,
+                        profile=True)
+                    r.update(times)
+                r["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+                if rank == 0:
+                    np.save(os.path.join(
+                        tmp, f"{lm_mesh_file(key)}_{dtype}.npy"),
+                        logits.numpy())
+                del params, logits
+                torch.cuda.empty_cache()
+                line["runs"].append(r)
+        # no rank tears its connections down under another's last
+        # collective
+        dist.all_reduce(torch.zeros(1))
+        dist.destroy_process_group()
+        line["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(line, f)
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def lm_mesh_world(tmp: str, device: str, shape: tuple, runs: list,
+                  seed: int) -> list:
+    """The ranks of one lm_mesh world (`lm_mesh_rank`): their lines."""
+    import os
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    codes = mesh_spawn(lm_mesh_rank, world, (tmp, device, shape, runs, seed),
+                       LM_MESH_TIMEOUT_S)
+    errors = []
+    for r, code in enumerate(codes):
+        err = os.path.join(tmp, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}:\n{f.read()[-3000:]}")
+        elif code != 0:
+            errors.append(f"rank {r}: exit code {code}")
+    check(not errors, f"lm_mesh world {shape}:\n" + "\n".join(errors))
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            line = json.load(f)
+        line["world_seconds"] = time.perf_counter() - t0
+        out.append(line)
+    return out
+
+
+def lm_mesh_single(torch, lm, cfg, seed: int, dev) -> dict:
+    """The single process on the card: the prompt, float32 greedy tokens
+    (`serve_lm`'s loop, `lm_serve`) and the tokens they feed, then the
+    teacher-forced logits of the float32 params, of the bf16 params and
+    of the bf16 params in float32 (the truth of the noise rule), with
+    prefill and decode times."""
+    B, P, G = LM_MESH["batch"], LM_MESH["prompt"], LM_MESH["gen"]
+    tokens = torch.randint(0, cfg.vocab, (B, P),
+                           generator=torch.Generator().manual_seed(seed))
+    out = {"tokens": tokens, "times": {}}
+    params = lm_mesh_params(torch, lm, cfg, "float32", seed, dev)
+    times = {}
+    logits, fed = lm_serve(torch, lm, cfg, params, tokens, None, G - 1, dev,
+                           times=times)
+    out["greedy"] = torch.argmax(logits, dim=-1).cpu()
+    out["fed"] = fed.cpu()
+    out["float32"] = logits.float().cpu()
+    out["times"]["float32"] = {
+        "prefill_ms": times["prefill_s"] * 1e3,
+        "decode_ms_per_step": times["decode_s"] / (G - 1) * 1e3}
+    del params, logits
+    torch.cuda.empty_cache()
+    params = lm_mesh_params(torch, lm, cfg, "bfloat16", seed, dev)
+    times = {}
+    out["bfloat16"] = lm_serve(torch, lm, cfg, params, tokens, None, G - 1,
+                               dev, out["fed"], times=times)[0].float().cpu()
+    out["times"]["bfloat16"] = {
+        "prefill_ms": times["prefill_s"] * 1e3,
+        "decode_ms_per_step": times["decode_s"] / (G - 1) * 1e3}
+    params = lm.common.tree_map(lambda a: a.float(), params)
+    torch.cuda.empty_cache()
+    out["truth"] = lm_serve(torch, lm, cfg, params, tokens, None, G - 1, dev,
+                            out["fed"])[0].float().cpu()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_phase(torch, seed, dev) -> dict:
+    """Language-model serving across ranks on the card (LM_MESH_RUNS):
+    the single process first, then each world spawned once, then the
+    launcher under torchrun beside one process. Checks each rank against
+    the single process: float32 greedy tokens exactly and logits to
+    LM_MESH_TOL (relative and absolute), bf16 by the noise rule; each
+    rank's param bytes under the whole tree's."""
+    import os
+    import re
+    lm = lm_modules()
+    t_phase = time.perf_counter()
+    seconds = {}
+    single = {}
+    t0 = time.perf_counter()
+    refs = {run["key"]: lm_mesh_ref(run) for run in LM_MESH_RUNS}
+    for run in LM_MESH_RUNS:
+        ref = refs[run["key"]]
+        if ref not in single:
+            single[ref] = lm_mesh_single(torch, lm, lm_mesh_cfg(lm, run),
+                                         seed, dev)
+    seconds["single_process"] = time.perf_counter() - t0
+    results, lines = {}, []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
+        np.savez(os.path.join(tmp, "inputs.npz"), **{
+            f"{lm_mesh_file(k)}_{w}": s[w].numpy()
+            for k, s in single.items() for w in ("tokens", "fed")})
+        for shape in LM_MESH_WORLDS:
+            runs = [r for r in LM_MESH_RUNS if tuple(r["world"]) == shape]
+            wdir = os.path.join(tmp, f"w{shape[0]}x{shape[1]}")
+            os.makedirs(wdir)
+            os.symlink(os.path.join(tmp, "inputs.npz"),
+                       os.path.join(wdir, "inputs.npz"))
+            t0 = time.perf_counter()
+            ranks = lm_mesh_world(wdir, str(dev), shape, runs, seed)
+            seconds[f"world_{shape[0]}x{shape[1]}"] = (
+                time.perf_counter() - t0)
+            for r in runs:
+                for dtype in ("float32", "bfloat16"):
+                    path = os.path.join(
+                        wdir, f"{lm_mesh_file(r['key'])}_{dtype}.npy")
+                    if os.path.exists(path):
+                        results[(r["key"], dtype)] = torch.from_numpy(
+                            np.load(path))
+            lines.append({"mesh": {"data": shape[0], "model": shape[1]},
+                          "ranks": ranks})
+    checks = []
+    bf16_carried = all(v == "ok" for w in lines for rk in w["ranks"]
+                       for v in rk["gloo_bf16"].values())
+    for w in lines:
+        for rk in w["ranks"]:
+            for r in rk["runs"]:
+                s = single[refs[r["key"]]]
+                check(r["local_param_bytes"] < r["whole_param_bytes"],
+                      f"lm_mesh {r['key']} rank {rk['rank']}: "
+                      f"{r['local_param_bytes']} bytes of "
+                      f"{r['whole_param_bytes']}")
+                if r["dtype"] == "float32":
+                    want = s["greedy"].tolist()
+                    check(r["greedy"] == want, f"lm_mesh {r['key']} "
+                          f"{w['mesh']} rank {rk['rank']}: greedy tokens "
+                          f"{r['greedy']} vs one process's {want}")
+                got = results.get((r["key"], r["dtype"]))
+                if got is None or rk["rank"] != 0:
+                    continue        # rank 0 wrote the (whole) logits
+                row = {"key": r["key"], "mesh": w["mesh"],
+                       "dtype": r["dtype"]}
+                check(bool(torch.isfinite(got).all()),
+                      f"lm_mesh {r['key']} {r['dtype']}: logits not finite")
+                if r["dtype"] == "float32":
+                    want = s["float32"]
+                    err = (got - want).abs()
+                    row["max_abs_err"] = float(err.max())
+                    row["tol"] = LM_MESH_TOL
+                    check(not bool((err > LM_MESH_TOL + LM_MESH_TOL
+                                    * want.abs()).any()),
+                          f"lm_mesh {r['key']} {w['mesh']}: float32 logits "
+                          f"off by {row['max_abs_err']}")
+                    row["greedy_tokens_equal"] = True
+                else:
+                    row["max_abs_err_vs_one_process"] = float(
+                        (got - s["bfloat16"]).abs().max())
+                    row["bf16_noise_vs_f32_max_mean"] = noise_check(
+                        torch, r["key"], "bf16", got, s["bfloat16"],
+                        s["truth"], LM_BF16_NOISE_RATIO,
+                        labels=("mesh", "one_process"))
+                checks.append(row)
+    check(len(checks) == len(LM_MESH_RUNS) * (2 if bf16_carried else 1),
+          f"lm_mesh: {len(checks)} logit checks")
+    # -- the launcher under torchrun, two ranks sharing the card, and one
+    # process, side by side ----------------------------------------------
+    t0 = time.perf_counter()
+    args = ["--standalone", "--nproc-per-node", "2", "-m",
+            "repro_torch.launch.serve", *LM_MESH_LAUNCH, "--device",
+            str(torch.device("cuda", 0)), "--backend", "gloo"]
+    (one_out, one_s), (tr_out, tr_s) = run_launchers(
+        torch, ["repro_torch.launch.serve", "torch.distributed.run"],
+        [LM_MESH_LAUNCH, args])
+    seconds["launcher"] = time.perf_counter() - t0
+    one = re.findall(r"^sample: (.*)$", one_out, re.M)
+    two = re.findall(r"^sample: (.*)$", tr_out, re.M)
+    check(len(one) == 1 and two == one, f"torchrun launcher samples {two} "
+          f"against one process's {one}:\n{tr_out[-2000:]}")
+    check("[serve] mesh: {'data': 2, 'model': 1}" in tr_out,
+          f"torchrun launcher output:\n{tr_out[-2000:]}")
+    return {"phase": "lm_mesh", "seconds": time.perf_counter() - t_phase,
+            "part_seconds": seconds, "shape": LM_MESH,
+            "runs": LM_MESH_RUNS, "tol": LM_MESH_TOL,
+            "bf16_noise_ratio": LM_BF16_NOISE_RATIO,
+            "gloo_carried_bf16": bf16_carried,
+            "single_process": {k: s["times"] for k, s in single.items()},
+            "worlds": lines, "checks": checks,
+            "launcher": {"args": args, "seconds": tr_s,
+                         "one_process_seconds": one_s,
+                         "sample": json.loads(two[0])}}
 
 
 # --------------------------------------------------------------------------
@@ -4175,6 +4642,10 @@ def main() -> int:
     # -- lm: language-model serving of the ten archs on the card, its six
     # launcher runs side by side while the machine's memory is free ------
     emit(lm_phase(torch, args.seed, dev))
+    torch.cuda.empty_cache()
+
+    # -- lm_mesh: language-model serving across ranks sharing the card --
+    emit(lm_mesh_phase(torch, args.seed, dev))
     torch.cuda.empty_cache()
 
     # -- field ------------------------------------------------------------

@@ -24,8 +24,8 @@ send of a CUDA tensor is what it cannot carry (`launch/pipeline.gpipe`
 needs NCCL or CPU ranks). `place_field` and `shard_rays` also take a
 plain device, the one-device path.
 
-The R channels over "model" (`nerf_param_sharding`'s Shard) and the
-language models across ranks are ROADMAP.md Queue 1 item 10b;
+The R channels over "model" (`nerf_param_sharding`'s Shard) are
+ROADMAP.md Queue 1 item 10f;
 `nerf_input_specs` and `lower_nerf_cell` belong to the dry-run tooling
 (item 11). Training uses the differentiable uniform pipeline (as TensoRF
 does); the cube-centric RT-NeRF pipeline is the serving path.
@@ -209,11 +209,11 @@ def build_nerf_train_step(cfg: NeRFConfig, opt,
     gradients, so the step is the one-device step: the MSE is the mean
     over the whole batch, and the L1 and TV terms, equal on every rank,
     count once. A "model" axis above 1 raises (the R channels over
-    "model" are ROADMAP.md Queue 1 item 10b)."""
+    "model" are ROADMAP.md Queue 1 item 10f)."""
     if rules is not None and rules.mesh.shape.get("model", 1) > 1:
         raise NotImplementedError(
             "a train step over a 'model' axis: the field's R channels over "
-            "'model' are ROADMAP.md Queue 1 item 10b")
+            "'model' are ROADMAP.md Queue 1 item 10f")
 
     def train_step(params, opt_state, batch):
         field = field_lib.DenseField(params, cfg)

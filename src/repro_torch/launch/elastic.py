@@ -15,7 +15,7 @@ The contract is the reference's:
      (`data/tokens.py`), so a resumed run replays no batch and skips none.
 
 The runner drives one device: remeshing a run of several ranks onto the
-survivors, with a re-sharded restore, is ROADMAP.md Queue 1 item 10b,
+survivors, with a re-sharded restore, is ROADMAP.md Queue 1 item 10e,
 and a device list of several raises. An injected failure here rebuilds
 on the same device. Any other exception of a step (a shape error, say)
 is not a node failure and propagates at once.
@@ -27,10 +27,11 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import CheckpointManager
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import HostMesh
+from repro_torch.launch.mesh import HostMesh, make_mesh
 
 
 class NodeFailure(RuntimeError):
@@ -67,14 +68,17 @@ class HealthMonitor:
         return self._ewma
 
 
-def make_mesh_from(devices: Sequence, model_axis: int) -> HostMesh:
+def make_mesh_from(devices: Sequence, model_axis: int,
+                   device=None) -> HostMesh:
     """The largest (data, model) mesh on the surviving devices, as the
     reference's: 8 -> (4, 2), 4 -> (2, 2), 3 -> (3, 1) at `model_axis` 2.
     `devices` are devices or ranks (ints), one rank a device; a repeated
     entry counts once, and entries of several device types raise. One
-    device gives the one-device mesh on it. Several give the mesh's
-    shape alone (device and DeviceMesh None): the live mesh of several
-    ranks is `launch.mesh`'s, over the process group."""
+    device gives the one-device mesh on it. Ranks that are exactly those
+    of the initialised process group give the live mesh over it
+    (`launch.mesh.make_mesh`, each rank on `device`, None: its card);
+    any other list of several gives the mesh's shape alone (device and
+    DeviceMesh None)."""
     if model_axis < 1:
         raise ValueError(f"model_axis {model_axis} < 1")
     ranks = []
@@ -93,6 +97,9 @@ def make_mesh_from(devices: Sequence, model_axis: int) -> HostMesh:
     shape = {"data": n // model, "model": model}
     if n == 1 and not isinstance(ranks[0], int):
         return HostMesh(shape, ("data", "model"), resolve_device(ranks[0]))
+    if (n > 1 and kinds == ["rank"] and dist.is_initialized()
+            and sorted(ranks) == list(range(dist.get_world_size()))):
+        return make_mesh(n // model, model, device)
     return HostMesh(shape, ("data", "model"), None)
 
 
@@ -125,7 +132,7 @@ class ElasticRunner:
             raise NotImplementedError(
                 f"a run on {len(devices)} devices: the elastic runner drives "
                 f"one device (remeshing across ranks is ROADMAP.md Queue 1 "
-                f"item 10b)")
+                f"item 10e)")
         step_fn, state = self.build(mesh)
         start, restored = mgr.restore_latest(state, device=mesh.device)
         step0 = 0

@@ -152,6 +152,22 @@ def make_host_mesh(device: DeviceLike = None) -> HostMesh:
                        device)
 
 
+def make_mesh(data: int, model: int, device: DeviceLike = None) -> HostMesh:
+    """The (data, model) mesh over the initialised process group, which
+    must hold data x model ranks: the reference's `jax.make_mesh((data,
+    model), ("data", "model"))`. Without a group, the one-device mesh
+    (data = model = 1) on `device` (None: the card)."""
+    shape = {"data": data, "model": model}
+    names = ("data", "model")
+    if not dist.is_initialized():
+        if data * model != 1:
+            raise ValueError(
+                f"a mesh of {shape} needs a process group of "
+                f"{data * model} ranks (launch.mesh.init_ranks)")
+        return HostMesh(shape, names, resolve_device(device))
+    return _world_mesh(shape, names, device)
+
+
 def make_pipeline_mesh(*, stages: int = 4, data: int = 8, model: int = 8,
                        device: DeviceLike = None) -> HostMesh:
     """The (stage, data, model) mesh for `launch/pipeline.gpipe` over the

@@ -17,6 +17,8 @@ archs) or batched novel-view rendering (rtnerf) on the card. The port of
         --scene lego --views 1 --res 16 --train-steps 2 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch rtnerf --scene lego --ckpt-dir /tmp/lego-ckpt
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch llama3.2-1b --device cpu
 
 `--device` (default `cuda`) is where models run, fields train and views
 render; the CPU runs only when asked for (`--device cpu`, the plain
@@ -30,7 +32,12 @@ every rank restores it, the engine splits each ray chunk over the ranks
 Fleet workers get the same device through their engine arguments. The
 NeRF paths use the reference launcher's `NeRFConfig`, so a checkpoint
 written by either package's launcher restores in the other. The LM path
-serves all ten archs (dense, MoE, encoder-decoder, hybrid and RWKV).
+serves all ten archs (dense, MoE, encoder-decoder, hybrid and RWKV) on
+one rank; under `torchrun` it serves the dense and MoE archs on the
+(world, 1) host mesh, as the reference's launcher does: the batch over
+"data" where it divides, the weights' "embed" dims over "data" (FSDP),
+each rank its shard of every param, and rank 0 prints. The enc-dec,
+hybrid and RWKV archs across ranks are ROADMAP.md Queue 1 item 10c.
 """
 from __future__ import annotations
 
@@ -88,8 +95,8 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_lm(args, *, params=None, tokens=None,
-             enc_frames=None) -> torch.Tensor:
+def serve_lm(args, *, params=None, tokens=None, enc_frames=None,
+             mesh=None, cfg=None, logits_out=None) -> torch.Tensor:
     """Batched prefill, the cache grown to the serving horizon, then a
     greedy decode loop, as the reference's `serve_lm`. Params, prompt
     tokens and (enc-dec archs) the encoder frames (B, prompt, d_model) in
@@ -98,6 +105,17 @@ def serve_lm(args, *, params=None, tokens=None,
     seconds, the decode rate and the sample tokens; returns the (B, gen)
     greedy tokens. Times end at a device synchronise.
 
+    `cfg` None is `--arch`'s config, reduced as `--reduced` says. `mesh`
+    None is `make_host_mesh`: one device, or (world, 1) under an
+    initialised process group. On a mesh of several ranks every rank
+    passes the same prompts, and the same params (whole, placed by
+    `place_params`, or already placed) or draws them, each leaf placed as
+    it is drawn (`init_model(rules=)`), so each rank holds only its shard
+    of the params; the steps place the batch and the cache, and the last
+    position's logits are gathered whole before the argmax, so every rank
+    returns the same tokens. A `logits_out` list receives each step's
+    last-position logits as the argmax reads them.
+
     With a vision frontend (internvl2-76b), the stub's zero embeddings
     take the first n_frontend_tokens positions, so the horizon is
     n_frontend + prompt + gen and the first decoded token sits at
@@ -105,20 +123,27 @@ def serve_lm(args, *, params=None, tokens=None,
     writing over the prompt's last K/V rows: ROADMAP.md Queue 3 item
     15.)"""
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+    from repro_torch.launch.steps import (abstract_params, build_decode_step,
+                                          build_prefill_step)
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import split_pl
-    from repro_torch.models.sharding import make_rules
+    from repro_torch.models.sharding import make_rules, place_params, whole
 
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if cfg is None:
+        cfg = get_arch(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     dev = resolve_device(args.device)
     print(f"[serve] device: {device_name(dev)}", flush=True)
-    rules = make_rules(make_host_mesh(dev))
+    mesh = make_host_mesh(dev) if mesh is None else mesh
+    rules = make_rules(mesh)
     gen = torch.Generator().manual_seed(0)
     if params is None:
-        params, _ = split_pl(tf.init_model(cfg, gen, device=dev))
+        params, _ = split_pl(tf.init_model(cfg, gen, device=dev,
+                                           rules=rules))
+    if mesh.size > 1:
+        print(f"[serve] mesh: {mesh.shape}", flush=True)
+        params = place_params(params, abstract_params(cfg)[1], rules)
 
     B, P, G = args.batch, args.prompt_len, args.gen
     n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
@@ -149,13 +174,20 @@ def serve_lm(args, *, params=None, tokens=None,
     print(f"prefill: {time.perf_counter() - t0:.2f}s logits "
           f"{tuple(logits.shape)}")
 
-    tok = torch.argmax(logits[:, -1:], dim=-1)
+    # whole on every rank: an argmax over a dim split over "vocab" is not
+    # defined shard-wise
+    seen = [] if logits_out is None else logits_out
+    seen.append(whole(logits[:, -1:]))
+    tok = torch.argmax(seen[-1], dim=-1)
     out = [tok]
     t0 = time.perf_counter()
     for i in range(G - 1):
         logits, cache = decode(params, tok, n_front + P + i, cache)
-        tok = torch.argmax(logits, dim=-1)
+        seen.append(whole(logits))
+        tok = torch.argmax(seen[-1], dim=-1)
         out.append(tok)
+        if logits_out is None:
+            seen.clear()
     toks = torch.cat(out, dim=1)
     _sync(dev)
     dt = time.perf_counter() - t0
@@ -553,9 +585,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "(repeated serves reuse them instead of "
                          "retraining); required under torchrun")
     ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
-                    help="rtnerf under torchrun: the process group's "
-                         "backend; gloo for ranks that share one card "
-                         "(default: nccl on cards, gloo on the CPU)")
+                    help="under torchrun: the process group's backend; "
+                         "gloo for ranks that share one card (default: "
+                         "nccl on cards, gloo on the CPU)")
     return ap
 
 
@@ -569,16 +601,22 @@ def main(argv=None):
     started = False
     if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
         # torchrun: this process is one rank ("cuda" means its own card)
-        if args.arch != "rtnerf" or args.fleet_workers:
-            ap.error("under torchrun only --arch rtnerf without "
-                     "--fleet-workers serves across ranks (ROADMAP.md "
-                     "Queue 1 item 10b)")
+        if args.fleet_workers:
+            ap.error("--fleet-workers serves from one process: fleet "
+                     "workers each on their own card are ROADMAP.md Queue 1 "
+                     "item 10g")
+        if args.arch != "rtnerf":
+            cfg = get_arch(args.arch)
+            if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
+                ap.error(f"{args.arch} serves on one rank: the enc-dec, "
+                         f"hybrid and RWKV trunks across ranks are "
+                         f"ROADMAP.md Queue 1 item 10c")
         args.device = str(init_ranks(
             None if args.device == "cuda" else args.device,
             backend=args.backend))
         started = True
     ranks = dist.get_world_size() if dist.is_initialized() else 1
-    if ranks > 1 and not args.ckpt_dir:
+    if ranks > 1 and args.arch == "rtnerf" and not args.ckpt_dir:
         ap.error("--ckpt-dir is required across ranks: rank 0 trains each "
                  "field there and every rank restores it")
     if ranks > 1 and args.finetune_steps:

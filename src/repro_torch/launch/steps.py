@@ -3,7 +3,15 @@ them: the port of `repro/launch/steps.py`. Each step runs under the mesh's
 axis rules (`models.sharding.use_rules`); the serve steps without
 autograd. The train step takes its gradients by autograd over the plain
 PyTorch model (the reference differentiates its jnp model with
-`jax.value_and_grad`; no kernel of the port lies on this path)."""
+`jax.value_and_grad`; no kernel of the port lies on this path).
+
+On a mesh of several ranks the serve steps place what they are given as
+the reference's jitted steps do by their in_shardings: the batch by
+`batch_spec`'s specs and the decode cache by `cache_spec`'s (a plain
+tensor, whole and equal on every rank, is cut to this rank's shard; a
+DTensor is redistributed). The params must be placed already
+(`models.sharding.place_params`). The train step on several ranks is
+ROADMAP.md Queue 1 item 10d."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -15,7 +23,9 @@ from repro_torch.data import tokens as tok_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (MetaMaker, TensorSpec, log_parse,
                                        split_pl, tree_map)
-from repro_torch.models.sharding import AxisRules, resolve_spec, use_rules
+from repro_torch.models.sharding import (AxisRules, mesh_size, place,
+                                         place_tree, placements,
+                                         resolve_spec, use_rules)
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.optim.optimizers import Optimizer, tree_leaves
 
@@ -172,15 +182,42 @@ def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
 # --------------------------------------------------------------------------
 
 
+def place_batch(cfg: ModelConfig, batch, rules: AxisRules):
+    """The batch on the rules' mesh by `batch_spec`'s specs (its keys'
+    logical axes resolved over the activation rules); one rank: as it
+    is."""
+    if mesh_size(rules.mesh) == 1:
+        return batch
+    logical = tok_lib.input_logical(cfg, ShapeConfig("batch", 0, 0, "train"))
+    return {k: place(v, placements(resolve_spec(
+        tuple(v.shape), log_parse(logical[k]), rules.act_rules, rules),
+        rules.mesh), rules.mesh) for k, v in batch.items()}
+
+
 def build_prefill_step(cfg: ModelConfig, rules: AxisRules):
     def prefill_step(params, batch):
+        batch = place_batch(cfg, batch, rules)
         with use_rules(rules), torch.no_grad():
             return tf.model_prefill(params, cfg, batch)
     return prefill_step
 
 
 def build_decode_step(cfg: ModelConfig, rules: AxisRules, seq_len: int):
+    """decode_step(params, token (B, 1), pos, cache) -> (logits, cache).
+    On a mesh of several ranks the token is placed as a batch and the
+    cache by `cache_spec` at this horizon (the first step redistributes
+    prefill's cache; later steps find it placed)."""
+    cache_pls = {}
+
     def decode_step(params, token, pos, cache):
+        if mesh_size(rules.mesh) > 1:
+            token = place_batch(cfg, {"tokens": token}, rules)["tokens"]
+            B = token.shape[0]
+            if B not in cache_pls:
+                cache_pls[B] = tree_map(
+                    lambda spec: placements(spec, rules.mesh),
+                    cache_spec(cfg, B, seq_len, rules)[1])
+            cache = place_tree(cache, cache_pls[B], rules.mesh)
         with use_rules(rules), torch.no_grad():
             return tf.model_decode(params, cfg, token, pos, cache,
                                    seq_len=seq_len)

@@ -24,7 +24,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import (Maker, TensorSpec, apply_rope, einsum,
                                        rms_norm)
-from repro_torch.models.sharding import current_rules, shard_act
+from repro_torch.models.sharding import (contract, current_rules,
+                                         from_local_like, is_dtensor,
+                                         local_of, local_slices, shard_act,
+                                         whole_on_mesh)
 
 QK_CHUNK = 512          # kv-chunk for the online-softmax (flash-style) path
 NEG_INF = -1e30
@@ -147,20 +150,73 @@ def _masked_attn_chunked(q, k, v, q_pos, kv_pos, scale, causal, window):
     return o.permute(0, 3, 1, 2, 4).to(q.dtype)                  # (B,S,K,G,h)
 
 
+def _attn_shards(core, q, k, v, q_pos, kv_pos):
+    """`core(q, k, v, q_pos, kv_pos)` -> o (B,S,K,G,hv) on this rank's
+    shards on a mesh of several ranks (on one rank: `core` as it is).
+    Attention runs apart for each batch row and each head: q keeps its
+    split of the batch, of the query rows (with its slice of q_pos) or of
+    a head dim; k and v follow a batch or kv-head split and are whole
+    along the others (every key for every query). The core runs on plain
+    tensors: DTensor's einsum flattens split head dims it may not."""
+    if not is_dtensor(q):
+        return core(q, k, v, q_pos, kv_pos)
+    from torch.distributed.tensor import Replicate, Shard
+    q_pls, kv_pls = [], []
+    for p in q.placements:
+        d = p.dim if p.is_shard() else None
+        q_pls.append(Shard(d) if d in (0, 1, 2, 3) else Replicate())
+        kv_pls.append(Shard(d) if d in (0, 2) else Replicate())
+    rows = local_slices(q.shape, q_pls, q.device_mesh)[1]
+    o = core(local_of(q, q_pls), local_of(k, kv_pls), local_of(v, kv_pls),
+             q_pos[rows], kv_pos)
+    return from_local_like(o, q_pls, tuple(q.shape[:4]) + (v.shape[-1],),
+                           q.device_mesh)
+
+
 def _attn_dispatch(q, k, v, q_pos, kv_pos, scale, causal, window, impl):
     T = k.shape[1]
     if impl == "auto":
         impl = "naive" if T <= 4096 else "chunked"
-    if impl == "chunked":
-        return _masked_attn_chunked(q, k, v, q_pos, kv_pos, scale, causal,
-                                    window)
-    keep = torch.ones((q.shape[1], T), dtype=torch.bool, device=q.device)
-    if causal:
-        keep = keep & (q_pos[:, None] >= kv_pos[None, :])
-    if window:
-        keep = keep & (q_pos[:, None] - kv_pos[None, :] < window)
-    keep = keep & (kv_pos >= 0)[None, :]
-    return _masked_attn_naive(q, k, v, keep, scale)
+
+    def core(q, k, v, q_pos, kv_pos):
+        if impl == "chunked":
+            return _masked_attn_chunked(q, k, v, q_pos, kv_pos, scale,
+                                        causal, window)
+        keep = torch.ones((q.shape[1], T), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            keep = keep & (q_pos[:, None] >= kv_pos[None, :])
+        if window:
+            keep = keep & (q_pos[:, None] - kv_pos[None, :] < window)
+        keep = keep & (kv_pos >= 0)[None, :]
+        return _masked_attn_naive(q, k, v, keep, scale)
+    return _attn_shards(core, q, k, v, q_pos, kv_pos)
+
+
+# --------------------------------------------------------------------------
+# in-place cache writes
+# --------------------------------------------------------------------------
+
+
+def write_slot(cache, slot: int, row) -> None:
+    """cache[:, slot] = row, in place. On a mesh the write goes into this
+    rank's shard of the cache, and only where that shard holds the slot
+    (the cache's dim 1 may be split, "seq_model"); `row` is first
+    redistributed to the cache's placements without that dim. DTensor
+    has no strategy for an indexed write into a sharded tensor."""
+    if not is_dtensor(cache):
+        cache[:, slot] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    row_pls = tuple(
+        p if not p.is_shard() else
+        Replicate() if p.dim == 1 else Shard(p.dim - (p.dim > 1))
+        for p in cache.placements)
+    row = local_of(row, row_pls)
+    span = local_slices(cache.shape, cache.placements,
+                        cache.device_mesh)[1]
+    if span.start <= slot < span.stop:
+        cache.to_local()[:, slot - span.start] = row
 
 
 # --------------------------------------------------------------------------
@@ -170,19 +226,19 @@ def _attn_dispatch(q, k, v, q_pos, kv_pos, scale, causal, window, impl):
 
 def _gqa_qkv(p, cfg: ModelConfig, x, positions):
     # promoting: the encoder's first layer sees bf16 frames (see einsum)
-    q = einsum("bsd,dkgh->bskgh", x, p["wq"])
-    k = einsum("bsd,dkh->bskh", x, p["wk"])
-    v = einsum("bsd,dkh->bskh", x, p["wv"])
+    q = contract("bsd,dkgh->bskgh", x, p["wq"])
+    k = contract("bsd,dkh->bskh", x, p["wk"])
+    v = contract("bsd,dkh->bskh", x, p["wv"])
     if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        # a bias is made whole before the add (on a mesh DTensor would
+        # gather it with collectives of its own)
+        q = q + whole_on_mesh(p["bq"])
+        k = k + whole_on_mesh(p["bk"])
+        v = v + whole_on_mesh(p["bv"])
     q = shard_act(q, "batch", _attn_seq_axis(cfg), "kv_heads", "heads",
                   "head_dim")
     if positions is not None:          # rope (not for abs-pos stubs)
-        B, S, K, G, h = q.shape
-        q = apply_rope(q.reshape(B, S, K * G, h), positions, cfg.rope_theta
-                       ).reshape(B, S, K, G, h)
+        q = apply_rope(q, positions, cfg.rope_theta, heads=2)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
@@ -197,7 +253,7 @@ def gqa_forward(p, cfg: ModelConfig, x, positions, *, causal=True, window=0,
     kv_pos = (positions if positions is not None
               else torch.arange(k.shape[1], device=x.device))
     o = _attn_dispatch(q, k, v, kv_pos, kv_pos, scale, causal, window, impl)
-    out = torch.einsum("bskgh,kghd->bsd", o, p["wo"])
+    out = contract("bskgh,kghd->bsd", o, p["wo"])
     out = shard_act(out, "batch", "seq", None)
     cache = {"k": k, "v": v} if return_cache else None
     return out, cache
@@ -212,16 +268,15 @@ def gqa_decode(p, cfg: ModelConfig, x1, pos: int, cache, *, window=0):
     returned (the reference returns updated copies). Slots are masked by
     the true positions they hold."""
     pos = int(pos)
-    B = x1.shape[0]
-    q = torch.einsum("bsd,dkgh->bskgh", x1, p["wq"])
-    k1 = torch.einsum("bsd,dkh->bskh", x1, p["wk"])
-    v1 = torch.einsum("bsd,dkh->bskh", x1, p["wv"])
+    q = contract("bsd,dkgh->bskgh", x1, p["wq"])
+    k1 = contract("bsd,dkh->bskh", x1, p["wk"])
+    v1 = contract("bsd,dkh->bskh", x1, p["wv"])
     if cfg.qkv_bias:
-        q, k1, v1 = q + p["bq"], k1 + p["bk"], v1 + p["bv"]
+        q = q + whole_on_mesh(p["bq"])
+        k1 = k1 + whole_on_mesh(p["bk"])
+        v1 = v1 + whole_on_mesh(p["bv"])
     posv = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
-    K, G, h = q.shape[2], q.shape[3], q.shape[4]
-    q = apply_rope(q.reshape(B, 1, K * G, h), posv,
-                   cfg.rope_theta).reshape(B, 1, K, G, h)
+    q = apply_rope(q, posv, cfg.rope_theta, heads=2)
     k1 = apply_rope(k1, posv, cfg.rope_theta)
 
     k, v = cache["k"], cache["v"]
@@ -230,8 +285,8 @@ def gqa_decode(p, cfg: ModelConfig, x1, pos: int, cache, *, window=0):
                         f"new K/V's {k1.dtype}")
     C = k.shape[1]
     slot = pos % C if window else min(pos, C - 1)
-    k[:, slot] = k1[:, 0]
-    v[:, slot] = v1[:, 0]
+    write_slot(k, slot, k1[:, 0])
+    write_slot(v, slot, v1[:, 0])
     cache_ax = _attn_seq_axis(cfg)
     k = shard_act(k, "batch", cache_ax, "kv_heads", "head_dim")
     v = shard_act(v, "batch", cache_ax, "kv_heads", "head_dim")
@@ -243,11 +298,15 @@ def gqa_decode(p, cfg: ModelConfig, x1, pos: int, cache, *, window=0):
         kv_pos = torch.where(idx <= pos, idx, -1)
 
     scale = 1.0 / (cfg.resolved_head_dim ** 0.5)
-    s = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
-    s = torch.where((kv_pos >= 0)[None, None, None, None, :], s, NEG_INF)
-    pattn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,btkh->bskgh", pattn.to(v.dtype), v)
-    out = torch.einsum("bskgh,kghd->bsd", o, p["wo"])
+
+    def core(q, k, v, _q_pos, kv_pos):
+        s = torch.einsum("bskgh,btkh->bkgst", q, k).float() * scale
+        s = torch.where((kv_pos >= 0)[None, None, None, None, :], s,
+                        NEG_INF)
+        pattn = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgst,btkh->bskgh", pattn.to(v.dtype), v)
+    o = _attn_shards(core, q, k, v, posv, kv_pos)
+    out = contract("bskgh,kghd->bsd", o, p["wo"])
     return out, {"k": k, "v": v}
 
 
@@ -288,16 +347,16 @@ def cross_forward(p, cfg: ModelConfig, x, memory=None, kv=None):
 
 
 def _mla_q(p, cfg, x, positions):
-    cq = rms_norm(torch.einsum("bsd,dr->bsr", x, p["wdq"]), p["q_norm"],
+    cq = rms_norm(contract("bsd,dr->bsr", x, p["wdq"]), p["q_norm"],
                   cfg.norm_eps)
-    q = torch.einsum("bsr,rhe->bshe", cq, p["wuq"])     # e = nope + rope
+    q = contract("bsr,rhe->bshe", cq, p["wuq"])         # e = nope + rope
     qn = q[..., :cfg.qk_nope_head_dim]
     qr = apply_rope(q[..., cfg.qk_nope_head_dim:], positions, cfg.rope_theta)
     return qn, qr
 
 
 def _mla_latent(p, cfg, x, positions):
-    ckr = torch.einsum("bsd,dr->bsr", x, p["wdkv"])
+    ckr = contract("bsd,dr->bsr", x, p["wdkv"])
     c = rms_norm(ckr[..., :cfg.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     kr = ckr[..., cfg.kv_lora_rank:]                    # (B,S,rope) shared
     kr = apply_rope(kr[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
@@ -315,8 +374,8 @@ def mla_forward(p, cfg: ModelConfig, x, positions, *, impl=None,
     impl = impl or cfg.attention_impl
     qn, qr = _mla_q(p, cfg, x, positions)
     c, kr = _mla_latent(p, cfg, x, positions)
-    kn = torch.einsum("bsr,rhe->bshe", c, p["wuk"])
-    v = torch.einsum("bsr,rhe->bshe", c, p["wuv"])
+    kn = contract("bsr,rhe->bshe", c, p["wuk"])
+    v = contract("bsr,rhe->bshe", c, p["wuv"])
     q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]            # (B,S,H,1,e)
     k = torch.cat([kn, kr[:, :, None, :].expand(
         *kn.shape[:3], cfg.qk_rope_head_dim)], dim=-1)
@@ -324,7 +383,7 @@ def mla_forward(p, cfg: ModelConfig, x, positions, *, impl=None,
     k = shard_act(k, "batch", "seq", "kv_heads", None)
     o = _attn_dispatch(q, k, v, positions, positions, _mla_scale(cfg), True,
                        0, impl)                                   # (B,S,H,1,vh)
-    out = torch.einsum("bshv,hvd->bsd", o[:, :, :, 0, :], p["wo"])
+    out = contract("bshv,hvd->bsd", o[:, :, :, 0, :], p["wo"])
     out = shard_act(out, "batch", "seq", None)
     cache = {"c": c, "kr": kr} if return_cache else None
     return out, cache
@@ -346,19 +405,19 @@ def mla_decode(p, cfg: ModelConfig, x1, pos: int, cache):
                         f"the new latent's {c1.dtype}")
     C = c.shape[1]
     slot = min(pos, C - 1)
-    c[:, slot] = c1[:, 0]
-    kr[:, slot] = kr1[:, 0]
+    write_slot(c, slot, c1[:, 0])
+    write_slot(kr, slot, kr1[:, 0])
 
-    q_eff = torch.einsum("bshe,rhe->bshr", qn, p["wuk"])
-    s = (torch.einsum("bshr,btr->bhst", q_eff, c)
-         + torch.einsum("bshe,bte->bhst", qr, kr))
+    q_eff = contract("bshe,rhe->bshr", qn, p["wuk"])
+    s = (contract("bshr,btr->bhst", q_eff, c)
+         + contract("bshe,bte->bhst", qr, kr))
     s = s.float() * _mla_scale(cfg)
     idx = torch.arange(C, device=x1.device)
     s = torch.where((idx <= pos)[None, None, None, :], s, NEG_INF)
     pattn = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhst,btr->bshr", pattn.to(c.dtype), c)  # (B,1,H,r)
-    o = torch.einsum("bshr,rhv->bshv", o_lat, p["wuv"])
-    out = torch.einsum("bshv,hvd->bsd", o, p["wo"])
+    o_lat = contract("bhst,btr->bshr", pattn.to(c.dtype), c)  # (B,1,H,r)
+    o = contract("bshr,rhv->bshv", o_lat, p["wuv"])
+    out = contract("bshv,hvd->bsd", o, p["wo"])
     return out, {"c": c, "kr": kr}
 
 

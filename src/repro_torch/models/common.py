@@ -131,6 +131,11 @@ class MetaMaker(Maker):
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    if type(gamma) is not torch.Tensor:
+        # a DTensor gain split over "data" (FSDP's "embed") is gathered
+        # here, not inside the product (`sharding.redistribute`)
+        from repro_torch.models.sharding import whole_on_mesh
+        gamma = whole_on_mesh(gamma)
     h = x.float()
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
     return (h * gamma.float()).to(x.dtype)
@@ -181,15 +186,20 @@ def rope_freqs(head_dim: int, theta: float,
                                          device=device) / half))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x (..., S, H, hd) rotated by halves (x1 = first half, x2 = second,
-    not interleaved pairs); positions (..., S); float32 angles."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               heads: int = 1) -> torch.Tensor:
+    """x (..., S, <heads dims>, hd) rotated by halves (x1 = first half,
+    x2 = second, not interleaved pairs); positions (..., S); float32
+    angles. `heads` counts the head dims after S (2 for the grouped
+    (K, G) layout), so that no head dim is merged: on a mesh either may
+    be the sharded one. `positions` may be a plain tensor beside a
+    DTensor `x` (`sharding.mesh_context`)."""
     hd = x.shape[-1]
-    inv = rope_freqs(hd, theta, device=x.device)            # (hd/2,)
+    inv = rope_freqs(hd, theta, device=positions.device)    # (hd/2,)
     ang = positions[..., None].float() * inv                # (..., S, hd/2)
-    cos = torch.cos(ang)[..., None, :]                      # (..., S, 1, hd/2)
-    sin = torch.sin(ang)[..., None, :]
+    lead = ang.shape[:-1] + (1,) * heads + ang.shape[-1:]
+    cos = torch.cos(ang).reshape(lead)                      # (..., S, 1.., hd/2)
+    sin = torch.sin(ang).reshape(lead)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -206,7 +216,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     integer."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if type(logits) is torch.Tensor:
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    else:                       # a DTensor on a mesh of several ranks
+        from repro_torch.models.sharding import pick_last
+        gold = pick_last(logits, labels)
     nll = lse - gold
     if mask is not None:
         mask = mask.float()

@@ -16,6 +16,14 @@ factor, with sparsity 1 - top_k / E, so there are two dispatch modes:
 `cfg.moe_dispatch` names one. The two agree up to capacity drops. Both are
 plain PyTorch products (the reference computes them in jnp, outside any
 Pallas kernel).
+
+On a mesh of several ranks (`models.sharding`) the experts split over
+"model" as their params are placed: each rank routes its tokens (its
+batch rows where the groups split over "data"; every token of the group
+where they do not, as at decode), runs its own experts on the tokens
+dispatched to them, and the combine is a partial sum over "model",
+reduced in float32. The sort, gather and scatter run on local shards
+(`_Shards`): DTensor has no strategy for them.
 """
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Maker, geglu, gelu, swiglu
-from repro_torch.models.sharding import shard_act
+from repro_torch.models.sharding import (contract, from_local_like,
+                                         local_of, local_slices, on_ranks,
+                                         redistribute, shard_act, whole)
 
 BITMAP_CHUNK = 256          # tokens per chunk in dense-masked mode
 
@@ -74,6 +84,21 @@ def _router_scores(p, cfg: ModelConfig, x):
     scores the lower expert index comes first, as in `jax.lax.top_k`
     (`torch.topk` orders ties otherwise; a stable descending sort does
     not)."""
+    vals, idx, sel, probs = _route(p, cfg, x)
+    return vals, idx, _aux(cfg, sel, probs)
+
+
+def _aux(cfg: ModelConfig, sel, probs):
+    """E * sum_e(frac_tokens_e * mean_prob_e) over the tokens given."""
+    e = cfg.n_experts
+    frac = sel.reshape(-1, e).mean(dim=0)
+    mprob = probs.reshape(-1, e).mean(dim=0)
+    return e * torch.sum(frac * mprob)
+
+
+def _route(p, cfg: ModelConfig, x):
+    """`_router_scores` before its aux: (vals, idx, the primary experts
+    one-hot, the router probabilities)."""
     logits = torch.einsum("...d,de->...e", x, p["router"]).float()
     if cfg.name.startswith("deepseek"):
         scores = torch.sigmoid(logits)
@@ -83,12 +108,71 @@ def _router_scores(p, cfg: ModelConfig, x):
     vals, idx = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
     vals = vals / torch.clamp(vals.sum(dim=-1, keepdim=True), min=1e-9)
     probs = torch.softmax(logits, dim=-1)
-    e = cfg.n_experts
-    sel = torch.nn.functional.one_hot(idx[..., 0], e).float()  # primary
-    frac = sel.reshape(-1, e).mean(dim=0)
-    mprob = probs.reshape(-1, e).mean(dim=0)
-    aux = e * torch.sum(frac * mprob)
-    return vals, idx, aux
+    sel = torch.nn.functional.one_hot(idx[..., 0], cfg.n_experts).float()
+    return vals, idx, sel, probs
+
+
+class _Shards:
+    """This rank's share of an MoE call on a mesh of several ranks.
+
+    `p` holds the router whole and this rank's experts (w1 / w3 / w2
+    gathered over every axis but the one that splits experts, i.e. FSDP's
+    "data" shards of "embed"); `e0` is its first expert; `x` the token
+    rows it routes: its own batch rows where `split_batch` and the rows
+    split over "data", every row otherwise. `out` makes the local combine
+    a DTensor (a partial sum over the expert axes), `aux` reduces the
+    load-balance statistics over the batch axes. On one rank each is the
+    identity (`p`, 0, `x`)."""
+
+    def __init__(self, p, x, split_batch: bool):
+        self.ranks = on_ranks()
+        if not self.ranks:
+            self.p, self.e0, self.x = p, 0, x
+            return
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        self.dm = p["w1"].device_mesh
+        ex = [q.is_shard() and q.dim == 0 for q in p["w1"].placements]
+        ex_pls = tuple(Shard(0) if e else Replicate() for e in ex)
+        rep = (Replicate(),) * len(ex)
+        self.p = {k: local_of(w, ex_pls if k in ("w1", "w2", "w3") else rep)
+                  for k, w in p.items() if k in ("router", "w1", "w2", "w3")}
+        self.e0 = local_slices(p["w1"].shape, ex_pls, self.dm)[0].start
+        bt = [split_batch and not e and q.is_shard() and q.dim == 0
+              for e, q in zip(ex, x.placements)]
+        self.x = local_of(x, tuple(Shard(0) if b else Replicate()
+                                   for b in bt))
+        self.shape = tuple(x.shape)
+        self.out_pls = tuple(Partial() if e else Shard(0) if b else
+                             Replicate() for e, b in zip(ex, bt))
+        self.stat_pls = tuple(Partial() if b else Replicate() for b in bt)
+
+    def act(self, t, *logical):
+        """`shard_act` on one rank; on several, `t` is a local shard
+        already."""
+        return t if self.ranks else shard_act(t, *logical)
+
+    def out(self, y):
+        """The local combine as a DTensor, its partial sums over the
+        expert axes reduced in float32 (`sharding.contract`'s reason)."""
+        if not self.ranks:
+            return y
+        from torch.distributed.tensor import Replicate
+        out = from_local_like(y.float(), self.out_pls, self.shape, self.dm)
+        return redistribute(out, tuple(
+            Replicate() if p.is_partial() else p for p in self.out_pls)
+        ).to(y.dtype)
+
+    def aux(self, cfg, sel, probs):
+        """The load-balance aux over every token of the batch."""
+        if not self.ranks:
+            return _aux(cfg, sel, probs)
+        e = cfg.n_experts
+        n = sel.reshape(-1, e).shape[0]
+        sums = torch.stack([sel.reshape(-1, e).sum(dim=0),
+                            probs.reshape(-1, e).sum(dim=0),
+                            torch.full((e,), float(n), device=sel.device)])
+        sums = whole(from_local_like(sums, self.stat_pls, (3, e), self.dm))
+        return e * torch.sum((sums[0] / sums[2]) * (sums[1] / sums[2]))
 
 
 # --------------------------------------------------------------------------
@@ -143,24 +227,35 @@ def moe_forward_coo(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     """x (B,S,D). Groups are sequences; at decode (S == 1) the B tokens
     form one group."""
     B, S, D = x.shape
+    sh = _Shards(p, x, split_batch=S > 1)
+    xl = sh.x
     if S == 1:
-        out, aux = _moe_coo_grouped(p, cfg, x.reshape(1, B, D), B)
-        return out.reshape(B, S, D), aux
-    return _moe_coo_grouped(p, cfg, x, S)
+        out, sel, probs = _moe_coo_grouped(sh, cfg, xl.reshape(
+            1, xl.shape[0], D), xl.shape[0])
+        out = out.reshape(xl.shape[0], S, D)
+    else:
+        out, sel, probs = _moe_coo_grouped(sh, cfg, xl, S)
+    return sh.out(out), sh.aux(cfg, sel, probs)
 
 
-def _moe_coo_grouped(p, cfg, xg, S):
+def _moe_coo_grouped(sh: _Shards, cfg, xg, S):
+    """The COO dispatch of groups xg (G,S,D) through this rank's experts
+    (all of them on one rank); returns (the combine (G,S,D), the router's
+    one-hot and probabilities)."""
+    p = sh.p
     G, _, D = xg.shape
     E = cfg.n_experts
     C = capacity(cfg, S)
-    vals, idx, aux = _router_scores(p, cfg, xg)
+    vals, idx, sel, probs = _route(p, cfg, xg)
     buf, wbuf = _route_one_group(idx, vals, S, E, C)    # (G,E,C)
+    El = p["w1"].shape[0]
+    buf, wbuf = buf[:, sh.e0:sh.e0 + El], wbuf[:, sh.e0:sh.e0 + El]
     x_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
-    x_pad = shard_act(x_pad, "batch", "seq", None)
-    xin = torch.gather(x_pad, 1, buf.reshape(G, E * C, 1).expand(
-        G, E * C, D)).reshape(G, E, C, D)
-    xin = shard_act(xin, "batch", "experts", "cap", None)
-    y = _expert_ffn(p, cfg, xin)                        # (G,E,C,D)
+    x_pad = sh.act(x_pad, "batch", "seq", None)
+    xin = torch.gather(x_pad, 1, buf.reshape(G, El * C, 1).expand(
+        G, El * C, D)).reshape(G, El, C, D)
+    xin = sh.act(xin, "batch", "experts", "cap", None)
+    y = _expert_ffn(p, cfg, xin)                        # (G,El,C,D)
     del xin                 # (G, E, C, D) each: at full width, GBs apiece
     y = y * wbuf[..., None].to(y.dtype)
     # combine: scatter-add into (G, S+1, D); row S (the empty slots) is
@@ -169,8 +264,8 @@ def _moe_coo_grouped(p, cfg, xg, S):
             * (S + 1)).reshape(-1)
     out = y.new_zeros((G * (S + 1), D)).index_add_(0, rows,
                                                    y.reshape(-1, D))
-    out = shard_act(out.reshape(G, S + 1, D), "batch", "seq", None)
-    return out[:, :S], aux
+    out = sh.act(out.reshape(G, S + 1, D), "batch", "seq", None)
+    return out[:, :S], sel, probs
 
 
 # --------------------------------------------------------------------------
@@ -184,20 +279,24 @@ def moe_forward_bitmap(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor,
     chunk's tokens broadcast over the experts, so no expert weight is
     copied), weighted by the dense gate matrix: the "bitmap" with
     weights, zero where a token does not route."""
-    B, S, D = x.shape
+    sh = _Shards(p, x, split_batch=True)
+    xl = sh.x
+    B, S, D = xl.shape
     E = cfg.n_experts
-    vals, idx, aux = _router_scores(p, cfg, x)          # (B,S,k)
+    El = sh.p["w1"].shape[0]
+    vals, idx, sel, probs = _route(sh.p, cfg, xl)       # (B,S,k)
     gates = torch.zeros((B, S, E), dtype=torch.float32,
-                        device=x.device).scatter_(-1, idx, vals)
+                        device=xl.device).scatter_(-1, idx, vals)
+    gates = gates[..., sh.e0:sh.e0 + El]
     out = []
     step = min(BITMAP_CHUNK, S)
     for c0 in range(0, S, step):
-        xj = x[:, c0:c0 + step].reshape(-1, D)          # (B*Cc, D)
-        gj = gates[:, c0:c0 + step].reshape(-1, E)
-        ye = _expert_ffn(p, cfg, xj.expand(E, *xj.shape))   # (E,B*Cc,D)
+        xj = xl[:, c0:c0 + step].reshape(-1, D)         # (B*Cc, D)
+        gj = gates[:, c0:c0 + step].reshape(-1, El)
+        ye = _expert_ffn(sh.p, cfg, xj.expand(El, *xj.shape))  # (El,B*Cc,D)
         out.append(torch.einsum("emd,me->md", ye, gj.to(ye.dtype))
                    .reshape(B, -1, D))
-    return torch.cat(out, dim=1), aux
+    return sh.out(torch.cat(out, dim=1)), sh.aux(cfg, sel, probs)
 
 
 # --------------------------------------------------------------------------
@@ -212,8 +311,8 @@ def moe_forward(p, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     if cfg.moe_out_shard:
         out = shard_act(out, "batch", "seq", None)
     if cfg.n_shared_experts:
-        h1 = torch.einsum("bsd,df->bsf", x, p["sw1"])
-        h3 = (torch.einsum("bsd,df->bsf", x, p["sw3"]) if "sw3" in p
+        h1 = contract("bsd,df->bsf", x, p["sw1"])
+        h3 = (contract("bsd,df->bsf", x, p["sw3"]) if "sw3" in p
               else None)
-        out = out + torch.einsum("bsf,fd->bsd", _act(cfg, h1, h3), p["sw2"])
+        out = out + contract("bsf,fd->bsd", _act(cfg, h1, h3), p["sw2"])
     return out, aux

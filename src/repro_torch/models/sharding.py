@@ -1,5 +1,5 @@
-"""Logical-axis -> mesh-axis resolution: the port of
-`repro/models/sharding.py`, as pure Python over a mesh's shape.
+"""Logical-axis -> mesh-axis resolution and placement: the port of
+`repro/models/sharding.py`, over DTensor.
 
 Params and activations carry *logical* axis names ("embed", "mlp",
 "heads", "vocab", "experts", "batch", "seq", ...). `AxisRules` maps each
@@ -15,10 +15,23 @@ A mesh is anything with `shape` (a dict axis -> size) and `axis_names`
 A spec is a tuple with one entry per dim: a mesh axis, a tuple of axes,
 or `fill` (the reference's `PartitionSpec` is a tuple of the same
 entries). `placements` turns a spec into DTensor placements, one per
-mesh dim, and `param_sharding` gives them for a whole param tree.
-`shard_act` constrains nothing on one device; the language models on a
-mesh of several ranks (activation, batch and cache shardings) wait for
-ROADMAP.md Queue 1 item 10b.
+mesh dim, and `param_sharding` gives them for a whole param tree;
+`place_params` puts a param tree on the mesh by them (the reference's
+`jax.device_put(params, param_sharding(...))`): each rank keeps only its
+shard of every leaf. `PlacingMaker` (`transformer.init_model(rules=)`)
+places each leaf as it is drawn, so that no rank holds the whole tree.
+
+On a mesh of several ranks the models run on DTensors, PyTorch's
+counterpart of GSPMD: elementwise ops propagate placements, and
+`shard_act` constrains an activation at the reference's sites (a
+`redistribute` to its resolved spec; a dim the rules leave free keeps
+the placement it has, as GSPMD lets it propagate). Products
+(`contract`), attention cores, the embedding lookup, the cache writes
+and the MoE dispatch run on each rank's local shards (`local_of`,
+`from_local_like`), with their collectives explicit; every collective is
+the port's own (`redistribute`), on every backend. On one rank, and without
+rules, `shard_act` only checks the logical axes and the rest is plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -28,7 +41,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.models.common import log_parse, tree_map
+from repro_torch.models.common import PL, Maker, log_parse, tree_map
 
 AxisEntry = Union[str, Tuple[str, ...], None]
 
@@ -160,35 +173,416 @@ def mesh_size(mesh) -> int:
     return n
 
 
+def on_ranks(rules: Optional[AxisRules] = None) -> bool:
+    """Whether `rules` (default: the current ones) span several ranks."""
+    rules = current_rules() if rules is None else rules
+    return rules is not None and mesh_size(rules.mesh) > 1
+
+
+class _Unconstrained:
+    """The fill of an activation's free dims (the reference's
+    `P.UNCONSTRAINED`)."""
+
+    def __repr__(self):
+        return "UNCONSTRAINED"
+
+
+UNCONSTRAINED = _Unconstrained()
+
+
+def _device_mesh(mesh):
+    if getattr(mesh, "device_mesh", None) is None:
+        raise ValueError(
+            f"the mesh {dict(mesh.shape)} carries a shape only: build it "
+            f"over a process group (launch.mesh) to place tensors on it")
+    return mesh.device_mesh
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _act_placements(x, spec, mesh) -> tuple:
+    """The placements of activation `x` constrained to `spec`: each mesh
+    axis the spec names shards its dim; an axis it does not name keeps a
+    shard of a free (UNCONSTRAINED) dim and is replicated otherwise (a
+    partial sum is reduced)."""
+    named = placements([None if e is UNCONSTRAINED else e for e in spec],
+                       mesh)
+    return tuple(
+        have if (not want.is_shard() and have.is_shard()
+                 and spec[have.dim] is UNCONSTRAINED) else want
+        for want, have in zip(named, x.placements))
+
+
 def shard_act(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Check an activation's logical axes and return it unchanged: on one
-    device there is nothing to constrain. Without rules it checks
-    nothing, as in the reference; on a mesh of several ranks it raises
-    (the language models across ranks are ROADMAP.md Queue 1 item 10b)."""
+    """Constrain an activation to its logical axes' resolved spec, as the
+    reference's `with_sharding_constraint`: without rules it returns `x`
+    unchecked, on one rank it checks the axes and returns `x`, and on a
+    mesh of several ranks it redistributes the DTensor `x` (a tensor not
+    on the mesh raises: no module quietly computes off it)."""
     rules = current_rules()
     if rules is None:
         return x
     if len(logical) != x.dim():
         raise ValueError(f"logical {logical} vs shape {tuple(x.shape)}")
-    if mesh_size(rules.mesh) > 1:
-        raise NotImplementedError(
-            f"activations on a mesh of {mesh_size(rules.mesh)} ranks: the "
-            f"language models across ranks are ROADMAP.md Queue 1 item 10b")
-    return x
+    if mesh_size(rules.mesh) == 1:
+        return x
+    dm = _device_mesh(rules.mesh)
+    if not is_dtensor(x):
+        raise TypeError(
+            f"an activation {tuple(x.shape)} ({logical}) that is not on the "
+            f"mesh {dict(rules.mesh.shape)}")
+    spec = resolve_spec(tuple(x.shape), logical, rules.act_rules, rules,
+                        fill=UNCONSTRAINED)
+    want = _act_placements(x, spec, rules.mesh)
+    return redistribute(x, want)
+
+
+# --------------------------------------------------------------------------
+# Placement on a live mesh (`launch.mesh` over a process group)
+# --------------------------------------------------------------------------
+
+
+def _chunk(n: int, k: int, r: int) -> tuple:
+    """(start, size) of piece r of a dim of n split k ways as DTensor
+    splits it (`torch.chunk`: pieces of ceil(n / k), the last ones short
+    or empty)."""
+    full = -(-n // k)
+    start = min(r * full, n)
+    return start, min(full, n - start)
+
+
+def local_slices(shape: Sequence[int], pls: Sequence, dm) -> tuple:
+    """This rank's slice of each dim of a tensor of global `shape` placed
+    by `pls` on DeviceMesh `dm` (shards nest in mesh-dim order, and split
+    as `torch.chunk` does, as DTensor's)."""
+    lo = [0] * len(shape)
+    n = list(shape)
+    for i, p in enumerate(pls):
+        k = dm.size(i)
+        if p is None or not p.is_shard() or k == 1:
+            continue
+        start, size = _chunk(n[p.dim], k, dm.get_local_rank(i))
+        lo[p.dim] += start
+        n[p.dim] = size
+    return tuple(slice(a, a + b) for a, b in zip(lo, n))
+
+
+def _stride(shape) -> tuple:
+    return torch.empty(tuple(shape), device="meta").stride()
+
+
+def _span(shape, pls, dm) -> list:
+    """The length of each dim of a tensor of `shape` after the shards of
+    `pls` (the first mesh dims' placements) cut it on this rank."""
+    return [sl.stop - sl.start for sl in local_slices(
+        shape, list(pls) + [None] * (dm.ndim - len(pls)), dm)]
+
+
+def redistribute(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
+    """DTensor `x` with placements `pls` on its mesh, on every backend by
+    the same path: each mesh dim that changes is made whole with
+    `all_gather_into_tensor` or `all_reduce` in its group, last mesh dim
+    first, and then cut locally. DTensor's own `x.redistribute` is not
+    used: over gloo on CUDA tensors the all-gather of the functional
+    collectives that it calls reads device memory as host memory (the
+    ranks die with SIGSEGV; torch 2.11, two ranks on an H100), and one
+    path is the one that the CPU tests hold against the reference."""
+    pls = tuple(pls)
+    have = tuple(x.placements)
+    if have == pls:
+        return x
+    dm = x.device_mesh
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+    local = x.to_local()
+    cur = list(have)
+    # a mesh dim after one that changes, on the same tensor dim, holds a
+    # piece of the changing one's piece: it is made whole first
+    change = [h != w for h, w in zip(have, pls)]
+    for i in range(len(cur)):
+        if change[i] and cur[i].is_shard():
+            for j in range(i + 1, len(cur)):
+                if cur[j].is_shard() and cur[j].dim == cur[i].dim:
+                    change[j] = True
+    for i in reversed(range(len(cur))):
+        if not change[i] or cur[i].is_replicate():
+            continue
+        group = dm.get_group(i)
+        if cur[i].is_partial():
+            op = cur[i].reduce_op
+            # a copy: the all-reduce writes in place, and `x` keeps its own
+            local = local.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(local, group=group, op={
+                "sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op])
+            if op == "avg":
+                local = local / dm.size(i)
+        else:
+            d, n = cur[i].dim, dm.size(i)
+            # the piece's length along d: that of the tensor as this mesh
+            # dim sees it (the mesh dims before it have cut it already)
+            span = _span(x.shape, cur[:i], dm)[d]
+            full = -(-span // n)
+            part = local.movedim(d, 0)
+            if part.shape[0] < full:        # a short last piece: padded
+                part = torch.cat([part, part.new_zeros(
+                    (full - part.shape[0],) + part.shape[1:])])
+            part = part.contiguous()
+            gathered = part.new_empty((n * full,) + part.shape[1:])
+            dist.all_gather_into_tensor(gathered, part, group=group)
+            local = torch.cat([gathered[r * full:r * full + sz] for r, sz in
+                               ((r, _chunk(span, n, r)[1])
+                                for r in range(n))]).movedim(0, d)
+        cur[i] = Replicate()
+    shape = list(x.shape)
+    for i, p in enumerate(pls):
+        if p.is_shard() and cur[i] != p:
+            if not cur[i].is_replicate():
+                raise ValueError(f"redistributing {have} to {pls}")
+            start, size = _chunk(local.shape[p.dim], dm.size(i),
+                                 dm.get_local_rank(i))
+            local = local.narrow(p.dim, start, size)
+            cur[i] = p
+        elif p.is_partial() and not cur[i].is_partial():
+            raise ValueError(f"redistributing {have} to {pls}")
+    return from_local_like(local.contiguous(), pls, shape, dm)
+
+
+def whole_on_mesh(x: torch.Tensor) -> torch.Tensor:
+    """DTensor `x` replicated on every rank of its mesh (a DTensor); a
+    plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, (Replicate(),) * x.device_mesh.ndim)
+
+
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole value on every rank (`redistribute` to
+    replicas); a plain tensor as it is."""
+    return whole_on_mesh(x).to_local() if is_dtensor(x) else x
+
+
+def place(t: torch.Tensor, pls: Sequence, mesh) -> torch.Tensor:
+    """`t` as a DTensor on `mesh` with placements `pls`: a DTensor is
+    redistributed; a plain tensor, the same whole value on every rank, is
+    cut to this rank's shard locally (no collective), and the shard is a
+    copy of its own, so the whole tensor can be freed. A Partial
+    placement is not a placement of a whole value and raises."""
+    from torch.distributed.tensor import DTensor
+    dm = _device_mesh(mesh)
+    pls = tuple(pls)
+    if any(p.is_partial() for p in pls):
+        raise ValueError(f"placing a whole tensor as {pls}")
+    if isinstance(t, DTensor):
+        return redistribute(t, pls)
+    local = t[local_slices(t.shape, pls, dm)]
+    if any(p.is_shard() for p in pls):
+        local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, dm, pls, run_check=False,
+                              shape=t.shape, stride=_stride(t.shape))
+
+
+def place_tree(tree, pls_tree, mesh):
+    """`place` over a tree and its placements tree (None stays None)."""
+    return tree_map(lambda t, pls: place(t, pls, mesh), tree, pls_tree)
+
+
+def require_placed(tree, what: str, rules: Optional[AxisRules] = None):
+    """Raise unless every tensor leaf of `tree` is a DTensor on a mesh of
+    several ranks (one rank: nothing to check), so that no plain tensor
+    is taken for a replicated one."""
+    if not on_ranks(rules):
+        return
+    def check(t):
+        if isinstance(t, torch.Tensor) and not is_dtensor(t):
+            raise TypeError(f"{what}: a leaf {tuple(t.shape)} is not placed "
+                            f"on the mesh (models.sharding.place_params)")
+        return t
+    tree_map(check, tree)
+
+
+def mesh_context(rules: Optional[AxisRules] = None):
+    """The context a model runs in on a mesh of several ranks: DTensor's
+    implicit replication, so that the constants a module builds (positions,
+    masks, slot indices; equal on every rank) combine with DTensors as
+    replicated ones. One rank: nothing."""
+    import contextlib
+    if not on_ranks(rules):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _lead_letter(i: int, ins, ops, out: str):
+    """The output letter that the first operand (the activation) is split
+    along on mesh dim `i`, if any: the result keeps that layout, so that
+    it meets the residual stream as it is (an elementwise op between
+    DTensors split along different dims makes DTensor move one of them
+    with its own collectives)."""
+    o = ops[0]
+    if is_dtensor(o):
+        p = o.placements[i]
+        if p.is_shard() and ins[0][p.dim] in out:
+            return ins[0][p.dim]
+    return None
+
+
+def _split_letter(i: int, ins, ops, out: str, out_bytes: int):
+    """The letter mesh dim `i` splits an einsum along (None: no split),
+    by the bytes each choice moves there: an operand split along another
+    letter, or holding a partial sum, is gathered or reduced whole; a
+    whole operand is cut locally for free; a summed letter leaves a
+    partial result of `out_bytes` to reduce. Ties go to the earlier
+    operand's letter."""
+    def held(o):
+        return o.placements[i] if is_dtensor(o) else None
+
+    cands = []
+    for letters, o in zip(ins, ops):
+        p = held(o)
+        if p is not None and p.is_shard() and letters[p.dim] not in cands:
+            cands.append(letters[p.dim])
+    lead = _lead_letter(i, ins, ops, out)
+    best, best_cost = None, None
+    for c in cands + [None]:
+        cost = 0 if c is None or c in out else out_bytes
+        if lead is not None and c != lead:
+            cost += out_bytes           # the result laid out as the lead's
+        for letters, o in zip(ins, ops):
+            p = held(o)
+            if p is None or p.is_replicate():
+                continue
+            if p.is_partial() or letters[p.dim] != c:
+                cost += o.numel() * o.element_size()
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    return best
+
+
+def contract(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` (operands of mixed float dtypes cast to their
+    promoted dtype first, as jnp does), run on each rank's shards on a
+    mesh of several ranks.
+
+    On each mesh axis the product splits along one letter, or none: of
+    the letters an operand is split along there, the one that moves the
+    fewest bytes (`_split_letter`). Every operand that has the letter is
+    split along it there and the others are whole there. The ranks then
+    multiply their shards as plain tensors, and the result is split along
+    that letter, or, where the letter is summed, a partial sum. So a
+    weight split over "data" (FSDP's "embed") is not gathered where
+    splitting the activations along its dim moves fewer bytes, as at
+    decode. In bf16 each partial sum would round before the ranks add them,
+    where one device's product accumulates in float32 and rounds once: so
+    a product that splits a sum runs in float32 (bf16 operands widen
+    exactly), its partial sums are reduced in float32, and the result is
+    cast back, one rounding as on one device. DTensor's own einsum
+    flattens dims it may not flatten when a later one is split (torch
+    2.11: "Attempted to flatten multiple dimensions")."""
+    dt = ops[0].dtype
+    for o in ops[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    ops = tuple(o.to(dt) for o in ops)
+    dts = [o for o in ops if is_dtensor(o)]
+    if not dts or not on_ranks():
+        return torch.einsum(eq, *ops)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    dm = dts[0].device_mesh
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    size = {c: n for letters, o in zip(ins, ops)
+            for c, n in zip(letters, o.shape)}
+    out_bytes = 4
+    for c in out:
+        out_bytes *= size[c]
+    split = [_split_letter(i, ins, ops, out, out_bytes)
+             for i in range(dm.ndim)]
+    summed = any(c is not None and c not in out for c in split)
+    cd = torch.float32 if summed and dt != torch.float64 else dt
+    local = []
+    for letters, o in zip(ins, ops):
+        pls = tuple(Shard(letters.index(c)) if c is not None and c in letters
+                    else Replicate() for c in split)
+        lo = (local_of(o, pls) if is_dtensor(o)
+              else o[local_slices(o.shape, pls, dm)])
+        local.append(lo.to(cd))
+    y = torch.einsum(eq, *local)
+    pls = tuple(Shard(out.index(c)) if c is not None and c in out
+                else Partial() if c is not None else Replicate()
+                for c in split)
+    y = from_local_like(y, pls, tuple(size[c] for c in out), dm)
+    want = []
+    for i, p in enumerate(pls):
+        lead = _lead_letter(i, ins, ops, out)
+        want.append(Shard(out.index(lead)) if lead is not None else
+                    Replicate() if p.is_partial() else p)
+    return redistribute(y, want).to(dt)
+
+
+def local_of(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
+    """The local shard of DTensor `x` after redistributing it to `pls` on
+    its own mesh."""
+    return redistribute(x, pls).to_local()
+
+
+def from_local_like(local: torch.Tensor, pls: Sequence, shape: Sequence[int],
+                    dm) -> torch.Tensor:
+    """A DTensor of global `shape` on DeviceMesh `dm` from this rank's
+    `local` shard (or partial sum, under a Partial placement)."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, dm, tuple(pls), run_check=False,
+                              shape=torch.Size(shape), stride=_stride(shape))
+
+
+def pick_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[..., idx] row by row (`torch.gather` on the last dim) for a
+    DTensor `x` whose last dim may be split (the logits' "vocab"): each
+    rank reads the indices that fall in its columns (zeros elsewhere)
+    and the result is a partial sum over those axes. DTensor's own
+    gather strategy fails on columns split under rows split by batch."""
+    from torch.distributed.tensor import Partial, Replicate
+    last = x.dim() - 1
+    cols = [p.is_shard() and p.dim == last for p in x.placements]
+    x_pls = tuple(q if q.is_shard() else Replicate() for q in x.placements)
+    i_pls = tuple(q if (q.is_shard() and q.dim < last) else Replicate()
+                  for q in x.placements)
+    xl = local_of(x, x_pls)
+    il = (local_of(idx, i_pls) if is_dtensor(idx)
+          else idx[local_slices(idx.shape, i_pls, x.device_mesh)])
+    il = il.long() - local_slices(x.shape, x_pls, x.device_mesh)[-1].start
+    hit = (il >= 0) & (il < xl.shape[-1])
+    g = torch.gather(xl, -1, il.clamp(0, xl.shape[-1] - 1)[..., None])
+    g = torch.where(hit, g[..., 0], torch.zeros((), dtype=xl.dtype,
+                                                 device=xl.device))
+    return from_local_like(
+        g, tuple(Partial() if c else q for c, q in zip(cols, i_pls)),
+        tuple(idx.shape), x.device_mesh)
+
+
+# --------------------------------------------------------------------------
+# Param specs and placements
+# --------------------------------------------------------------------------
+
+
+def _leaf_spec(shape, axes, rules: AxisRules) -> tuple:
+    """A param leaf's spec: `resolve_spec` over the param rules (logical
+    axes of another rank than the leaf's resolve to no axis)."""
+    if len(axes) != len(shape):
+        axes = (None,) * len(shape)
+    return resolve_spec(tuple(shape), axes, rules.param_rules, rules)
 
 
 def param_spec(params, logical, rules: AxisRules):
     """The spec tree of a param tree (tensors or TensorSpecs) and its
     logical tree ('|'-joined strings): each leaf's `resolve_spec` over the
     param rules, as the reference's `param_sharding` resolves its
-    PartitionSpecs (a logical string of another rank than the leaf's
-    resolves to no axis)."""
-    def one(arr, log):
-        axes = log_parse(log)
-        if len(axes) != len(arr.shape):
-            axes = (None,) * len(arr.shape)
-        return resolve_spec(tuple(arr.shape), axes, rules.param_rules, rules)
-    return tree_map(one, params, logical)
+    PartitionSpecs."""
+    return tree_map(lambda arr, log: _leaf_spec(arr.shape, log_parse(log),
+                                                rules), params, logical)
 
 
 def placements(spec: Sequence, mesh) -> tuple:
@@ -213,3 +607,65 @@ def param_sharding(params, logical, rules: AxisRules):
     specs = param_spec(params, logical, rules)
     return tree_map(lambda _p, spec: placements(spec, rules.mesh), params,
                     specs)
+
+
+def place_params(params, logical, rules: AxisRules):
+    """The param tree on `rules.mesh` by `param_sharding` (the reference's
+    `jax.device_put(params, p_sh)`): every rank passes the same whole
+    tree and keeps its shard of each leaf. One rank: `params` as they
+    are."""
+    if mesh_size(rules.mesh) == 1:
+        return params
+    return place_tree(params, param_sharding(params, logical, rules),
+                      rules.mesh)
+
+
+class PlacingMaker(Maker):
+    """A Maker that places each leaf on `rules.mesh` by its param spec as
+    it is drawn (`init_model(rules=)`): the draws are the plain Maker's,
+    in the same order, but a rank keeps only its shard of a leaf before
+    the next is drawn, so it never holds the whole tree (grok-1's float32
+    tree is 26 GB at one layer). Stacked layers are stacked shard by
+    shard (`stack`)."""
+
+    def __init__(self, rules: AxisRules, generator: torch.Generator,
+                 dtype=torch.bfloat16, device=None):
+        super().__init__(generator, dtype=dtype, device=device)
+        self.rules = rules
+
+    def _placed(self, leaf: PL) -> PL:
+        spec = _leaf_spec(leaf.arr.shape, leaf.logical, self.rules)
+        return PL(place(leaf.arr, placements(spec, self.rules.mesh),
+                        self.rules.mesh), leaf.logical)
+
+    def w(self, *a, **k) -> PL:
+        return self._placed(super().w(*a, **k))
+
+    def z(self, *a, **k) -> PL:
+        return self._placed(super().z(*a, **k))
+
+    def ones(self, *a, **k) -> PL:
+        return self._placed(super().ones(*a, **k))
+
+    def const(self, *a, **k) -> PL:
+        return self._placed(super().const(*a, **k))
+
+
+def stack(ts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """`torch.stack` along a new leading dim. DTensors of one placement
+    are stacked shard by shard, with no collective: the new dim is whole
+    on every rank and each sharded dim moves one place up, as the
+    stacked leaf's spec (its "stack" axis unsharded) resolves."""
+    if not is_dtensor(ts[0]):
+        return torch.stack(list(ts))
+    from torch.distributed.tensor import Shard
+    first = ts[0]
+    if any(tuple(t.placements) != tuple(first.placements)
+           or t.shape != first.shape for t in ts):
+        raise ValueError("stacking DTensors of different placements or "
+                         "shapes")
+    pls = tuple(Shard(p.dim + 1) if p.is_shard() else p
+                for p in first.placements)
+    return from_local_like(torch.stack([t.to_local() for t in ts]), pls,
+                           (len(ts),) + tuple(first.shape),
+                           first.device_mesh)

@@ -27,6 +27,12 @@ autograd saved. Tokens index the embedding directly: every token must be
 < cfg.vocab (PyTorch raises on an index past the table, where the
 reference's `jnp.take` clamps). The MTP head of deepseek-v3 is read by
 `model_loss` only.
+
+On a mesh of several ranks (`models.sharding.use_rules` over a live
+mesh) the entry points take params placed by `sharding.place_params`
+and run on DTensors: the dense trunk and the MoE trunk (GQA or MLA).
+Logits and caches come back as DTensors. The enc-dec, hybrid and RWKV
+trunks raise there (ROADMAP.md Queue 1 item 10c) and run on one rank.
 """
 from __future__ import annotations
 
@@ -45,7 +51,12 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import (PL, Maker, TensorSpec, cross_entropy,
                                        gelu, geglu, rms_norm, swiglu,
                                        tree_map)
-from repro_torch.models.sharding import shard_act
+from repro_torch.models.sharding import (PlacingMaker, contract,
+                                         current_rules, from_local_like,
+                                         is_dtensor, local_of, local_slices,
+                                         mesh_context, mesh_size, on_ranks,
+                                         redistribute, require_placed,
+                                         shard_act, stack)
 
 # window kicks in only for long-context decode (the zamba2 deviation)
 WINDOW_MIN_SEQ = 131_072
@@ -56,9 +67,28 @@ def tree_index(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
+def _seq_whole(x):
+    """`x` (B, S, ...) with its sequence dim whole on every rank before a
+    slice of it (a slice of a split dim makes DTensor gather it with its
+    own collectives); on one rank `x` itself."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, tuple(
+        Replicate() if p.is_shard() and p.dim == 1 else p
+        for p in x.placements))
+
+
 def tree_stack(trees):
-    """A stacked tree from per-layer trees of one structure."""
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    """A stacked tree from per-layer trees of one structure. On a mesh the
+    layers' DTensors are first laid out as the first layer's (layers may
+    leave their caches split along different dims), so the stack is a
+    local one."""
+    def stack(*xs):
+        if is_dtensor(xs[0]):
+            xs = [redistribute(x, xs[0].placements) for x in xs]
+        return torch.stack(xs)
+    return tree_map(stack, *trees)
 
 
 def _put(stack, i: int, tree) -> None:
@@ -119,22 +149,27 @@ def _init_stack(mk: Maker, cfg, layer_init, n: int):
     """n layers drawn one after another and stacked; the logical axes get
     a leading 'stack' axis."""
     layers = [layer_init(mk, cfg) for _ in range(n)]
-    return tree_map(lambda *ls: PL(torch.stack([l.arr for l in ls]),
+    return tree_map(lambda *ls: PL(stack([l.arr for l in ls]),
                                    ("stack",) + ls[0].logical), *layers)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator, *,
-               dtype=torch.bfloat16, device: DeviceLike = None
-               ) -> Dict[str, Any]:
+               dtype=torch.bfloat16, device: DeviceLike = None,
+               rules=None) -> Dict[str, Any]:
     """Random params (a PL tree) with the reference's tree, shapes and
     logical axes: normal draws from `generator` with the reference's
     fan-in scales, in `dtype` (the reference's params are always
     bfloat16) on `device` (None: the card). A CUDA generator draws on the
     card (the full-width models). The numbers are PyTorch's, not the
     reference's: parity tests carry the reference's params across
-    (`params_from_numpy`)."""
-    return init_with(Maker(generator, dtype=dtype,
-                           device=resolve_device(device)), cfg)
+    (`params_from_numpy`). With `rules` over a mesh of several ranks,
+    every rank draws the same numbers and each leaf is placed by its
+    param spec as it is drawn (`sharding.PlacingMaker`): the tree that
+    `place_params` gives from the whole one, without the whole one."""
+    dev = resolve_device(device)
+    mk = (PlacingMaker(rules, generator, dtype=dtype, device=dev)
+          if on_ranks(rules) else Maker(generator, dtype=dtype, device=dev))
+    return init_with(mk, cfg)
 
 
 def init_with(mk: Maker, cfg: ModelConfig) -> Dict[str, Any]:
@@ -191,14 +226,18 @@ def params_from_numpy(tree, *, device: DeviceLike = None,
 
 
 def _mlp_fwd(p, cfg: ModelConfig, x):
-    h1 = torch.einsum("bsd,df->bsf", x, p["w1"])
+    h1 = contract("bsd,df->bsf", x, p["w1"])
     h1 = shard_act(h1, "batch", "seq", "mlp")
     if "w3" in p:
         act = geglu if cfg.act == "geglu" else swiglu
-        h = act(h1, torch.einsum("bsd,df->bsf", x, p["w3"]))
+        # the up projection laid out as the gate (on one rank a check): the
+        # gate's product with it is elementwise
+        h3 = shard_act(contract("bsd,df->bsf", x, p["w3"]), "batch", "seq",
+                       "mlp")
+        h = act(h1, h3)
     else:
         h = gelu(h1.float()).to(h1.dtype)
-    return torch.einsum("bsf,fd->bsd", h, p["w2"])
+    return contract("bsf,fd->bsd", h, p["w2"])
 
 
 def _dense_layer_fwd(lp, cfg, x, positions, *, causal=True, window=0,
@@ -358,14 +397,43 @@ def _rwkv_trunk(params, cfg, x, *, collect_cache=False):
 
 
 def _embed(params, cfg, tokens):
-    e = params["embed"][tokens]
+    table = params["embed"]
+    e = _embed_shards(table, tokens) if is_dtensor(table) else table[tokens]
     return shard_act(e, "batch", "seq", None)
+
+
+def _embed_shards(table, tokens):
+    """The row lookup on a mesh: each rank reads its shard of the table
+    (its rows of the "vocab" split, its columns of FSDP's "embed" split)
+    for the tokens it needs: its own tokens, but every token along the
+    axes that split the table. A token outside its rows reads zeros, so
+    the result is a partial sum over the row axes (which the caller's
+    `shard_act` reduces) and split by columns over the column axes: the
+    table itself never moves. DTensor's own embedding strategy fails on
+    a table split by rows under indices split by batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    t_pls = tuple(table.placements)
+    tl = table.to_local()
+    v0 = local_slices(table.shape, t_pls, table.device_mesh)[0].start
+    k_pls = tuple(q if (q.is_shard() and p.is_replicate()) else Replicate()
+                  for p, q in zip(t_pls, tokens.placements))
+    idx = local_of(tokens, k_pls).long() - v0
+    hit = (idx >= 0) & (idx < tl.shape[0])
+    e = torch.where(hit[..., None], tl[idx.clamp(0, tl.shape[0] - 1)],
+                    torch.zeros((), dtype=tl.dtype, device=tl.device))
+    out_pls = tuple(Partial() if p.is_shard() and p.dim == 0 else
+                    Shard(tokens.dim()) if p.is_shard() else q
+                    for p, q in zip(t_pls, k_pls))
+    return from_local_like(e, out_pls,
+                           tuple(tokens.shape) + (table.shape[1],),
+                           table.device_mesh)
 
 
 def _logits(params, cfg, h):
     h = rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    return shard_act(h @ w, "batch", "seq", "vocab")
+    logits = contract("bsd,dv->bsv", h, w) if on_ranks() else h @ w
+    return shard_act(logits, "batch", "seq", "vocab")
 
 
 def _assemble_input(params, cfg, batch):
@@ -401,6 +469,38 @@ def _trunk(params, cfg, x, positions, *, memory=None, window=0):
 
 
 # --------------------------------------------------------------------------
+# entry points on a mesh
+# --------------------------------------------------------------------------
+
+
+def _trunk_name(cfg: ModelConfig) -> str:
+    return ("RWKV" if cfg.family == "ssm" else "hybrid"
+            if cfg.family == "hybrid" else "enc-dec" if cfg.enc_dec
+            else "")
+
+
+def on_mesh(fn):
+    """An entry point (params, cfg, ...) that runs on a mesh of several
+    ranks as on one: its params must be placed (a plain leaf raises, so
+    nothing runs whole on every rank by mistake), the trunks not yet
+    ported across ranks raise, and the constants it builds combine with
+    DTensors as replicated (`sharding.mesh_context`)."""
+    @functools.wraps(fn)
+    def run(params, cfg, *args, **kwargs):
+        if on_ranks():
+            trunk = _trunk_name(cfg)
+            if trunk:
+                n = mesh_size(current_rules().mesh)
+                raise NotImplementedError(
+                    f"{cfg.name} on a mesh of {n} ranks: the {trunk} trunk "
+                    f"across ranks is ROADMAP.md Queue 1 item 10c")
+            require_placed(params, f"{cfg.name} params")
+        with mesh_context():
+            return fn(params, cfg, *args, **kwargs)
+    return run
+
+
+# --------------------------------------------------------------------------
 # training loss
 # --------------------------------------------------------------------------
 
@@ -408,6 +508,7 @@ MOE_AUX_WEIGHT = 0.01
 MTP_WEIGHT = 0.3
 
 
+@on_mesh
 def model_loss(params, cfg: ModelConfig, batch):
     """(loss, metrics) of one batch: the mean next-token cross-entropy over
     `loss_mask`, plus MOE_AUX_WEIGHT x the MoE layers' load-balance loss,
@@ -433,7 +534,7 @@ def model_loss(params, cfg: ModelConfig, batch):
             nxt = torch.cat([batch["frontend"].to(nxt.dtype), nxt],
                             dim=1)[:, :hn.shape[1]]
         en = rms_norm(nxt[:, :hn.shape[1]], mtp["norm_e"], cfg.norm_eps)
-        hm = torch.einsum("bsd,de->bse", torch.cat([hn, en], dim=-1),
+        hm = contract("bsd,de->bse", torch.cat([hn, en], dim=-1),
                           mtp["proj"])
         hm, _ = _dense_layer_fwd(mtp["layer"], cfg, hm, positions[:-1])
         mtp_ce = cross_entropy(_logits(params, cfg, hm), labels[:, 1:],
@@ -449,6 +550,7 @@ def model_loss(params, cfg: ModelConfig, batch):
 # --------------------------------------------------------------------------
 
 
+@on_mesh
 def model_prefill(params, cfg: ModelConfig, batch):
     """Full-prompt forward; returns (last-position logits (B,1,Vp), cache).
     The cache's tree is the reference's for the family: {"layers"} (dense:
@@ -493,7 +595,7 @@ def model_prefill(params, cfg: ModelConfig, batch):
         h, kv = _scan_dense(params["layers"], cfg, x, positions,
                             collect_cache=True)
         cache = {"layers": kv, "memory": None}
-    logits = _logits(params, cfg, h[:, -1:])
+    logits = _logits(params, cfg, _seq_whole(h)[:, -1:])
     return logits, cache
 
 
@@ -516,6 +618,7 @@ def _decode_mlp(lp, cfg, x):
     return x + _mlp_fwd(lp["mlp"], cfg, rms_norm(x, lp["ln2"], cfg.norm_eps))
 
 
+@on_mesh
 def model_decode(params, cfg: ModelConfig, token, pos: int, cache, *,
                  seq_len: int):
     """One-token step. token (B,1) integer; pos its absolute position (a
@@ -676,11 +779,25 @@ def grow_cache(cache, shapes):
     """Prefill's cache zero-padded to the shapes of `serve_cache_spec`
     (the serving horizon), keeping its own dtype: the params' (bf16 for
     the reference's params). None leaves (grok's absent dense layers, a
-    hybrid without trailing blocks) pass through."""
+    hybrid without trailing blocks) pass through. A DTensor leaf is
+    padded on its shards: the padded dims are gathered first (a padded
+    dim cannot stay split: its shards would move), the others keep
+    their placements."""
     def fit(c, s):
         if tuple(c.shape) == tuple(s.shape):
             return c
-        out = torch.zeros(s.shape, dtype=c.dtype, device=c.device)
-        out[tuple(slice(0, n) for n in c.shape)] = c
-        return out
+        if not is_dtensor(c):
+            out = torch.zeros(s.shape, dtype=c.dtype, device=c.device)
+            out[tuple(slice(0, n) for n in c.shape)] = c
+            return out
+        from torch.distributed.tensor import Replicate
+        grown = [a != b for a, b in zip(c.shape, s.shape)]
+        pls = tuple(Replicate() if p.is_partial() or (
+            p.is_shard() and grown[p.dim]) else p for p in c.placements)
+        cl = local_of(c, pls)
+        out = torch.zeros([b if g else a for a, b, g in
+                           zip(cl.shape, s.shape, grown)], dtype=c.dtype,
+                          device=cl.device)
+        out[tuple(slice(0, n) for n in cl.shape)] = cl
+        return from_local_like(out, pls, s.shape, c.device_mesh)
     return tree_map(fit, cache, shapes)

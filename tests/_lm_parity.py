@@ -66,6 +66,12 @@ def family_params(cfg, seed):
     numpy, every leaf that it made constant (norms, biases, mixes, decay)
     moved by 0.1 N(0, 1) so that it is exercised."""
     params, _ = jcommon.split_pl(jtf.init_model(cfg, jax.random.PRNGKey(seed)))
+    return perturb_constants(params, seed)
+
+
+def perturb_constants(params, seed):
+    """`family_params`' move of the constant leaves of a reference param
+    tree, as float32 numpy."""
     rng = np.random.RandomState(seed)
 
     def perturb(a):

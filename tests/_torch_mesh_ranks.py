@@ -4,6 +4,7 @@ test process as pickled numpy (a payload file); each rank pickles its
 results back. `spawn` runs one world under a time limit of its own and
 stops every process it starts."""
 import contextlib
+import dataclasses
 import io
 import multiprocessing
 import os
@@ -226,3 +227,152 @@ def gpipe_job(rank, world, p):
                                                 torch.from_numpy(p["x"]))
     return {"y": y.numpy(), "coords": {a: mesh.coordinate(a)
                                        for a in mesh.axis_names}}
+
+
+# -- language models on a (data, model) mesh ----------------------------------
+
+
+def _lm_mesh(shape):
+    """The world as a (data, model) mesh: the launcher's host mesh for
+    (world, 1), `make_mesh_from`'s live mesh for the square, and
+    `make_mesh` otherwise."""
+    from repro_torch.launch import elastic, mesh
+    data, model = shape
+    if model == 1:
+        return mesh.make_host_mesh("cpu")
+    if data == model:
+        return elastic.make_mesh_from(list(range(data * model)), model,
+                                      device="cpu")
+    return mesh.make_mesh(data, model, device="cpu")
+
+
+def _whole(t):
+    """A DTensor's whole value (a plain tensor, such as a dense arch's
+    zero aux loss, as it is)."""
+    from repro_torch.models.sharding import whole
+    return whole(t)
+
+
+def _local_shapes(tree):
+    """Each leaf's (global shape, local shape, bytes of its local
+    storage)."""
+    from repro_torch.models.common import tree_map
+    return tree_map(lambda t: (tuple(t.shape), tuple(t.to_local().shape),
+                               t.to_local().untyped_storage().nbytes()),
+                    tree)
+
+
+def _drawn_vs_placed(tf, cfg, rules):
+    """`init_model(rules=)` (each leaf placed as it is drawn) against
+    `place_params` of the whole tree from the same seed, leaf by leaf:
+    (leaves, the paths whose placements or local shards differ, the paths
+    that are not DTensors)."""
+    from repro_torch.models.common import split_pl, tree_map
+    from repro_torch.models.sharding import is_dtensor, place_params
+    drawn, _ = split_pl(tf.init_model(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu", rules=rules))
+    whole, logical = split_pl(tf.init_model(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu"))
+    placed = place_params(whole, logical, rules)
+    flat = []
+    tree_map(lambda d, p_, log: flat.append((log, d, p_)), drawn, placed,
+             logical)
+    differ, plain = [], []
+    for i, (log, d, p_) in enumerate(flat):
+        if not is_dtensor(d):
+            plain.append(f"{i}:{log}")
+        elif (tuple(d.placements) != tuple(p_.placements)
+              or d.shape != p_.shape
+              or not torch.equal(d.to_local(), p_.to_local())):
+            differ.append(f"{i}:{log}")
+    return len(flat), differ, plain
+
+
+def lm_job(rank, world, p):
+    """Per arch and dtype on the world's mesh: each param leaf's global and
+    local shapes after `place_params`; prefill's last logits; the cache
+    grown to the horizon, then teacher-forced decode steps' logits; the
+    cache's shapes after them; `model_loss` on a train batch; float32
+    `serve_lm`'s greedy tokens; `init_model(rules=)` against
+    `place_params` of the whole draw; and the error of the trunks not
+    ported across ranks."""
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import (make_rules, place_params,
+                                             use_rules)
+    mesh = _lm_mesh(p["mesh"])
+    rules = make_rules(mesh)
+    B, P, N = p["B"], p["P"], p["n_decode"]
+    out = {"mesh": dict(mesh.shape), "archs": {}, "drawn": {}}
+    for name, case in p["archs"].items():
+        cfg = dataclasses.replace(treg.reduced(treg.ARCHS[name]),
+                                  capacity_factor=case["capacity_factor"])
+        _, logical = steps.abstract_params(cfg)
+        out["drawn"][name] = _drawn_vs_placed(tf, cfg, rules)
+        for dtype in case["dtypes"]:
+            tdt = getattr(torch, dtype)
+            params = tf.params_from_numpy(case["params"], device="cpu",
+                                          dtype=tdt)
+            placed = place_params(params, logical, rules)
+            del params
+            r = {"params": _local_shapes(placed)}
+            prefill = steps.build_prefill_step(cfg, rules)
+            decode = steps.build_decode_step(cfg, rules, P + N)
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                logits, cache = prefill(
+                    placed, {"tokens": torch.from_numpy(case["tokens"])})
+            keys = {e.key for e in prof.key_averages()}
+            r["prefill"] = _whole(logits).float().numpy()
+            cache = tf.grow_cache(cache, tf.serve_cache_spec(cfg, B,
+                                                             P + N)[0])
+            r["decode"] = []
+            for i in range(N):
+                logits, cache = decode(placed, torch.from_numpy(
+                    case["decode_tokens"][:, i:i + 1]), P + i, cache)
+                r["decode"].append(_whole(logits).float().numpy())
+            # one more step under the profiler: the collectives that it
+            # and the prefill ran
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                decode(placed, torch.from_numpy(
+                    case["decode_tokens"][:, N - 1:N]), P + N - 1, cache)
+            keys |= {e.key for e in prof.key_averages()}
+            r["collectives"] = sorted(k for k in keys if k.startswith(
+                ("gloo:", "_c10d_functional::")))
+            r["cache"] = _local_shapes(cache)
+            del cache
+            batch = steps.place_batch(cfg, {
+                k: torch.from_numpy(v) for k, v in case["loss_batch"].items()},
+                rules)
+            with use_rules(rules), torch.no_grad():
+                loss, metrics = tf.model_loss(placed, cfg, batch)
+            r["loss"] = float(_whole(loss))
+            r["metrics"] = {k: float(_whole(v)) for k, v in metrics.items()}
+            if dtype == "float32":
+                args = serve.build_parser().parse_args(
+                    ["--arch", name, "--device", "cpu", "--batch", str(B),
+                     "--prompt-len", str(P), "--gen", str(p["gen"])])
+                buf, seen = io.StringIO(), []
+                with contextlib.redirect_stdout(buf):
+                    toks = serve.serve_lm(
+                        args, params=tf.params_from_numpy(
+                            case["params"], device="cpu",
+                            dtype=torch.float32),
+                        tokens=torch.from_numpy(case["tokens"]), mesh=mesh,
+                        cfg=cfg, logits_out=seen)
+                r["serve"] = toks.numpy()
+                r["serve_logits"] = [t.float().numpy() for t in seen]
+                r["serve_out"] = buf.getvalue()
+            out["archs"][f"{name}/{dtype}"] = r
+    out["refused"] = {}
+    for name in p.get("refused", ()):
+        cfg = treg.reduced(treg.ARCHS[name])
+        try:
+            with use_rules(rules), torch.no_grad():
+                tf.model_prefill({}, cfg, {})
+        except NotImplementedError as e:
+            out["refused"][name] = str(e)
+    return out

@@ -170,7 +170,7 @@ def test_meshes_without_a_process_group(tmp_path):
     with pytest.raises(ValueError, match="rank and world_size"):
         tmesh.init_ranks("cpu", init_method="file:///nonexistent")
     runner = telastic.ElasticRunner(build=None, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(NotImplementedError, match="item 10e"):
         runner.run(1, lambda s: {}, devices=["cuda:0", "cuda:1"])
 
 
