@@ -32,12 +32,11 @@ every rank restores it, the engine splits each ray chunk over the ranks
 Fleet workers get the same device through their engine arguments. The
 NeRF paths use the reference launcher's `NeRFConfig`, so a checkpoint
 written by either package's launcher restores in the other. The LM path
-serves all ten archs (dense, MoE, encoder-decoder, hybrid and RWKV) on
-one rank; under `torchrun` it serves the dense and MoE archs on the
-(world, 1) host mesh, as the reference's launcher does: the batch over
-"data" where it divides, the weights' "embed" dims over "data" (FSDP),
-each rank its shard of every param, and rank 0 prints. The enc-dec,
-hybrid and RWKV archs across ranks are ROADMAP.md Queue 1 item 10c.
+serves all ten archs (dense, MoE, encoder-decoder, hybrid and RWKV), on
+one rank or, under `torchrun`, on the (world, 1) host mesh, as the
+reference's launcher does: the batch over "data" where it divides, the
+weights' "embed" dims over "data" (FSDP), each rank its shard of every
+param, and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -605,12 +604,6 @@ def main(argv=None):
             ap.error("--fleet-workers serves from one process: fleet "
                      "workers each on their own card are ROADMAP.md Queue 1 "
                      "item 10g")
-        if args.arch != "rtnerf":
-            cfg = get_arch(args.arch)
-            if cfg.enc_dec or cfg.family in ("ssm", "hybrid"):
-                ap.error(f"{args.arch} serves on one rank: the enc-dec, "
-                         f"hybrid and RWKV trunks across ranks are "
-                         f"ROADMAP.md Queue 1 item 10c")
         args.device = str(init_ranks(
             None if args.device == "cuda" else args.device,
             backend=args.backend))

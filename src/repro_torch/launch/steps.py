@@ -10,8 +10,9 @@ the reference's jitted steps do by their in_shardings: the batch by
 `batch_spec`'s specs and the decode cache by `cache_spec`'s (a plain
 tensor, whole and equal on every rank, is cut to this rank's shard; a
 DTensor is redistributed). The params must be placed already
-(`models.sharding.place_params`). The train step on several ranks is
-ROADMAP.md Queue 1 item 10d."""
+(`models.sharding.place_params`). The train step refuses a mesh of
+several ranks when it is built (its gradients across ranks are
+ROADMAP.md Queue 1 item 10d)."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -23,8 +24,8 @@ from repro_torch.data import tokens as tok_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (MetaMaker, TensorSpec, log_parse,
                                        split_pl, tree_map)
-from repro_torch.models.sharding import (AxisRules, mesh_size, place,
-                                         place_tree, placements,
+from repro_torch.models.sharding import (AxisRules, mesh_size, on_ranks,
+                                         place, place_tree, placements,
                                          resolve_spec, use_rules)
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.optim.optimizers import Optimizer, tree_leaves
@@ -148,7 +149,14 @@ def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
     are then the mean loss alone). The gradients are clipped to global
     norm GRAD_CLIP, then `opt.update`d. `param_sh` and
     cfg.constrain_grads pin each gradient to its param's sharding in the
-    reference; on the port's one device there is nothing to pin."""
+    reference; on the port's one device there is nothing to pin. Rules
+    over a mesh of several ranks raise NotImplementedError here, before
+    any autograd runs: `sharding.redistribute`'s collectives have no
+    backward yet (ROADMAP.md Queue 1 item 10d)."""
+    if on_ranks(rules):
+        raise NotImplementedError(
+            f"{cfg.name}: a train step on a mesh of "
+            f"{mesh_size(rules.mesh)} ranks is ROADMAP.md Queue 1 item 10d")
 
     def train_step(params, opt_state, batch):
         with use_rules(rules):

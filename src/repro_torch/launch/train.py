@@ -14,7 +14,9 @@ default) trains the arch's reduced config, `--no-reduced` its published
 one. A `--ckpt-dir` that holds a checkpoint of the same model resumes
 from it. Prints the device, `trained N steps in ...`, `loss: first=...
 last=...` and one `event: ...` line per restore, failure, remesh or
-straggler.
+straggler. Training runs in one process: under `torchrun` with more than
+one rank the launcher exits before any rank starts (training across
+ranks is ROADMAP.md Queue 1 item 10d).
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.models.sharding import make_rules
 from repro_torch.optim import cosine_schedule, pick_optimizer
 
 
-def parse_args(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--steps", type=int, default=50)
@@ -53,12 +55,19 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
-    return ap.parse_args(argv)
+    return ap
 
 
 def main(argv=None):
-    """Train as the command line says; returns the runner's (state, log)."""
-    args = parse_args(argv)
+    """Train as the command line says; returns the runner's (state, log).
+    Under a torchrun environment of several ranks (WORLD_SIZE > 1) it
+    exits through argparse's error, code 2, before any rank starts."""
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ap.error(f"training runs in one process: a train step across "
+                 f"{os.environ['WORLD_SIZE']} ranks is ROADMAP.md Queue 1 "
+                 f"item 10d")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

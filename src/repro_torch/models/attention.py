@@ -22,8 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (Maker, TensorSpec, apply_rope, einsum,
-                                       rms_norm)
+from repro_torch.models.common import Maker, TensorSpec, apply_rope, rms_norm
 from repro_torch.models.sharding import (contract, current_rules,
                                          from_local_like, is_dtensor,
                                          local_of, local_slices, shard_act,
@@ -154,10 +153,11 @@ def _attn_shards(core, q, k, v, q_pos, kv_pos):
     """`core(q, k, v, q_pos, kv_pos)` -> o (B,S,K,G,hv) on this rank's
     shards on a mesh of several ranks (on one rank: `core` as it is).
     Attention runs apart for each batch row and each head: q keeps its
-    split of the batch, of the query rows (with its slice of q_pos) or of
-    a head dim; k and v follow a batch or kv-head split and are whole
-    along the others (every key for every query). The core runs on plain
-    tensors: DTensor's einsum flattens split head dims it may not."""
+    split of the batch, of the query rows (with its slice of q_pos, None
+    where the core reads no positions) or of a head dim; k and v follow a
+    batch or kv-head split and are whole along the others (every key for
+    every query). The core runs on plain tensors: DTensor's einsum
+    flattens split head dims it may not."""
     if not is_dtensor(q):
         return core(q, k, v, q_pos, kv_pos)
     from torch.distributed.tensor import Replicate, Shard
@@ -168,7 +168,7 @@ def _attn_shards(core, q, k, v, q_pos, kv_pos):
         kv_pls.append(Shard(d) if d in (0, 2) else Replicate())
     rows = local_slices(q.shape, q_pls, q.device_mesh)[1]
     o = core(local_of(q, q_pls), local_of(k, kv_pls), local_of(v, kv_pls),
-             q_pos[rows], kv_pos)
+             None if q_pos is None else q_pos[rows], kv_pos)
     return from_local_like(o, q_pls, tuple(q.shape[:4]) + (v.shape[-1],),
                            q.device_mesh)
 
@@ -225,7 +225,8 @@ def write_slot(cache, slot: int, row) -> None:
 
 
 def _gqa_qkv(p, cfg: ModelConfig, x, positions):
-    # promoting: the encoder's first layer sees bf16 frames (see einsum)
+    # promoting: the encoder's first layer sees bf16 frames (`contract`
+    # casts mixed operands to their promoted dtype, as jnp does)
     q = contract("bsd,dkgh->bskgh", x, p["wq"])
     k = contract("bsd,dkh->bskh", x, p["wk"])
     v = contract("bsd,dkh->bskh", x, p["wv"])
@@ -325,20 +326,25 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int, window=0):
 
 def cross_kv(p, memory):
     """The cross-attention K/V of the encoder memory, computed once a
-    request (prefill) and cached for decode."""
-    k = einsum("bmd,dkh->bmkh", memory, p["wk"])
-    v = einsum("bmd,dkh->bmkh", memory, p["wv"])
+    request (prefill) and cached for decode. On a mesh they come out
+    split by batch and kv heads, as the cache spec places them."""
+    k = contract("bmd,dkh->bmkh", memory, p["wk"])
+    v = contract("bmd,dkh->bmkh", memory, p["wv"])
     return k, v
 
 
 def cross_forward(p, cfg: ModelConfig, x, memory=None, kv=None):
-    """x (B,S,D) attends to every memory row (kv: cross_kv's pair, or
-    computed from `memory`)."""
-    q = einsum("bsd,dkgh->bskgh", x, p["wq"])
+    """x (B,S,D) attends to every memory row, unmasked (kv: cross_kv's
+    pair, or computed from `memory`); on a mesh on each rank's batch rows
+    and heads (`_attn_shards`)."""
+    q = contract("bsd,dkgh->bskgh", x, p["wq"])
     k, v = cross_kv(p, memory) if kv is None else kv
     scale = 1.0 / (cfg.resolved_head_dim ** 0.5)
-    o = _masked_attn_naive(q, k, v, None, scale)
-    return einsum("bskgh,kghd->bsd", o, p["wo"])
+
+    def core(q, k, v, _q_pos, _kv_pos):
+        return _masked_attn_naive(q, k, v, None, scale)
+    o = _attn_shards(core, q, k, v, None, None)
+    return contract("bskgh,kghd->bsd", o, p["wo"])
 
 
 # --------------------------------------------------------------------------

@@ -143,21 +143,15 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
+    if type(gamma) is not torch.Tensor:
+        # DTensor gain and bias gathered as `rms_norm`'s gain is
+        from repro_torch.models.sharding import whole_on_mesh
+        gamma, beta = whole_on_mesh(gamma), whole_on_mesh(beta)
     h = x.float()
     mu = torch.mean(h, dim=-1, keepdim=True)
     var = torch.mean((h - mu) ** 2, dim=-1, keepdim=True)
     h = (h - mu) * torch.rsqrt(var + eps)
     return (h * gamma.float() + beta.float()).to(x.dtype)
-
-
-def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """`torch.einsum` with jnp's promotion: operands of mixed float dtypes
-    are cast to their promoted dtype first (torch.einsum raises on them;
-    the reference's encoder mixes its bf16 frames with float32 params)."""
-    dt = ops[0].dtype
-    for o in ops[1:]:
-        dt = torch.promote_types(dt, o.dtype)
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

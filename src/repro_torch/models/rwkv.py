@@ -4,6 +4,13 @@ The port of `repro/models/rwkv.py`.
 Decode state a layer: {"shift_t", "shift_c": (B,D), "wkv": (B,H,hd,hd)
 float32}, of constant size. The WKV recurrence runs step by step in
 float32, in plain PyTorch ops (the reference's is a jnp scan).
+
+On a mesh of several ranks the products go through `sharding.contract`,
+the ("embed",)-split mixing vectors and norm parameters are gathered
+whole before they meet the batch-split activations, and the WKV
+recurrence with its per-head group norm runs on each rank's batch rows
+and heads (`_wkv_shards`): its state is split by batch and heads, as the
+reference's cache spec `"stack|batch|heads||"` places it.
 """
 from __future__ import annotations
 
@@ -12,6 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Maker, TensorSpec, layer_norm
+from repro_torch.models.sharding import (contract, from_local_like,
+                                         is_dtensor, local_of,
+                                         whole_on_mesh)
 
 DDLERP_RANK = 32
 DECAY_RANK = 64
@@ -54,17 +64,18 @@ def init_rwkv6(mk: Maker, cfg: ModelConfig):
 def _ddlerp(p, x, xx):
     """Data-dependent token-shift mixes. x, xx (B,S,D) -> 5 mixed
     tensors."""
-    base = x + xx * p["mu_base"]
-    a = torch.tanh(torch.einsum("bsd,dr->bsr", base, p["w_a1"]).float())
+    base = x + xx * whole_on_mesh(p["mu_base"])
+    a = torch.tanh(contract("bsd,dr->bsr", base, p["w_a1"]).float())
     a = a.reshape(*a.shape[:-1], N_MIX, DDLERP_RANK)
-    off = torch.einsum("bsmr,mrd->bsmd", a.to(x.dtype), p["w_a2"])
-    mix = p["mu"][None, None] + off                        # (B,S,5,D)
+    off = contract("bsmr,mrd->bsmd", a.to(x.dtype), p["w_a2"])
+    mix = whole_on_mesh(p["mu"])[None, None] + off         # (B,S,5,D)
     return [x + xx * mix[..., i, :] for i in range(N_MIX)]
 
 
 def _decay(p, xw):
-    w = p["w0"].float() + torch.einsum(
-        "bsd,dr->bsr", xw, p["ww1"]).float() @ p["ww2"].float()
+    lo = contract("bsd,dr->bsr", xw, p["ww1"]).float()
+    w = (whole_on_mesh(p["w0"]).float()
+         + contract("bsr,rd->bsd", lo, p["ww2"].float()))
     return torch.exp(-torch.exp(w))                        # (B,S,D) in (0,1)
 
 
@@ -82,19 +93,15 @@ def _shifted(x, shift_prev):
     return torch.cat([shift_prev[:, None], x[:, :-1]], dim=1)
 
 
-def _time_mix(p, cfg, x, shift_prev, wkv0):
-    """x (B,S,D) post-ln. Returns (out, last x, wkv state)."""
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
-    xx = _shifted(x, shift_prev) - x
-    xr, xk, xv, xg, xw = _ddlerp(p, x, xx)
-    r = torch.einsum("bsd,dhe->bshe", xr, p["wr"]).float()
-    k = torch.einsum("bsd,dhe->bshe", xk, p["wk"]).float()
-    v = torch.einsum("bsd,dhe->bshe", xv, p["wv"]).float()
-    g = F.silu(torch.einsum("bsd,dhe->bshe", xg, p["wg"]).float())
-    w = _decay(p, xw).reshape(B, S, H, hd)
-    u = p["u"].float()
-    s_wkv = wkv0
+def _wkv(r, k, v, w, g, u, gn_g, gn_b, wkv0, eps, dtype):
+    """The WKV recurrence, the per-head group norm and the gate on plain
+    tensors: r, k, v, w, g (B,S,H,hd) float32; u, gn_g, gn_b (H,hd);
+    wkv0 (B,H,hd,hd) float32 or None (zeros). Returns (y (B,S,H,hd) in
+    `dtype`, the last state)."""
+    B, S, H, hd = r.shape
+    u = u.float()
+    s_wkv = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                         device=r.device) if wkv0 is None else wkv0)
     ys = []
     for t in range(S):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]     # (B,H,hd,hd)
@@ -102,33 +109,72 @@ def _time_mix(p, cfg, x, shift_prev, wkv0):
         ys.append(torch.einsum("bhij,bhi->bhj", att, r[:, t]))
         s_wkv = w[:, t, :, :, None] * s_wkv + kv
     y = torch.stack(ys, dim=1)                             # (B,S,H,hd) f32
-    y = _group_norm(y, p["gn_g"], p["gn_b"], cfg.norm_eps)
-    y = (y.float() * g).to(x.dtype)
-    out = torch.einsum("bshe,hed->bsd", y, p["wo"])
+    y = _group_norm(y, gn_g, gn_b, eps)
+    return (y.float() * g).to(dtype), s_wkv
+
+
+def _wkv_shards(p, r, k, v, w, g, wkv0, eps, dtype):
+    """`_wkv` on a mesh of several ranks: each rank runs its batch rows and
+    heads (the mesh dims that split r along dims 0 and 2; every other
+    dim whole), with its heads of u and the group norm, and the results
+    are wrapped back into DTensors: y split as r, the state (B,H,hd,hd)
+    by batch and heads. One rank: `_wkv` as it is."""
+    if not is_dtensor(r):
+        return _wkv(r, k, v, w, g, p["u"], p["gn_g"], p["gn_b"], wkv0, eps,
+                    dtype)
+    from torch.distributed.tensor import Replicate, Shard
+    pls = tuple(Shard(q.dim) if q.is_shard() and q.dim in (0, 2)
+                else Replicate() for q in r.placements)
+    state_pls = tuple(Shard(1) if q.is_shard() and q.dim == 2 else q
+                      for q in pls)
+    head_pls = tuple(Shard(0) if q.is_shard() and q.dim == 2 else Replicate()
+                     for q in pls)
+    y, s_wkv = _wkv(*(local_of(t, pls) for t in (r, k, v, w, g)),
+                    *(local_of(p[n], head_pls) for n in ("u", "gn_g", "gn_b")),
+                    None if wkv0 is None else local_of(wkv0, state_pls),
+                    eps, dtype)
+    B, _, H, hd = r.shape
+    dm = r.device_mesh
+    return (from_local_like(y, pls, tuple(r.shape), dm),
+            from_local_like(s_wkv, state_pls, (B, H, hd, hd), dm))
+
+
+def _time_mix(p, cfg, x, shift_prev, wkv0):
+    """x (B,S,D) post-ln; wkv0 None for a fresh sequence. Returns (out,
+    last x, wkv state)."""
+    B, S, D = x.shape
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    xx = _shifted(x, shift_prev) - x
+    xr, xk, xv, xg, xw = _ddlerp(p, x, xx)
+    r = contract("bsd,dhe->bshe", xr, p["wr"]).float()
+    k = contract("bsd,dhe->bshe", xk, p["wk"]).float()
+    v = contract("bsd,dhe->bshe", xv, p["wv"]).float()
+    g = F.silu(contract("bsd,dhe->bshe", xg, p["wg"]).float())
+    w = _decay(p, xw).reshape(B, S, H, hd)
+    y, s_wkv = _wkv_shards(p, r, k, v, w, g, wkv0, cfg.norm_eps, x.dtype)
+    out = contract("bshe,hed->bsd", y, p["wo"])
     return out, x[:, -1], s_wkv
 
 
 def _channel_mix(p, x, shift_prev):
     xx = _shifted(x, shift_prev) - x
-    xk = x + xx * p["cmu_k"]
-    xr = x + xx * p["cmu_r"]
-    k = torch.einsum("bsd,df->bsf", xk, p["cwk"])
+    xk = x + xx * whole_on_mesh(p["cmu_k"])
+    xr = x + xx * whole_on_mesh(p["cmu_r"])
+    k = contract("bsd,df->bsf", xk, p["cwk"])
     k = torch.square(torch.relu(k.float())).to(x.dtype)
-    kv = torch.einsum("bsf,fd->bsd", k, p["cwv"])
-    r = torch.sigmoid(torch.einsum("bsd,de->bse", xr, p["cwr"]).float())
+    kv = contract("bsf,fd->bsd", k, p["cwv"])
+    r = torch.sigmoid(contract("bsd,de->bse", xr, p["cwr"]).float())
     return (r * kv.float()).to(x.dtype), x[:, -1]
 
 
 def rwkv6_forward(p, cfg: ModelConfig, x, state=None):
     """x (B,S,D); state None (a fresh sequence) or a decode state. Returns
-    (x, new state); decode is S = 1 with a state."""
-    B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    (x, new state); decode is S = 1 with a state. A fresh sequence's
+    shifts are zeros laid out as x's rows, and its WKV state starts at
+    zeros inside `_wkv`."""
     if state is None:
-        state = {"shift_t": x.new_zeros((B, D)),
-                 "shift_c": x.new_zeros((B, D)),
-                 "wkv": torch.zeros((B, H, hd, hd), dtype=torch.float32,
-                                    device=x.device)}
+        zero = torch.zeros_like(x[:, 0])
+        state = {"shift_t": zero, "shift_c": zero, "wkv": None}
     h1 = layer_norm(x, p["ln1_g"], p["ln1_b"], cfg.norm_eps)
     att, sh_t, wkv = _time_mix(p, cfg, h1, state["shift_t"], state["wkv"])
     x = x + att

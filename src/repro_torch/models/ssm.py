@@ -7,6 +7,18 @@ hold each against the other and against the reference. Both are plain
 PyTorch ops (the reference computes them in jnp).
 
 State: h (B, nH, hd, N) float32; conv (B, conv_w - 1, conv channels).
+
+On a mesh of several ranks (`_Shards`) the in- and out-projections go
+through `sharding.contract`, and the rest of a block runs on each rank's
+batch rows. The in-projection's output is gathered whole over the
+"model" axis before it is cut into its z / x / B / C / dt segments (a
+"model" split of `in_proj`'s columns falls inside a segment); the causal
+conv runs on the rank's own channels of `conv_w` (the conv state stays
+split by channels, as the reference's cache spec `"...|batch||mlp"`
+places it) and its output is gathered; the scan, whose state h the
+reference's spec keeps whole over "model", runs on every head; and the
+gated norm's gain multiplies the rank's columns of `out_proj`'s split
+only, so that the out-projection's partial sums need no gather first.
 """
 from __future__ import annotations
 
@@ -17,6 +29,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Maker, TensorSpec
+from repro_torch.models.sharding import (contract, from_local_like,
+                                         is_dtensor, local_of, local_slices,
+                                         whole)
 
 SSD_CHUNK = 128
 
@@ -72,36 +87,119 @@ def _causal_conv(xbc, w, bias, conv_state=None):
     return F.silu(y.float()).to(xbc.dtype), new_state
 
 
-def _gated_norm(y, z, gamma, eps):
+def _gated(y, z, eps):
+    """The gated RMS norm before its gain, in float32."""
     yf = y.float() * F.silu(z.float())
-    yf = yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
-    return (yf * gamma.float()).to(y.dtype)
+    return yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
+
+
+def _gated_norm(y, z, gamma, eps):
+    return (_gated(y, z, eps) * gamma.float()).to(y.dtype)
+
+
+class _Shards:
+    """This rank's share of a Mamba2 block on a mesh of several ranks.
+
+    `proj` is the in-projection's output on this rank's batch rows (the
+    mesh dims that split its dim 0), whole along every other dim; `p`
+    holds the replicated per-head leaves (a_log, d_skip, dt_bias), and
+    `state` gives a decode state's leaf on those rows. `conv` runs the
+    causal conv on the rank's channels and gathers its output, `norm`
+    returns the gated norm on the rank's columns of the out-projection
+    (a DTensor), `wrap` makes a local state leaf a DTensor. On one rank
+    each is the plain computation on `p` and the projection itself."""
+
+    def __init__(self, p, zxbcdt):
+        self.ranks = is_dtensor(zxbcdt)
+        self.w = p
+        if not self.ranks:
+            self.p, self.proj = p, zxbcdt
+            return
+        from torch.distributed.tensor import Replicate, Shard
+        self.dm = zxbcdt.device_mesh
+        self.B, self.S = zxbcdt.shape[:2]
+        self.rows = tuple(Shard(0) if q.is_shard() and q.dim == 0
+                          else Replicate() for q in zxbcdt.placements)
+        self.proj = local_of(zxbcdt, self.rows)
+        self.p = {k: whole(p[k]) for k in ("a_log", "d_skip", "dt_bias")}
+
+    def _cols(self, leaf):
+        """(placements of a (B, S, C) activation whose C splits as the
+        1-D or last dim of `leaf`, placements of `leaf`, this rank's
+        slice of C)."""
+        from torch.distributed.tensor import Replicate, Shard
+        act, own = [], []
+        for q, r in zip(leaf.placements, self.rows):
+            if q.is_shard() and r.is_shard():
+                raise ValueError("a mesh axis splits both the batch and "
+                                 "the channels of a Mamba2 block")
+            act.append(Shard(2) if q.is_shard() else r)
+            own.append(Shard(leaf.dim() - 1) if q.is_shard() else Replicate())
+        C = leaf.shape[-1]
+        cut = local_slices((self.B, self.S, C), act, self.dm)[2]
+        return tuple(act), tuple(own), cut
+
+    def state(self, t):
+        return local_of(t, self.rows) if self.ranks else t
+
+    def wrap(self, t):
+        if not self.ranks:
+            return t
+        return from_local_like(t, self.rows, (self.B,) + tuple(t.shape[1:]),
+                               self.dm)
+
+    def conv(self, xbc, conv_state):
+        """(conv output whole over channels, new conv state: on a mesh the
+        rank's channels, a DTensor split as `conv_b`)."""
+        if not self.ranks:
+            return _causal_conv(xbc, self.w["conv_w"], self.w["conv_b"],
+                                conv_state)
+        from torch.distributed.tensor import Shard
+        act, own, cut = self._cols(self.w["conv_b"])
+        w_own = tuple(Shard(1) if q.is_shard() else q for q in own)
+        y, st = _causal_conv(
+            xbc[..., cut], local_of(self.w["conv_w"], w_own),
+            local_of(self.w["conv_b"], own),
+            None if conv_state is None else local_of(conv_state, act))
+        C = xbc.shape[-1]
+        y = local_of(from_local_like(y, act, (self.B, y.shape[1], C),
+                                     self.dm), self.rows)
+        return y, from_local_like(st, act, (self.B, st.shape[1], C),
+                                  self.dm)
+
+    def norm(self, y, z, eps):
+        if not self.ranks:
+            return _gated_norm(y, z, self.w["norm"], eps)
+        act, own, cut = self._cols(self.w["norm"])
+        g = local_of(self.w["norm"], own)
+        yl = (_gated(y, z, eps)[..., cut] * g.float()).to(y.dtype)
+        return from_local_like(yl, act, (self.B, y.shape[1], y.shape[-1]),
+                               self.dm)
 
 
 def _ssm_inputs(p, cfg, x, conv_state=None):
     """The in-projection, conv and discretisation shared by forward and
-    decode: (z, xh (B,S,nh,hd), b, c (B,S,n), dt, da (B,S,nh) float32,
-    conv state)."""
-    B, S, _ = x.shape
+    decode: (the block's `_Shards`, z, xh (B,S,nh,hd), b, c (B,S,n), dt,
+    da (B,S,nh) float32, conv state), each on this rank's rows."""
     d_in, nh, _ = ssm_dims(cfg)
     n, hd = cfg.ssm_state, cfg.ssm_head_dim
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
-    z, xs, b, c, dt_raw = _split_proj(p, cfg, zxbcdt)
-    xbc, conv_state = _causal_conv(torch.cat([xs, b, c], dim=-1),
-                                   p["conv_w"], p["conv_b"], conv_state)
+    sh = _Shards(p, contract("bsd,de->bse", x, p["in_proj"]))
+    z, xs, b, c, dt_raw = _split_proj(p, cfg, sh.proj)
+    xbc, conv_state = sh.conv(torch.cat([xs, b, c], dim=-1), conv_state)
     xs, b, c = xbc[..., :d_in], xbc[..., d_in:d_in + n], xbc[..., d_in + n:]
-    dt = F.softplus(dt_raw.float() + p["dt_bias"].float())
-    da = torch.exp(-torch.exp(p["a_log"].float()) * dt)          # (B,S,nh)
-    return z, xs.reshape(B, S, nh, hd), b, c, dt, da, conv_state
+    dt = F.softplus(dt_raw.float() + sh.p["dt_bias"].float())
+    da = torch.exp(-torch.exp(sh.p["a_log"].float()) * dt)       # (B,S,nh)
+    B, S = xs.shape[:2]
+    return sh, z, xs.reshape(B, S, nh, hd), b, c, dt, da, conv_state
 
 
-def _ssm_output(p, cfg, x, y, xh, z):
+def _ssm_output(p, sh, cfg, dtype, y, xh, z):
     """The skip, gated norm and out-projection. y, xh (B,S,nh,hd)."""
-    B, S = x.shape[:2]
-    y = y + p["d_skip"].float()[:, None] * xh.float()
-    y = y.reshape(B, S, -1).to(x.dtype)
-    y = _gated_norm(y, z, p["norm"], cfg.norm_eps)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    B, S = xh.shape[:2]
+    y = y + sh.p["d_skip"].float()[:, None] * xh.float()
+    y = y.reshape(B, S, -1).to(dtype)
+    return contract("bse,ed->bsd", sh.norm(y, z, cfg.norm_eps),
+                    p["out_proj"])
 
 
 def _ssd_scan(xh, b, c, dt, da):
@@ -121,13 +219,13 @@ def _ssd_scan(xh, b, c, dt, da):
 
 def mamba2_forward(p, cfg: ModelConfig, x, *, impl: str = "scan"):
     """Train/prefill. x (B,S,D) -> (y, final state {"h", "conv"})."""
-    z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x)
+    sh, z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x)
     if impl == "chunked":
         y, h_last = _ssd_chunked(xh, b, c, dt, da)
     else:
         y, h_last = _ssd_scan(xh, b, c, dt, da)
-    out = _ssm_output(p, cfg, x, y, xh, z)
-    return out, {"h": h_last.float(), "conv": conv_state}
+    out = _ssm_output(p, sh, cfg, x.dtype, y, xh, z)
+    return out, {"h": sh.wrap(h_last.float()), "conv": conv_state}
 
 
 def _ssd_chunked(xh, b, c, dt, da):
@@ -173,14 +271,15 @@ def mamba2_decode(p, cfg: ModelConfig, x1, state) -> Tuple[torch.Tensor,
                                                            dict]:
     """One token. x1 (B,1,D); state {"h", "conv"}; returns (y, new
     state)."""
-    z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x1, state["conv"])
+    sh, z, xh, b, c, dt, da, conv_state = _ssm_inputs(p, cfg, x1,
+                                                      state["conv"])
     xt = xh[:, 0].float()
-    h = (state["h"] * da[:, 0, :, None, None]
+    h = (sh.state(state["h"]) * da[:, 0, :, None, None]
          + (dt[:, 0, :, None] * xt)[..., None] * b[:, 0].float()[:, None,
                                                                 None, :])
     y = torch.einsum("bhdn,bn->bhd", h, c[:, 0].float())
-    out = _ssm_output(p, cfg, x1, y[:, None], xh, z)
-    return out, {"h": h, "conv": conv_state}
+    out = _ssm_output(p, sh, cfg, x1.dtype, y[:, None], xh, z)
+    return out, {"h": sh.wrap(h), "conv": conv_state}
 
 
 def mamba2_state_shape(cfg: ModelConfig, batch: int):

@@ -30,9 +30,10 @@ reference's `jnp.take` clamps). The MTP head of deepseek-v3 is read by
 
 On a mesh of several ranks (`models.sharding.use_rules` over a live
 mesh) the entry points take params placed by `sharding.place_params`
-and run on DTensors: the dense trunk and the MoE trunk (GQA or MLA).
-Logits and caches come back as DTensors. The enc-dec, hybrid and RWKV
-trunks raise there (ROADMAP.md Queue 1 item 10c) and run on one rank.
+and run on DTensors, for every trunk: dense, MoE (GQA or MLA),
+encoder-decoder, the Mamba2 hybrid and RWKV6. Logits and caches come
+back as DTensors; the recurrent states are written into each rank's own
+shard of the cache (`_put`).
 """
 from __future__ import annotations
 
@@ -52,9 +53,9 @@ from repro_torch.models.common import (PL, Maker, TensorSpec, cross_entropy,
                                        gelu, geglu, rms_norm, swiglu,
                                        tree_map)
 from repro_torch.models.sharding import (PlacingMaker, contract,
-                                         current_rules, from_local_like,
-                                         is_dtensor, local_of, local_slices,
-                                         mesh_context, mesh_size, on_ranks,
+                                         from_local_like, is_dtensor,
+                                         local_of, local_slices,
+                                         mesh_context, on_ranks,
                                          redistribute, require_placed,
                                          shard_act, stack)
 
@@ -92,12 +93,23 @@ def tree_stack(trees):
 
 
 def _put(stack, i: int, tree) -> None:
-    """Write `tree` into layer i of the stacked tree `stack`, in place."""
+    """Write `tree` into layer i of the stacked tree `stack`, in place. On
+    a mesh each leaf goes into this rank's shard of the stack (its layer
+    dim is whole), laid out first as the stack's layer (DTensor has no
+    strategy for an indexed write into a sharded tensor)."""
     def put(dst, src):
         if dst.dtype != src.dtype:
             raise TypeError(f"cache dtype {dst.dtype} differs from the new "
                             f"state's {src.dtype}")
-        dst[i].copy_(src)
+        if not is_dtensor(dst):
+            dst[i].copy_(src)
+            return
+        from torch.distributed.tensor import Shard
+        if any(p.is_shard() and p.dim == 0 for p in dst.placements):
+            raise ValueError("a stacked state split along its layer dim")
+        dst.to_local()[i].copy_(local_of(src, tuple(
+            Shard(p.dim - 1) if p.is_shard() else p
+            for p in dst.placements)))
     tree_map(put, stack, tree)
 
 
@@ -315,7 +327,7 @@ def _scan_encoder(stack, cfg, x, positions):
 def _encode(params, cfg, enc_frames):
     """The encoder memory of `enc_frames` (B, M, D), cast to bf16 whatever
     the params' dtype, as the reference does (with float32 params the
-    first layer then promotes to float32: `common.einsum`)."""
+    first layer then promotes to float32: `sharding.contract`)."""
     frames = shard_act(enc_frames.to(torch.bfloat16), "batch", "seq", None)
     memory = _scan_encoder(params["enc"], cfg, frames,
                            torch.arange(frames.shape[1],
@@ -330,14 +342,13 @@ def _hybrid_groups(cfg: ModelConfig):
     return g, n_groups, trailing
 
 
-def _split_hybrid_stack(stack, cfg):
-    """The Mamba stack as (n_groups, g, ...) groups and the trailing
-    blocks (views)."""
+def _hybrid_spans(cfg: ModelConfig):
+    """The Mamba stack's layer indices of each group, then of the trailing
+    blocks (empty without them): the reference's (n_groups, g) reshape of
+    the stack and its tail, as indices (no view of a split stack)."""
     g, n_groups, _ = _hybrid_groups(cfg)
-    grouped = tree_map(
-        lambda a: a[:n_groups * g].reshape(n_groups, g, *a.shape[1:]), stack)
-    tail = tree_map(lambda a: a[n_groups * g:], stack)
-    return grouped, tail
+    return ([range(gi * g, (gi + 1) * g) for gi in range(n_groups)],
+            range(n_groups * g, cfg.n_layers))
 
 
 def _mamba_block(lp, cfg, x, impl):
@@ -346,10 +357,11 @@ def _mamba_block(lp, cfg, x, impl):
     return x + y, state
 
 
-def _mamba_stack(stack, cfg, x, impl):
-    """Mamba blocks over x; returns (x, their final states stacked)."""
+def _mamba_stack(stack, layers, cfg, x, impl):
+    """The Mamba blocks `layers` of the stack over x; returns (x, their
+    final states stacked)."""
     states = []
-    for j in range(_depth(stack)):
+    for j in layers:
         x, st = _mamba_block(tree_index(stack, j), cfg, x, impl)
         states.append(st)
     return x, tree_stack(states)
@@ -361,19 +373,18 @@ def _hybrid_trunk(params, cfg, x, positions, impl=None, *,
     attention + MLP layer; the trailing blocks follow. With collect_cache
     (prefill) also returns the cache {"mamba_g", "attn", "mamba_t"}."""
     impl = impl or cfg.ssm_impl
-    grouped, tail = _split_hybrid_stack(params["mamba"], cfg)
+    groups, tail = _hybrid_spans(cfg)
     shared = params["shared"]
-    _, n_groups, trailing = _hybrid_groups(cfg)
     m_states, a_kv = [], []
-    for gi in range(n_groups):
-        x, sts = _mamba_stack(tree_index(grouped, gi), cfg, x, impl)
+    for layers in groups:
+        x, sts = _mamba_stack(params["mamba"], layers, cfg, x, impl)
         x, kv = _dense_layer_fwd(shared, cfg, x, positions,
                                  return_cache=collect_cache)
         m_states.append(sts)
         a_kv.append(kv)
     t_states = None
-    if trailing:
-        x, t_states = _mamba_stack(tail, cfg, x, impl)
+    if tail:
+        x, t_states = _mamba_stack(params["mamba"], tail, cfg, x, impl)
     if not collect_cache:
         return x
     return x, {"mamba_g": tree_stack(m_states), "attn": tree_stack(a_kv),
@@ -473,27 +484,15 @@ def _trunk(params, cfg, x, positions, *, memory=None, window=0):
 # --------------------------------------------------------------------------
 
 
-def _trunk_name(cfg: ModelConfig) -> str:
-    return ("RWKV" if cfg.family == "ssm" else "hybrid"
-            if cfg.family == "hybrid" else "enc-dec" if cfg.enc_dec
-            else "")
-
-
 def on_mesh(fn):
     """An entry point (params, cfg, ...) that runs on a mesh of several
     ranks as on one: its params must be placed (a plain leaf raises, so
-    nothing runs whole on every rank by mistake), the trunks not yet
-    ported across ranks raise, and the constants it builds combine with
-    DTensors as replicated (`sharding.mesh_context`)."""
+    nothing runs whole on every rank by mistake), and the constants it
+    builds combine with DTensors as replicated
+    (`sharding.mesh_context`)."""
     @functools.wraps(fn)
     def run(params, cfg, *args, **kwargs):
         if on_ranks():
-            trunk = _trunk_name(cfg)
-            if trunk:
-                n = mesh_size(current_rules().mesh)
-                raise NotImplementedError(
-                    f"{cfg.name} on a mesh of {n} ranks: the {trunk} trunk "
-                    f"across ranks is ROADMAP.md Queue 1 item 10c")
             require_placed(params, f"{cfg.name} params")
         with mesh_context():
             return fn(params, cfg, *args, **kwargs)
@@ -581,7 +580,8 @@ def model_prefill(params, cfg: ModelConfig, batch):
             xks.append(xk)
             xvs.append(xv)
         cache = {"layers": tree_stack(kvs),
-                 "xkv": {"k": torch.stack(xks), "v": torch.stack(xvs)},
+                 "xkv": tree_stack([{"k": k, "v": v}
+                                    for k, v in zip(xks, xvs)]),
                  "memory": None}
     elif cfg.is_moe:
         dkv = None
@@ -676,13 +676,12 @@ def model_decode(params, cfg: ModelConfig, token, pos: int, cache, *,
 def _hybrid_decode(params, cfg, x, pos, cache, window):
     """One token through the hybrid trunk; the Mamba states and the shared
     layer's K/V (one cache a group) are written in place."""
-    grouped, tail = _split_hybrid_stack(params["mamba"], cfg)
+    groups, tail = _hybrid_spans(cfg)
     shared = params["shared"]
-    _, n_groups, trailing = _hybrid_groups(cfg)
 
-    def mamba_steps(stack, states, x):
-        for j in range(_depth(stack)):
-            lp = tree_index(stack, j)
+    def mamba_steps(layers, states, x):
+        for j, layer in enumerate(layers):
+            lp = tree_index(params["mamba"], layer)
             h = rms_norm(x, lp["ln"], cfg.norm_eps)
             y, st = ssm_lib.mamba2_decode(lp["mamba"], cfg, h,
                                           tree_index(states, j))
@@ -690,12 +689,11 @@ def _hybrid_decode(params, cfg, x, pos, cache, window):
             x = x + y
         return x
 
-    for gi in range(n_groups):
-        x = mamba_steps(tree_index(grouped, gi),
-                        tree_index(cache["mamba_g"], gi), x)
+    for gi, layers in enumerate(groups):
+        x = mamba_steps(layers, tree_index(cache["mamba_g"], gi), x)
         x = _decode_mlp(shared, cfg, _decode_attn(
             shared, cfg, x, pos, tree_index(cache["attn"], gi), window))
-    if trailing:
+    if tail:
         x = mamba_steps(tail, cache["mamba_t"], x)
     return x
 

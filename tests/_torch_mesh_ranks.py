@@ -292,17 +292,20 @@ def _drawn_vs_placed(tf, cfg, rules):
 
 def lm_job(rank, world, p):
     """Per arch and dtype on the world's mesh: each param leaf's global and
-    local shapes after `place_params`; prefill's last logits; the cache
-    grown to the horizon, then teacher-forced decode steps' logits; the
-    cache's shapes after them; `model_loss` on a train batch; float32
-    `serve_lm`'s greedy tokens; `init_model(rules=)` against
-    `place_params` of the whole draw; and the error of the trunks not
-    ported across ranks."""
+    local shapes after `place_params`; prefill's last logits (the prompt,
+    and an enc-dec arch's encoder frames `enc_frames`); the cache grown
+    to the horizon (the cross K/V at the frames' length), then
+    teacher-forced decode steps' logits; the cache's shapes after them;
+    `model_loss` on a train batch (a hybrid arch's also with the chunked
+    SSD); float32 `serve_lm`'s greedy tokens; `init_model(rules=)`
+    against `place_params` of the whole draw; and the error that
+    `build_train_step` raises on the mesh."""
     from repro_torch.configs import registry as treg
     from repro_torch.launch import serve, steps
     from repro_torch.models import transformer as tf
     from repro_torch.models.sharding import (make_rules, place_params,
                                              use_rules)
+    from repro_torch.optim import adamw
     mesh = _lm_mesh(p["mesh"])
     rules = make_rules(mesh)
     B, P, N = p["B"], p["P"], p["n_decode"]
@@ -321,14 +324,19 @@ def lm_job(rank, world, p):
             r = {"params": _local_shapes(placed)}
             prefill = steps.build_prefill_step(cfg, rules)
             decode = steps.build_decode_step(cfg, rules, P + N)
+            prompt = {"tokens": torch.from_numpy(case["tokens"])}
+            frames = case.get("enc_frames")
+            if frames is not None:
+                prompt["enc_frames"] = torch.from_numpy(frames).to(
+                    torch.bfloat16)
             from torch.profiler import ProfilerActivity, profile
             with profile(activities=[ProfilerActivity.CPU]) as prof:
-                logits, cache = prefill(
-                    placed, {"tokens": torch.from_numpy(case["tokens"])})
+                logits, cache = prefill(placed, prompt)
             keys = {e.key for e in prof.key_averages()}
             r["prefill"] = _whole(logits).float().numpy()
-            cache = tf.grow_cache(cache, tf.serve_cache_spec(cfg, B,
-                                                             P + N)[0])
+            cache = tf.grow_cache(cache, tf.serve_cache_spec(
+                cfg, B, P + N,
+                enc_len=0 if frames is None else frames.shape[1])[0])
             r["decode"] = []
             for i in range(N):
                 logits, cache = decode(placed, torch.from_numpy(
@@ -349,6 +357,10 @@ def lm_job(rank, world, p):
                 rules)
             with use_rules(rules), torch.no_grad():
                 loss, metrics = tf.model_loss(placed, cfg, batch)
+                if cfg.family == "hybrid":
+                    r["loss_chunked"] = float(_whole(tf.model_loss(
+                        placed, dataclasses.replace(cfg, ssm_impl="chunked"),
+                        batch)[0]))
             r["loss"] = float(_whole(loss))
             r["metrics"] = {k: float(_whole(v)) for k, v in metrics.items()}
             if dtype == "float32":
@@ -361,18 +373,17 @@ def lm_job(rank, world, p):
                         args, params=tf.params_from_numpy(
                             case["params"], device="cpu",
                             dtype=torch.float32),
-                        tokens=torch.from_numpy(case["tokens"]), mesh=mesh,
+                        tokens=torch.from_numpy(case["tokens"]),
+                        enc_frames=prompt.get("enc_frames"), mesh=mesh,
                         cfg=cfg, logits_out=seen)
                 r["serve"] = toks.numpy()
                 r["serve_logits"] = [t.float().numpy() for t in seen]
                 r["serve_out"] = buf.getvalue()
             out["archs"][f"{name}/{dtype}"] = r
-    out["refused"] = {}
-    for name in p.get("refused", ()):
-        cfg = treg.reduced(treg.ARCHS[name])
-        try:
-            with use_rules(rules), torch.no_grad():
-                tf.model_prefill({}, cfg, {})
-        except NotImplementedError as e:
-            out["refused"][name] = str(e)
+    out["train_step"] = None
+    try:
+        steps.build_train_step(treg.reduced(treg.ARCHS["llama3.2-1b"]),
+                               rules, adamw(1e-3))
+    except NotImplementedError as e:
+        out["train_step"] = str(e)
     return out

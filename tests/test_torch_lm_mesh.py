@@ -29,7 +29,10 @@ pins how. The reference on a mesh cannot run here, so its single-device
 results are the oracle: they are what GSPMD must compute.
 
 Each world is spawned once (`_torch_mesh_ranks.lm_job`) while this
-process computes the reference's results."""
+process computes the reference's results (`run_worlds`, which
+`tests/test_torch_lm_mesh_trunks.py` runs for the enc-dec, hybrid and
+RWKV trunks). Every world also builds a train step, which must refuse a
+mesh of several ranks naming ROADMAP.md Queue 1 item 10d."""
 import contextlib
 import dataclasses
 import io
@@ -61,7 +64,6 @@ from repro_torch.models import transformer as ttf
 
 ARCHS = ("llama3.2-1b", "granite-34b", "qwen1.5-32b", "deepseek-v3-671b",
          "grok-1-314b")
-REFUSED = ("zamba2-7b", "rwkv6-1.6b", "seamless-m4t-large-v2")
 WORLDS = {"2x2": (2, 2), "1x2": (1, 2), "2x1": (2, 1)}
 DTYPES = ("float32", "bfloat16")
 B, P, N_DECODE = 4, 16, 4        # the prompt is the loss batch's tokens
@@ -104,21 +106,49 @@ def _bf16_rounded(tree):
 
 
 def _case(name):
+    """The arch's params, prompt (the loss batch's tokens, and an enc-dec
+    arch's encoder frames: its bf16 frames as float32, exact), decode
+    tokens and loss batch."""
     jcfg, tcfg = _cfgs(name)
     rng = np.random.RandomState(len(name) + 100)
-    loss_batch = {k: np.asarray(v) for k, v in train_batch(jcfg, B, P)
-                  .items()}
-    return {"params": _params(name, jcfg, tcfg), "dtypes": DTYPES,
+    loss_batch = {k: np.array(v.astype(jnp.float32) if v.dtype
+                              == jnp.bfloat16 else v)
+                  for k, v in train_batch(jcfg, B, P).items()}
+    case = {"params": _params(name, jcfg, tcfg), "dtypes": DTYPES,
             "tokens": loss_batch["tokens"].astype(np.int32),
             "decode_tokens": rng.randint(0, jcfg.vocab, (B, N_DECODE))
             .astype(np.int32),
             "loss_batch": loss_batch,
             "capacity_factor": jcfg.capacity_factor}
+    if jcfg.enc_dec:
+        case["enc_frames"] = loss_batch["enc_frames"]
+    return case
+
+
+def _enc_len(case) -> int:
+    """The encoder memory's length (0: not an enc-dec arch)."""
+    return case["enc_frames"].shape[1] if "enc_frames" in case else 0
+
+
+def _prompt(case, to):
+    """The prefill batch: tokens, and the encoder frames in bf16."""
+    batch = {"tokens": to(case["tokens"])}
+    if "enc_frames" in case:
+        batch["enc_frames"] = to(case["enc_frames"])
+    return batch
+
+
+def _eager(jcfg):
+    """The reference's enc-dec runs op by op: jitted, its encoder scan
+    refuses the float32 carry that its bf16 frames promote to (ROADMAP.md
+    Queue 3 item 18)."""
+    return jax.disable_jit() if jcfg.enc_dec else contextlib.nullcontext()
 
 
 def _jitted(jcfg):
     """The reference's jitted prefill, decode (horizon P + N_DECODE) and
-    loss of `jcfg`, compiled once for each dtype they see."""
+    loss of `jcfg`, compiled once for each dtype they see (run under
+    `_eager`)."""
     return (jax.jit(lambda p, b: jtf.model_prefill(p, jcfg, b)),
             jax.jit(lambda p, t, pos, c: jtf.model_decode(
                 p, jcfg, t, pos, c, seq_len=P + N_DECODE)),
@@ -126,20 +156,26 @@ def _jitted(jcfg):
 
 
 def _reference_f32(jcfg, fns, params, case):
-    """The reference's jitted single-device run on float32 `params`:
-    prefill's last logits, the teacher-forced decode logits over a cache
-    padded to P + N_DECODE, the greedy tokens of its launcher's loop on
-    the same horizon (`serve_lm`: the prompt's argmax, then N_DECODE - 1
-    greedy steps), and `model_loss`."""
+    """The reference's single-device run on float32 `params` (jitted;
+    the enc-dec op by op): prefill's last logits, the teacher-forced
+    decode logits over a cache padded to P + N_DECODE, the greedy tokens
+    of its launcher's loop on the same horizon (`serve_lm`: the prompt's
+    argmax, then N_DECODE - 1 greedy steps), and `model_loss`."""
+    with _eager(jcfg):
+        return _reference_f32_run(jcfg, fns, params, case)
+
+
+def _reference_f32_run(jcfg, fns, params, case):
     prefill, decode, loss_fn = fns
     jp = jax.tree.map(jnp.asarray, params)
-    shapes, _ = jtf.serve_cache_spec(jcfg, B, P + N_DECODE)
+    shapes, _ = jtf.serve_cache_spec(jcfg, B, P + N_DECODE,
+                                     enc_len=_enc_len(case))
 
     def grown(cache):
         return jax.tree.map(lambda c, s: jnp.pad(c, [
             (0, a - b) for a, b in zip(s.shape, c.shape)]), cache, shapes)
 
-    logits, cache0 = prefill(jp, {"tokens": jnp.asarray(case["tokens"])})
+    logits, cache0 = prefill(jp, _prompt(case, jnp.asarray))
     out = {"prefill": np.asarray(logits, np.float32), "decode": []}
     cache = grown(cache0)
     for i in range(N_DECODE):
@@ -167,11 +203,11 @@ def _port_one_rank_bf16(tcfg, params, case):
     (no rules), the baseline of the bf16 noise rule."""
     tp = ttf.params_from_numpy(params, device="cpu", dtype=torch.bfloat16)
     with torch.no_grad():
-        logits, cache = ttf.model_prefill(
-            tp, tcfg, {"tokens": torch.from_numpy(case["tokens"])})
+        logits, cache = ttf.model_prefill(tp, tcfg,
+                                          _prompt(case, torch.from_numpy))
         out = {"prefill": logits.float().numpy(), "decode": []}
         cache = ttf.grow_cache(cache, ttf.serve_cache_spec(
-            tcfg, B, P + N_DECODE)[0])
+            tcfg, B, P + N_DECODE, enc_len=_enc_len(case))[0])
         for i in range(N_DECODE):
             lg, cache = ttf.model_decode(
                 tp, tcfg, torch.from_numpy(case["decode_tokens"][:, i:i + 1]),
@@ -180,10 +216,11 @@ def _port_one_rank_bf16(tcfg, params, case):
     return out
 
 
-def _reference_bf16_loss(fns, params, case):
+def _reference_bf16_loss(jcfg, fns, params, case):
     jp = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16), params)
     batch = {k: jnp.asarray(v) for k, v in case["loss_batch"].items()}
-    return float(fns[2](jp, batch)[0])
+    with _eager(jcfg):
+        return float(fns[2](jp, batch)[0])
 
 
 class _Sharding:
@@ -193,9 +230,11 @@ class _Sharding:
         self.spec = tuple(spec)
 
 
-def _want_shapes(jcfg, shape):
+def _want_shapes(jcfg, shape, enc_len=0):
     """The reference's param and cache specs on a shape-only mesh of
-    `shape`, as {path: (global shape, local shape)}."""
+    `shape`, as {path: (global shape, local shape)}; an enc-dec arch's
+    cache at the encoder memory's length `enc_len` (its `cache_sharding`
+    specs, on `serve_cache_spec`'s shapes at that length)."""
     fake = types.SimpleNamespace(shape=dict(shape), axis_names=tuple(shape))
     with pytest.MonkeyPatch.context() as mp:
         for mod in (jsharding, jsteps):
@@ -203,7 +242,9 @@ def _want_shapes(jcfg, shape):
         rules = jsharding.make_rules(fake)
         sds, logical = jsteps.abstract_params(jcfg)
         p_sh = jsharding.param_sharding(sds, logical, rules)
-        c_shapes, c_sh = jsteps.cache_sharding(jcfg, B, P + N_DECODE, rules)
+        _, c_sh = jsteps.cache_sharding(jcfg, B, P + N_DECODE, rules)
+        c_shapes, _ = jtf.serve_cache_spec(jcfg, B, P + N_DECODE,
+                                           enc_len=enc_len)
     out = {}
     for tag, specs, sh in (("params", sds, p_sh), ("cache", c_shapes, c_sh)):
         leaves = jax.tree_util.tree_flatten_with_path(specs)[0]
@@ -271,18 +312,42 @@ REFERENCE_TEST = textwrap.dedent("""
 """)
 
 
-@pytest.fixture(scope="module")
-def worlds(tmp_path_factory):
-    """Every world runs while this process computes the reference's
-    results (and runs the reference test's body on 8 virtual devices)."""
-    tmp = tmp_path_factory.mktemp("lm_mesh")
-    cases = {name: _case(name) for name in ARCHS}
-    src = os.path.join(os.path.dirname(__file__), "..", "src")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    sub = subprocess.Popen(
-        [sys.executable, "-c", REFERENCE_TEST.format(
-            src=os.path.abspath(src))], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, env=env)
+def _reference(name, case):
+    """Everything the tests hold the ranks of one arch against."""
+    jcfg, tcfg = _cfgs(name)
+    fns = _jitted(jcfg)
+    return {"float32": _reference_f32(jcfg, fns, case["params"], case),
+            "truth": _reference_f32(jcfg, fns, _bf16_rounded(case["params"]),
+                                    case),
+            "one_rank_bf16": _port_one_rank_bf16(tcfg, case["params"], case),
+            "bf16_loss": _reference_bf16_loss(jcfg, fns, case["params"],
+                                              case),
+            "shapes": {k: _want_shapes(jcfg, dict(zip(("data", "model"), s)),
+                                       _enc_len(case))
+                       for k, s in WORLDS.items()}}
+
+
+def _one_process(name, case) -> str:
+    """What float32 `serve_lm` prints in one process."""
+    args = tserve.build_parser().parse_args(
+        ["--arch", name, "--device", "cpu", "--batch", str(B),
+         "--prompt-len", str(P), "--gen", str(N_DECODE)])
+    frames = case.get("enc_frames")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tserve.serve_lm(args, params=ttf.params_from_numpy(
+            case["params"], device="cpu", dtype=torch.float32),
+            tokens=torch.from_numpy(case["tokens"]),
+            enc_frames=None if frames is None else torch.from_numpy(
+                frames).to(torch.bfloat16), cfg=_cfgs(name)[1])
+    return buf.getvalue()
+
+
+def run_worlds(tmp, archs, during=None):
+    """Start every world on `archs`, compute the reference's results (and
+    call `during()`, whose result is kept under "during") while they run,
+    then collect the ranks."""
+    cases = {name: _case(name) for name in archs}
     started = {}
     for key, shape in WORLDS.items():
         wdir = tmp / key
@@ -290,43 +355,38 @@ def worlds(tmp_path_factory):
         started[key] = ranks.start(ranks.lm_job, shape[0] * shape[1], wdir,
                                    {"mesh": shape, "B": B, "P": P,
                                     "n_decode": N_DECODE, "gen": N_DECODE,
-                                    "archs": cases, "refused": REFUSED})
+                                    "archs": cases})
     try:
-        want = {}
-        for name in ARCHS:
-            jcfg, tcfg = _cfgs(name)
-            case = cases[name]
-            fns = _jitted(jcfg)
-            want[name] = {
-                "float32": _reference_f32(jcfg, fns, case["params"], case),
-                "truth": _reference_f32(jcfg, fns,
-                                        _bf16_rounded(case["params"]), case),
-                "one_rank_bf16": _port_one_rank_bf16(tcfg, case["params"],
-                                                     case),
-                "bf16_loss": _reference_bf16_loss(fns, case["params"], case),
-                "shapes": {k: _want_shapes(jcfg, dict(zip(
-                    ("data", "model"), s))) for k, s in WORLDS.items()}}
-        one = {}
-        for name in ARCHS:
-            args = tserve.build_parser().parse_args(
-                ["--arch", name, "--device", "cpu", "--batch", str(B),
-                 "--prompt-len", str(P), "--gen", str(N_DECODE)])
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                tserve.serve_lm(args, params=ttf.params_from_numpy(
-                    cases[name]["params"], device="cpu",
-                    dtype=torch.float32), tokens=torch.from_numpy(
-                        cases[name]["tokens"]), cfg=_cfgs(name)[1])
-            one[name] = buf.getvalue()
+        want = {name: _reference(name, cases[name]) for name in archs}
+        one = {name: _one_process(name, cases[name]) for name in archs}
+        extra = during() if during is not None else None
     finally:
         out = {k: ranks.join(s, timeout_s=400.0) for k, s in started.items()}
+    return {"ranks": out, "want": want, "one_process": one,
+            "during": extra}
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Every world runs while this process computes the reference's
+    results (and runs the reference test's body on 8 virtual devices)."""
+    tmp = tmp_path_factory.mktemp("lm_mesh")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    sub = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_TEST.format(
+            src=os.path.abspath(src))], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        out = run_worlds(tmp, ARCHS)
+    finally:
         try:
             ref_out, ref_err = sub.communicate(timeout=400)
         except subprocess.TimeoutExpired:
             sub.kill()
             ref_out, ref_err = sub.communicate()
-    return {"ranks": out, "want": want, "one_process": one,
-            "reference_test": (sub.returncode, ref_out, ref_err)}
+    out["reference_test"] = (sub.returncode, ref_out, ref_err)
+    return out
 
 
 CASES = [(w, n) for w in WORLDS for n in ARCHS]
@@ -454,30 +514,44 @@ def test_worlds_are_the_meshes_asked_for(worlds):
             assert r["mesh"] == {"data": data, "model": model}
 
 
-def test_other_trunks_raise_on_several_ranks_naming_their_item(worlds,
-                                                               monkeypatch,
-                                                               capsys):
-    """zamba2, rwkv6 and seamless raise on a mesh of several ranks, naming
-    ROADMAP.md Queue 1 item 10c (they serve on one rank:
-    tests/test_torch_launch.py), and the launcher refuses them under
-    torchrun before it starts a rank."""
-    trunk = {"zamba2-7b": "hybrid", "rwkv6-1.6b": "RWKV",
-             "seamless-m4t-large-v2": "enc-dec"}
-    for key in WORLDS:
-        for r in worlds["ranks"][key]:
-            assert set(r["refused"]) == set(REFUSED)
-            for name, msg in r["refused"].items():
-                assert f"the {trunk[name]} trunk across ranks" in msg
-                assert "Queue 1 item 10c" in msg
+def test_launcher_refuses_fleet_workers_under_torchrun_naming_item_10g(
+        monkeypatch, capsys):
+    """Under a torchrun environment the serving launcher refuses
+    `--fleet-workers` before it starts a rank, naming ROADMAP.md Queue 1
+    item 10g (fleet workers each on their own card)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    for name in REFUSED:
-        with pytest.raises(SystemExit) as e:
-            tserve.main(["--arch", name, "--device", "cpu"])
-        assert e.value.code == 2
-        assert "Queue 1 item 10c" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit) as e:
         tserve.main(["--arch", "rtnerf", "--fleet-workers", "2"])
+    assert e.value.code == 2
     assert "Queue 1 item 10g" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_train_step_refuses_several_ranks_naming_item_10d(worlds, world):
+    """`build_train_step` on a mesh of several ranks raises
+    NotImplementedError when it is built, naming ROADMAP.md Queue 1 item
+    10d, on every rank (its gradients through the port's collectives are
+    that item; before the guard it failed inside autograd)."""
+    for r in worlds["ranks"][world]:
+        msg = r["train_step"]
+        assert msg is not None, "build_train_step did not raise"
+        assert "Queue 1 item 10d" in msg
+        assert f"a mesh of {WORLDS[world][0] * WORLDS[world][1]} ranks" in msg
+
+
+def test_train_launcher_refuses_torchrun_naming_item_10d(monkeypatch,
+                                                         capsys):
+    """`launch.train.main` under a torchrun environment of two ranks exits
+    through argparse's error (code 2) naming ROADMAP.md Queue 1 item 10d,
+    before any rank starts; WORLD_SIZE 1 is one process, as without
+    torchrun."""
+    from repro_torch.launch import train as ttrain
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(SystemExit) as e:
+        ttrain.main(["--arch", "llama3.2-1b", "--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "Queue 1 item 10d" in err and "2 ranks" in err
 
 
 def test_shard_act_keeps_a_free_dims_placement():
