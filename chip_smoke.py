@@ -17,9 +17,9 @@ line each:
            clip) of every reduced config in float32 and bf16, and of
            llama3.2-1b at published widths with 2 layers in float32, on
            the card against the CPU (loss, every gradient leaf, every
-           updated param); llama3.2-1b whole (AdamW, 8 x 512 tokens) and
-           grok-1 cut to 1 layer (adafactor, COO, 4 x 128) trained at
-           published widths in bf16, one `lm_train_full` line each: ms a
+           updated param); llama3.2-1b at 8 of 16 layers (AdamW, 8 x 512
+           tokens) and grok-1 cut to 1 layer (adafactor, COO, 4 x 128)
+           trained at published widths in bf16, one `lm_train_full` line each: ms a
            step and its forward / backward / clip + update split, tok/s,
            peak memory, a profiled step, the least time the card could
            take; the training launcher as users run it: an injected
@@ -33,9 +33,9 @@ line each:
            (published widths, depth cut) in float32, prefill and decode
            on the card against the CPU on the same params, tokens and
            encoder frames; each of LM_FULL_CUTS at published widths on
-           the card in bf16 (llama3.2-1b whole; zamba2-7b 13 of its 81
-           blocks, rwkv6-1.6b 4 of 24 layers, seamless-m4t-large-v2 4
-           + 4 of 24 + 24, deepseek-v3 1 dense + 1 MoE layer, grok-1 2
+           the card in bf16 (llama3.2-1b 8 of 16 layers; zamba2-7b 7 of 81
+           blocks, rwkv6-1.6b 2 of 24 layers, seamless-m4t-large-v2 2
+           + 2 of 24 + 24, deepseek-v3 1 dense + 1 MoE layer, grok-1 2
            layers), one `lm_full` line each: prefill ms,
            decode ms a step and tok/s at LM_FULL (batch 4, prompt 128,
            32 greedy tokens), peak memory, the least time the card could
@@ -51,9 +51,9 @@ line each:
            machine's memory is free;
   lm_mesh  language-model serving across ranks (DTensors over a (data,
            model) mesh; no kernel of the port): two ranks spawned on the
-           card over gloo, each world once, llama3.2-1b cut to 4 of 16
+           card over gloo, each world once, llama3.2-1b cut to 2 of 16
            layers on 1 x 2 and 2 x 1, grok-1 cut to 1 layer on 1 x 2 (4
-           of 8 experts a rank, each dispatch), and zamba2-7b (13 of 81
+           of 8 experts a rank, each dispatch), and zamba2-7b (7 of 81
            blocks), rwkv6-1.6b (2 of 24 layers) and seamless-m4t (2 + 2)
            on 1 x 2, at LM_MESH (batch 4, prompt 128, 8 greedy tokens):
            float32 `serve_lm` tokens equal to the single process's and
@@ -65,6 +65,19 @@ line each:
            bf16 CUDA tensors; then the LM launcher for llama3.2-1b and
            the reduced zamba2-7b, each under `torchrun --nproc-per-node
            2 --backend gloo` beside one process, the same sample tokens;
+  lm_mesh_train  the language-model train step across ranks (params,
+           optimizer state and batch placed; gradients through the
+           port's collectives; no kernel of the port), in the lm_mesh
+           worlds' ranks after their serving runs: llama3.2-1b cut to 4
+           of 16 layers in
+           float32 and bf16 with AdamW on 1 x 2 and 2 x 1, grok-1 cut to
+           1 layer in bf16 with adafactor on 1 x 2, batch 4 x 128, two
+           steps each against the same two steps in one process on the
+           card (LM_MESH_TRAIN_RUNS): losses, grad norms, gradient leaves
+           and (float32) the params after a step; per rank the ms of a
+           step and its forward / backward / clip + update split, gloo's
+           ms in a profiled step, the functional collectives (none), its
+           bytes of params and optimizer state;
   field    a full-width field made from --seed with numpy, density
            confined to a few blobs, pruned and hybrid-encoded;
   serve    RenderEngine(cfg, field, device="cuda") builds the occupancy on
@@ -388,14 +401,17 @@ LM_WIDE_CUTS = {"llama3.2-1b": {"n_layers": 2},
                 "zamba2-7b": {"n_layers": 6}}
 # published widths on the card in bf16 at LM_FULL; the two MoE archs'
 # depth cut to fit one card's 80 GB beside a float32 copy (PERF.md §4),
-# the recurrent and enc-dec archs' to a sixth of their depth (zamba2: 2
-# groups of 6 blocks and 1 trailing) to keep the smoke inside its time
-# limit beside the lm_mesh phase: their per-layer loops are launch-bound
+# llama3.2-1b to 8 of 16 layers (whole before the lm_mesh_train part),
+# the recurrent and enc-dec archs' to a twelfth of their depth or less
+# (zamba2: one group of 6 blocks ending in the shared layer, and 1
+# trailing; rwkv6 2 of 24 layers; seamless 2 + 2 of 24 + 24) to keep
+# the smoke inside its time limit beside the lm_mesh and lm_mesh_train
+# phases: their per-layer loops are launch-bound
 LM_FULL = {"batch": 4, "prompt": 128, "gen": 32}
-LM_FULL_CUTS = {"llama3.2-1b": {}, "zamba2-7b": {"n_layers": 13},
-                "rwkv6-1.6b": {"n_layers": 4},
-                "seamless-m4t-large-v2": {"n_layers": 4,
-                                          "n_enc_layers": 4},
+LM_FULL_CUTS = {"llama3.2-1b": {"n_layers": 8},
+                "zamba2-7b": {"n_layers": 7}, "rwkv6-1.6b": {"n_layers": 2},
+                "seamless-m4t-large-v2": {"n_layers": 2,
+                                          "n_enc_layers": 2},
                 "deepseek-v3-671b": {"n_layers": 2, "n_dense_layers": 1},
                 "grok-1-314b": {"n_layers": 2}}
 LM_PREFILL_REPEATS = 3
@@ -440,8 +456,9 @@ LM_LAUNCH_ARGS = ["--reduced", "--batch", "4", "--prompt-len", "32",
 # mesh of ranks spawned on the card, sharing it over gloo (NCCL refuses
 # two ranks on one card), each world spawned once: llama3.2-1b at
 # LM_MESH on a 1 x 2 (tensor parallel) and a 2 x 1 (the launcher's)
-# mesh, cut to 4 of its 16 layers for the smoke's time since the
-# enc-dec, hybrid and RWKV runs; grok-1 cut to 1 layer at published
+# mesh, cut for the smoke's time to 4 of its 16 layers since the
+# enc-dec, hybrid and RWKV runs, to 2 since the train runs that the same
+# worlds then run (LM_MESH_TRAIN_RUNS); grok-1 cut to 1 layer at published
 # widths on 1 x 2 (4 of its 8 experts a rank), each dispatch, at
 # capacity E / top_k. Against the single process on the same params:
 # float32 greedy tokens exactly and every step's logits (teacher-forced
@@ -451,10 +468,11 @@ LM_LAUNCH_ARGS = ["--reduced", "--batch", "4", "--prompt-len", "32",
 # in mean. Each rank draws the params placed a leaf at a time
 # (`init_model(rules=)`): two ranks drawing grok-1's float32 tree (26 GB)
 # whole would not fit. The enc-dec, hybrid and RWKV trunks at published
-# widths on the same 1 x 2 world, depth cut: zamba2-7b at 13 of 81 blocks
-# (two groups of 6, each ending in the shared layer, and one trailing
-# block), rwkv6-1.6b at 2 of 24 layers, seamless-m4t-large-v2 at 2 + 2
-# layers (its encoder frames drawn from the seed, as the prompt). The
+# widths on the same 1 x 2 world, depth cut: zamba2-7b at 7 of 81 blocks
+# (a group of 6 ending in the shared layer, and one trailing block; 13
+# before the train runs), rwkv6-1.6b at 2 of 24 layers,
+# seamless-m4t-large-v2 at 2 + 2 layers (its encoder frames drawn from
+# the seed, as the prompt). The
 # recurrent archs' float32 logits are held to LM_RECURRENT_F32_TOL (Queue
 # 3 item 20), the others' to LM_MESH_TOL. The single process runs once
 # for each arch, cut and dispatch (`lm_mesh_ref`), however many meshes run
@@ -466,26 +484,61 @@ LM_MESH_TOL = 1e-4
 LM_MESH_WORLDS = ((1, 2), (2, 1))
 LM_MESH_RUNS = (
     {"key": "llama3.2-1b@1x2", "world": (1, 2), "arch": "llama3.2-1b",
-     "cut": {"n_layers": 4}, "dispatch": None},
+     "cut": {"n_layers": 2}, "dispatch": None},
     {"key": "grok-1-314b/bitmap@1x2", "world": (1, 2),
      "arch": "grok-1-314b", "cut": {"n_layers": 1}, "dispatch": "bitmap"},
     {"key": "grok-1-314b/coo@1x2", "world": (1, 2), "arch": "grok-1-314b",
      "cut": {"n_layers": 1}, "dispatch": "coo"},
     {"key": "zamba2-7b@1x2", "world": (1, 2), "arch": "zamba2-7b",
-     "cut": {"n_layers": 13}, "dispatch": None},
+     "cut": {"n_layers": 7}, "dispatch": None},
     {"key": "rwkv6-1.6b@1x2", "world": (1, 2), "arch": "rwkv6-1.6b",
      "cut": {"n_layers": 2}, "dispatch": None},
     {"key": "seamless-m4t-large-v2@1x2", "world": (1, 2),
      "arch": "seamless-m4t-large-v2",
      "cut": {"n_layers": 2, "n_enc_layers": 2}, "dispatch": None},
     {"key": "llama3.2-1b@2x1", "world": (2, 1), "arch": "llama3.2-1b",
-     "cut": {"n_layers": 4}, "dispatch": None})
+     "cut": {"n_layers": 2}, "dispatch": None})
 LM_MESH_TIMEOUT_S = 420
 LM_MESH_LAUNCH = [
     ["--arch", "llama3.2-1b", "--batch", "4", "--prompt-len", "32", "--gen",
      "8"],
     ["--arch", "zamba2-7b", "--reduced", "--batch", "4", "--prompt-len",
      "32", "--gen", "8"]]
+# the lm_mesh_train part of the lm_mesh phase (its own line): the LM
+# train step across ranks (DTensors over a (data, model) mesh; gradients
+# through the port's own collectives, the clip and the optimizers on
+# placed state; no kernel of the port), run by the lm_mesh worlds' ranks
+# after their serving runs. llama3.2-1b at published widths cut to 4 of
+# 16 layers, float32 and bf16, AdamW at the launcher's lr and schedule,
+# on 1 x 2 and 2 x 1; grok-1 cut to 1 of 64 layers, bf16, adafactor
+# (lm_train's optimizer for it) on 1 x 2, at capacity E / top_k (no
+# token drops). Each run: a first step under the profiler (gloo's spans,
+# any `_c10d_functional::` op; its gradients sampled as its
+# `loss_and_grads` returns them), a second step in three synchronised
+# parts (forward, backward, clip + update); the single process on the
+# card runs the same first. Against it: float32 losses and grad_norm of
+# both steps within LM_MESH_TRAIN_TOL (relative where above 1), each
+# gradient leaf within it of the leaf's largest, the params after the
+# first step by AdamW's first-step bound (`adamw_first_step_ratio`'s);
+# bf16 losses within LM_MESH_TRAIN_BF16_LOSS_TOL, each gradient leaf no
+# farther from the float32 gradient of the same bf16 params (one
+# process) than the single process's bf16 gradient is, by
+# LM_BF16_NOISE_RATIO in max and in mean. Leaves are compared on a fixed
+# stride of at most LM_MESH_TRAIN_SAMPLES elements each (every element
+# of a smaller leaf), which each rank reads from its own shard.
+LM_MESH_TRAIN = {"batch": 4, "seq": 128}
+LM_MESH_TRAIN_RUNS = (
+    {"key": "llama3.2-1b@1x2", "world": (1, 2), "arch": "llama3.2-1b",
+     "cut": {"n_layers": 4}, "opt": "adamw",
+     "dtypes": ("float32", "bfloat16")},
+    {"key": "grok-1-314b@1x2", "world": (1, 2), "arch": "grok-1-314b",
+     "cut": {"n_layers": 1}, "opt": "adafactor", "dtypes": ("bfloat16",)},
+    {"key": "llama3.2-1b@2x1", "world": (2, 1), "arch": "llama3.2-1b",
+     "cut": {"n_layers": 4}, "opt": "adamw",
+     "dtypes": ("float32", "bfloat16")})
+LM_MESH_TRAIN_TOL = 1e-4
+LM_MESH_TRAIN_BF16_LOSS_TOL = 5e-2
+LM_MESH_TRAIN_SAMPLES = 1 << 18
 # the lm_train phase: language-model training (launch/steps.py's
 # build_train_step over models/transformer.model_loss and autograd, the
 # optim package, data/tokens.py, launch/elastic.py, launch/train.py; no
@@ -517,13 +570,14 @@ LM_TRAIN_WIDE_CUTS = {"llama3.2-1b": {"n_layers": 2}}
 # devices; ROADMAP Queue 3 item 24): in float32 it is held to one bf16
 # ulp of its largest (1.2e-4 read on an H100, the others within 2.6e-6)
 LM_TRAIN_BF16_CAST_LEAF = ("/enc/ln1", 2.0 ** -8)
-# published widths in bf16 on the card, timed: llama3.2-1b whole with
-# AdamW; grok-1 cut to 1 layer with adafactor, the optimizer that
+# published widths in bf16 on the card, timed: llama3.2-1b with AdamW,
+# cut to 8 of 16 layers for the smoke's time (whole before the
+# lm_mesh_train part); grok-1 cut to 1 layer with adafactor, the optimizer that
 # pick_optimizer gives the uncut 316 B arch (AdamW's float32 moments of
 # the cut, 52 GB, do not fit beside it); COO dispatch at capacity 1.25
 LM_TRAIN_FULL = {
-    "llama3.2-1b": {"cut": {}, "batch": 8, "seq": 512, "warmup": 2,
-                    "steps": 10},
+    "llama3.2-1b": {"cut": {"n_layers": 8}, "batch": 8, "seq": 512,
+                    "warmup": 2, "steps": 10},
     "grok-1-314b": {"cut": {"n_layers": 1}, "batch": 4, "seq": 128,
                     "warmup": 1, "steps": 5}}
 # the training launcher as users run it: an injected failure beside the
@@ -3438,13 +3492,15 @@ def lm_mesh_probe(torch, dist, dev) -> dict:
 
 
 def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
-                 shape: tuple, runs: list, seed: int) -> None:
+                 shape: tuple, runs: list, seed: int,
+                 train_runs: list = ()) -> None:
     """One rank of an lm_mesh world (a spawned process sharing the card
     over gloo): the mesh `shape` (data, model); per run and dtype its
     param bytes, float32 `serve_lm` greedy tokens, the teacher-forced
     logits and times (rank 0 writes the logits); an enc-dec run's encoder
-    frames are the single process's. Writes rank<r>.json, or
-    rank<r>.err."""
+    frames are the single process's. Then the train runs of the world
+    (`lm_mesh_train_runs`: the lm_mesh_train part). Writes rank<r>.json,
+    or rank<r>.err."""
     import faulthandler
     import os
     import traceback
@@ -3528,6 +3584,8 @@ def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
                 del params, logits
                 torch.cuda.empty_cache()
                 line["runs"].append(r)
+        line["train"] = lm_mesh_train_runs(torch, lm, rules, rank, tmp,
+                                           list(train_runs), seed, dev)
         # no rank tears its connections down under another's last
         # collective
         dist.all_reduce(torch.zeros(1))
@@ -3542,12 +3600,13 @@ def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
 
 
 def lm_mesh_world(tmp: str, device: str, shape: tuple, runs: list,
-                  seed: int) -> list:
+                  seed: int, train_runs: list) -> list:
     """The ranks of one lm_mesh world (`lm_mesh_rank`): their lines."""
     import os
     world = shape[0] * shape[1]
     t0 = time.perf_counter()
-    codes = mesh_spawn(lm_mesh_rank, world, (tmp, device, shape, runs, seed),
+    codes = mesh_spawn(lm_mesh_rank, world,
+                       (tmp, device, shape, runs, seed, train_runs),
                        LM_MESH_TIMEOUT_S)
     errors = []
     for r, code in enumerate(codes):
@@ -3609,19 +3668,26 @@ def lm_mesh_single(torch, lm, cfg, seed: int, dev) -> dict:
     return out
 
 
-def lm_mesh_phase(torch, seed, dev) -> dict:
+def lm_mesh_phase(torch, seed, dev) -> tuple:
     """Language-model serving across ranks on the card (LM_MESH_RUNS):
     the single process first, then each world spawned once, then the
     launchers under torchrun beside one process each. Checks each rank
     against the single process: float32 greedy tokens exactly and logits
     to LM_MESH_TOL (LM_RECURRENT_F32_TOL for the recurrent archs; relative
     and absolute), bf16 by the noise rule; each rank's param bytes under
-    the whole tree's."""
+    the whole tree's. The same worlds then run the train step
+    (LM_MESH_TRAIN_RUNS, after their single process on the card), held
+    by `lm_mesh_train_results`. Returns (the lm_mesh line, the
+    lm_mesh_train line)."""
     import os
     import re
     lm = lm_modules()
     t_phase = time.perf_counter()
     seconds = {}
+    t0 = time.perf_counter()
+    train_single = lm_mesh_train_single_all(torch, lm, seed, dev)
+    torch.cuda.empty_cache()
+    train_seconds = {"single_process": time.perf_counter() - t0}
     single = {}
     t0 = time.perf_counter()
     refs = {run["key"]: lm_mesh_ref(run) for run in LM_MESH_RUNS}
@@ -3631,7 +3697,7 @@ def lm_mesh_phase(torch, seed, dev) -> dict:
             single[ref] = lm_mesh_single(torch, lm, lm_mesh_cfg(lm, run),
                                          seed, dev)
     seconds["single_process"] = time.perf_counter() - t0
-    results, lines = {}, []
+    results, lines, dirs = {}, [], {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_mesh_") as tmp:
         np.savez(os.path.join(tmp, "inputs.npz"), **{
             f"{lm_mesh_file(k)}_{w}": s[w].float().numpy() if w == "frames"
@@ -3644,9 +3710,11 @@ def lm_mesh_phase(torch, seed, dev) -> dict:
             os.symlink(os.path.join(tmp, "inputs.npz"),
                        os.path.join(wdir, "inputs.npz"))
             t0 = time.perf_counter()
-            ranks = lm_mesh_world(wdir, str(dev), shape, runs, seed)
+            ranks = lm_mesh_world(wdir, str(dev), shape, runs, seed, [
+                r for r in LM_MESH_TRAIN_RUNS if tuple(r["world"]) == shape])
             seconds[f"world_{shape[0]}x{shape[1]}"] = (
                 time.perf_counter() - t0)
+            dirs[shape] = wdir
             for r in runs:
                 for dtype in ("float32", "bfloat16"):
                     path = os.path.join(
@@ -3656,6 +3724,27 @@ def lm_mesh_phase(torch, seed, dev) -> dict:
                             np.load(path))
             lines.append({"mesh": {"data": shape[0], "model": shape[1]},
                           "ranks": ranks})
+        t0 = time.perf_counter()
+        train_rows = lm_mesh_train_results(train_single, lines, dirs)
+        train_seconds["checks"] = time.perf_counter() - t0
+    train_line = {
+        "phase": "lm_mesh_train", "part_seconds": train_seconds,
+        "rank_seconds": {f"{w['mesh']['data']}x{w['mesh']['model']}":
+                         sum(r["seconds"] for r in w["ranks"][0]["train"])
+                         for w in lines},
+        "shape": LM_MESH_TRAIN, "runs": LM_MESH_TRAIN_RUNS,
+        "tol": LM_MESH_TRAIN_TOL, "bf16_loss_tol": LM_MESH_TRAIN_BF16_LOSS_TOL,
+        "bf16_noise_ratio": LM_BF16_NOISE_RATIO,
+        "samples_a_leaf": LM_MESH_TRAIN_SAMPLES,
+        "single_process": {k: {d: line for d, (line, _) in v.items()}
+                           for k, v in train_single.items()},
+        "worlds": [{"mesh": w["mesh"], "ranks": [
+            {"rank": rk["rank"], "runs": rk["train"]} for rk in w["ranks"]]}
+            for w in lines],
+        "checks": train_rows}
+    for w in lines:
+        for rk in w["ranks"]:
+            del rk["train"]
     checks = []
     bf16_carried = all(v == "ok" for w in lines for rk in w["ranks"]
                        for v in rk["gloo_bf16"].values())
@@ -3727,13 +3816,348 @@ def lm_mesh_phase(torch, seed, dev) -> dict:
         launchers.append({"args": args, "seconds": tr_s,
                           "one_process_seconds": one_s,
                           "sample": json.loads(two[0])})
-    return {"phase": "lm_mesh", "seconds": time.perf_counter() - t_phase,
-            "part_seconds": seconds, "shape": LM_MESH,
-            "runs": LM_MESH_RUNS, "tol": LM_MESH_TOL,
-            "bf16_noise_ratio": LM_BF16_NOISE_RATIO,
-            "gloo_carried_bf16": bf16_carried,
-            "single_process": {k: s["times"] for k, s in single.items()},
-            "worlds": lines, "checks": checks, "launcher": launchers}
+    train_line["seconds"] = (sum(train_seconds.values())
+                             + sum(train_line["rank_seconds"].values()))
+    return ({"phase": "lm_mesh", "seconds": time.perf_counter() - t_phase,
+             "part_seconds": seconds, "shape": LM_MESH,
+             "runs": LM_MESH_RUNS, "tol": LM_MESH_TOL,
+             "bf16_noise_ratio": LM_BF16_NOISE_RATIO,
+             "gloo_carried_bf16": bf16_carried,
+             "single_process": {k: s["times"] for k, s in single.items()},
+             "worlds": lines, "checks": checks, "launcher": launchers},
+            train_line)
+
+
+# --------------------------------------------------------------------------
+# lm_mesh_train: the language-model train step across ranks
+# --------------------------------------------------------------------------
+
+
+def lm_mesh_train_cfg(lm, run: dict):
+    """A train run's config: the arch cut to `run["cut"]`, an MoE arch at
+    capacity E / top_k."""
+    cfg = dataclasses.replace(lm.registry.ARCHS[run["arch"]], **run["cut"])
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg,
+                                  capacity_factor=cfg.n_experts / cfg.top_k)
+    return cfg
+
+
+def leaf_samples(torch, lm, t) -> tuple:
+    """(sample numbers, float32 values) of leaf `t` on a fixed stride of
+    its flattened whole, at most LM_MESH_TRAIN_SAMPLES (sample i is
+    element i k); of a DTensor the samples that lie in this rank's shard,
+    read from it (no collective)."""
+    n = t.numel()
+    k = max(1, -(-n // LM_MESH_TRAIN_SAMPLES))
+    pos = torch.arange(0, n, k, device=t.device)
+    if not lm.sharding.is_dtensor(t):
+        vals = t.detach().reshape(-1)[pos]
+        return (pos // k).int().cpu().numpy(), vals.float().cpu().numpy()
+    local = t.to_local().detach().contiguous()
+    sl = lm.sharding.local_slices(t.shape, t.placements, t.device_mesh)
+    inside = torch.ones_like(pos, dtype=torch.bool)
+    flat = torch.zeros_like(pos)
+    rest, stride = pos, 1
+    for d in reversed(range(t.dim())):
+        c = rest % t.shape[d]
+        rest = rest // t.shape[d]
+        inside &= (c >= sl[d].start) & (c < sl[d].stop)
+        flat += (c - sl[d].start) * stride
+        stride *= local.shape[d]
+    vals = local.reshape(-1)[flat[inside]]
+    return ((pos[inside] // k).int().cpu().numpy(),
+            vals.float().cpu().numpy())
+
+
+def tree_samples(torch, lm, tree) -> list:
+    """`leaf_samples` of every leaf, in `named_leaves` order."""
+    return [leaf_samples(torch, lm, t) for _, t in named_leaves(tree)]
+
+
+def leaf_maxes(torch, tree) -> list:
+    """max|leaf| of every leaf (float32), in `named_leaves` order; plain
+    tensors only (of a DTensor it would be a reduction across ranks)."""
+    return [float(t.detach().abs().max().float())
+            for _, t in named_leaves(tree)]
+
+
+def lm_mesh_train_steps(torch, lm, cfg, run, rules, params, seed, dev):
+    """One train run from `params` on `rules`' mesh (one process: a
+    one-device mesh): step 1 on batch 0 under the profiler, its gradients
+    sampled as its `loss_and_grads` returns them (no pass of their own),
+    then step 2 on batch 1 in three synchronised parts. Returns (its
+    line: losses, grad norms, ms, gloo's spans, bytes; the sample sets:
+    the gradients, and after AdamW's step 1 the params and m)."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S = LM_MESH_TRAIN["batch"], LM_MESH_TRAIN["seq"]
+    batches = [lm_train_batch(lm, cfg, B, S, seed, i, dev) for i in range(2)]
+    opt = getattr(lm.optim, run["opt"])(
+        lr=LM_TRAIN_LR, schedule=lm.optim.cosine_schedule(
+            max(LM_TRAIN_STEPS // 20, 1), LM_TRAIN_STEPS))
+    state = opt.init(params)
+    step = lm.steps.build_train_step(cfg, rules, opt)
+    line, sets = {}, {}
+    one = not lm.sharding.on_ranks(rules)
+    real = lm.steps.loss_and_grads
+
+    def grab(*args):
+        out = real(*args)
+        sets["grads"] = tree_samples(torch, lm, out[2])
+        if one:                 # the scales of the checks
+            line["grad_max"] = leaf_maxes(torch, out[2])
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lm.steps.loss_and_grads = grab
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            params, state, metrics = step(params, state, batches[0])
+            torch.cuda.synchronize()
+            line["step1_ms_profiled"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        lm.steps.loss_and_grads = real
+    coll = {e.key: (e.count, e.cpu_time_total * 1e-3)
+            for e in prof.key_averages()
+            if e.key.startswith(("gloo:", "_c10d_functional::"))}
+    line["step1"] = {k: float(v) for k, v in metrics.items()}
+    line["collectives"] = {k: {"calls": c, "host_ms": ms}
+                           for k, (c, ms) in sorted(coll.items())}
+    line["gloo_ms_step1"] = sum(ms for k, (c, ms) in coll.items()
+                                if k.startswith("gloo:"))
+    line["functional_ops"] = sum(c for k, (c, ms) in coll.items()
+                                 if k.startswith("_c10d_functional::"))
+    if run["opt"] == "adamw":
+        sets["params1"] = tree_samples(torch, lm, params)
+        sets["m1"] = tree_samples(torch, lm, state["m"])
+        if one:
+            line["params1_max"] = leaf_maxes(torch, params)
+            line["m1_max"] = leaf_maxes(torch, state["m"])
+    held = whole = 0
+    for _, t in named_leaves({"p": params, "s": {
+            k: v for k, v in state.items() if k != "step"}}):
+        held += lm.sharding.local_part(t).numel() * t.element_size()
+        whole += t.numel() * t.element_size()
+    line["bytes_params_state"] = {"rank": held, "whole": whole,
+                                  "share": held / whole}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with lm.sharding.use_rules(rules), lm.sharding.mesh_context(rules):
+        batch = lm.steps.place_batch(cfg, batches[1], rules)
+        tracked, leaves = lm.steps.track(params)
+        with torch.enable_grad():
+            loss, _ = lm.tf.model_loss(tracked, cfg, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = lm.steps.grads_of(loss, tracked, leaves)
+        del tracked, leaves
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads, gn = lm.optim.clip_by_global_norm(grads, lm.steps.GRAD_CLIP)
+        params, state = opt.update(grads, state, params)
+        del grads
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    line["step2"] = {"loss": float(loss.detach()), "grad_norm": float(gn)}
+    line["step2_ms"] = (t3 - t0) * 1e3
+    line["step2_split_ms"] = {"forward": (t1 - t0) * 1e3,
+                              "backward": (t2 - t1) * 1e3,
+                              "clip_update": (t3 - t2) * 1e3}
+    line["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(lm.sharding.local_part(p)).all())
+                 for _, p in named_leaves(params))
+    check(finite, f"lm_mesh_train {cfg.name}: a param is not finite")
+    del params, state, step
+    torch.cuda.empty_cache()
+    return line, sets
+
+
+def lm_mesh_train_single(torch, lm, run, seed, dev) -> dict:
+    """A run in one process on the card, for each of its dtypes: its line
+    and sample sets (`lm_mesh_train_steps`); for bf16 also the gradients
+    of the pass on the same bf16 params in float32 (the truth of the
+    noise rule)."""
+    cfg = lm_mesh_train_cfg(lm, run)
+    rules = lm.sharding.make_rules(lm.elastic.make_mesh_from([dev], 1))
+    out = {}
+    for dtype in run["dtypes"]:
+        params = lm_mesh_params(torch, lm, cfg, dtype, seed, dev)
+        line, sets = lm_mesh_train_steps(torch, lm, cfg, run, rules, params,
+                                         seed, dev)
+        del params
+        torch.cuda.empty_cache()
+        if dtype == "bfloat16":
+            params = lm.common.tree_map(
+                lambda a: a.float(), lm_mesh_params(torch, lm, cfg, dtype,
+                                                    seed, dev))
+            torch.cuda.empty_cache()
+            batch = lm_train_batch(lm, cfg, LM_MESH_TRAIN["batch"],
+                                   LM_MESH_TRAIN["seq"], seed, 0, dev)
+            with lm.sharding.use_rules(rules):
+                _, _, grads = lm.steps.loss_and_grads(cfg, params, batch)
+            del params
+            sets["truth"] = tree_samples(torch, lm, grads)
+            del grads
+            torch.cuda.empty_cache()
+        out[dtype] = (line, sets)
+    return out
+
+
+def lm_mesh_train_file(key: str, dtype: str, rank: int) -> str:
+    return f"{lm_mesh_file(key)}_{dtype}_rank{rank}.npz"
+
+
+def lm_mesh_train_runs(torch, lm, rules, rank: int, tmp: str, runs: list,
+                       seed: int, dev) -> list:
+    """In a rank of an lm_mesh world, after its serving runs: per train
+    run and dtype, `lm_mesh_train_steps` on params drawn placed
+    (`init_model(rules=)`); its samples in an npz of `tmp`. Returns its
+    lines."""
+    import os
+    out = []
+    for run in runs:
+        cfg = lm_mesh_train_cfg(lm, run)
+        for dtype in run["dtypes"]:
+            t0 = time.perf_counter()
+            params = lm_mesh_params(torch, lm, cfg, dtype, seed, dev, rules)
+            r, sets = lm_mesh_train_steps(torch, lm, cfg, run, rules, params,
+                                          seed, dev)
+            del params
+            r.update(key=run["key"], dtype=dtype,
+                     seconds=time.perf_counter() - t0)
+            np.savez(os.path.join(tmp, lm_mesh_train_file(
+                run["key"], dtype, rank)), **{
+                    f"{name}.{i}.{w}": a for name, leaves in sets.items()
+                    for i, pair in enumerate(leaves)
+                    for w, a in zip("iv", pair)})
+            out.append(r)
+    return out
+
+
+def assemble_samples(paths, want: dict) -> dict:
+    """The ranks' samples (npz files of `lm_mesh_train_runs`) as one
+    vector a leaf, each as long as the single process's `want` vector
+    (the sets the ranks keep: not the truth); every sample must have come
+    from some rank."""
+    got = {name: [np.full(v.shape, np.nan, dtype=np.float32)
+                  for _, v in leaves] for name, leaves in want.items()
+           if name != "truth"}
+    for path in paths:
+        with np.load(path) as f:
+            for key in f.files:
+                name, i, w = key.rsplit(".", 2)
+                if w == "i" and name in got:
+                    got[name][int(i)][f[key]] = f[f"{name}.{i}.v"]
+    for name, leaves in got.items():
+        missing = sum(int(np.isnan(v).sum()) for v in leaves)
+        check(missing == 0, f"lm_mesh_train: {missing} {name} samples "
+              f"held by no rank")
+    return got
+
+
+def close_rel(got: float, want: float, tol: float) -> bool:
+    return abs(got - want) <= tol * max(1.0, abs(want))
+
+
+def lm_mesh_train_check(key, dtype, one, one_sets, rk, got) -> dict:
+    """One rank's run against the single process: the losses and grad
+    norms, every sampled gradient leaf, in float32 the params after
+    AdamW's first step, in bf16 the noise rule. Returns the row."""
+    name = f"lm_mesh_train {key} {dtype} rank {rk['rank']}"
+    row = {"key": key, "dtype": dtype, "rank": rk["rank"]}
+    check(rk["functional_ops"] == 0,
+          f"{name}: {rk['functional_ops']} functional collectives")
+    losses = [(f"{s}.{k}", one[s][k], rk[s][k]) for s in ("step1", "step2")
+              for k in ("loss", "grad_norm")]
+    row["losses"] = {k: [g, w] for k, w, g in losses}
+    if dtype == "float32":
+        for k, w, g in losses:
+            check(close_rel(g, w, LM_MESH_TRAIN_TOL),
+                  f"{name}: {k} {g} against {w}")
+        errs = [float(np.abs(g - w).max() / m) if m else 0.0
+                for (_, w), g, m in zip(one_sets["grads"], got["grads"],
+                                        one["grad_max"])]
+        row["grad_leaf_err_max"] = max(errs)
+        check(row["grad_leaf_err_max"] <= LM_MESH_TRAIN_TOL,
+              f"{name}: a gradient leaf {max(errs)} of its largest")
+        b1, eps = LM_TRAIN_ADAMW["b1"], LM_TRAIN_ADAMW["eps"]
+        worst = 0.0
+        for (_, w), g, (_, m), pmax, mmax in zip(
+                one_sets["params1"], got["params1"], one_sets["m1"],
+                one["params1_max"], one["m1_max"]):
+            gabs = np.abs(m) / (1 - b1)
+            bnd = (LM_MESH_TRAIN_TOL * pmax + LM_TRAIN_LR * 4
+                   * LM_MESH_TRAIN_TOL * (mmax / (1 - b1)) / (gabs + eps))
+            diff = np.abs(g - w)
+            worst = max(worst, float(np.where(diff == 0, 0.0,
+                                              diff / bnd).max()))
+        row["adamw_first_step_ratio"] = worst
+        check(worst <= 1.0, f"{name}: params after step 1 at {worst} of "
+              f"AdamW's first-step bound")
+    else:
+        for k, w, g in losses:
+            if "loss" in k:
+                check(abs(g - w) < LM_MESH_TRAIN_BF16_LOSS_TOL,
+                      f"{name}: {k} {g} against {w}")
+        noise = []
+        for (_, o), g, (_, t) in zip(one_sets["grads"], got["grads"],
+                                     one_sets["truth"]):
+            e_g, e_o = np.abs(g - t), np.abs(o - t)
+            noise.append([float(e_g.max()), float(e_g.mean()),
+                          float(e_o.max()), float(e_o.mean())])
+            for i, stat in ((0, "max"), (1, "mean")):
+                check(noise[-1][i] <= LM_BF16_NOISE_RATIO * noise[-1][i + 2],
+                      f"{name}: a gradient leaf farther from the truth "
+                      f"than one process's ({stat}): {noise[-1]}")
+        row["grad_noise_ratio_max"] = max(
+            max(n[0] / n[2] if n[2] else (0.0 if n[0] == 0 else math.inf),
+                n[1] / n[3] if n[3] else (0.0 if n[1] == 0 else math.inf))
+            for n in noise)
+    return row
+
+
+def lm_mesh_train_single_all(torch, lm, seed, dev) -> dict:
+    """`lm_mesh_train_single` once for each arch and cut of
+    LM_MESH_TRAIN_RUNS, keyed as `lm_mesh_ref` keys them."""
+    single = {}
+    for run in LM_MESH_TRAIN_RUNS:
+        ref = lm_mesh_ref(dict(run, dispatch=None))
+        if ref not in single:
+            single[ref] = lm_mesh_train_single(torch, lm, run, seed, dev)
+    return single
+
+
+def lm_mesh_train_results(single: dict, lines: list, dirs: dict) -> list:
+    """Each rank's train runs (`lines`: the lm_mesh worlds' rank lines;
+    `dirs`: each world's directory of samples) held against the single
+    process (`lm_mesh_train_check`); returns the rows."""
+    import os
+    rows = []
+    for w in lines:
+        shape = (w["mesh"]["data"], w["mesh"]["model"])
+        ranks = w["ranks"]
+        for run in LM_MESH_TRAIN_RUNS:
+            if tuple(run["world"]) != shape:
+                continue
+            for dtype in run["dtypes"]:
+                one, one_sets = single[lm_mesh_ref(dict(run, dispatch=None))][
+                    dtype]
+                got = assemble_samples(
+                    [os.path.join(dirs[shape], lm_mesh_train_file(
+                        run["key"], dtype, r)) for r in range(len(ranks))],
+                    one_sets)
+                for rk in ranks:
+                    r = next(x for x in rk["train"] if x["key"] == run["key"]
+                             and x["dtype"] == dtype)
+                    rows.append(lm_mesh_train_check(
+                        run["key"], dtype, one, one_sets,
+                        dict(r, rank=rk["rank"]), got))
+    n_want = sum(len(r["dtypes"]) * r["world"][0] * r["world"][1]
+                 for r in LM_MESH_TRAIN_RUNS)
+    check(len(rows) == n_want, f"lm_mesh_train: {len(rows)} checks")
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -4688,8 +5112,10 @@ def main() -> int:
     emit(lm_phase(torch, args.seed, dev))
     torch.cuda.empty_cache()
 
-    # -- lm_mesh: language-model serving across ranks sharing the card --
-    emit(lm_mesh_phase(torch, args.seed, dev))
+    # -- lm_mesh: language-model serving across ranks sharing the card,
+    # and in the same ranks the train step (its lm_mesh_train line) ------
+    for line in lm_mesh_phase(torch, args.seed, dev):
+        emit(line)
     torch.cuda.empty_cache()
 
     # -- field ------------------------------------------------------------

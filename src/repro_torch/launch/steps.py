@@ -10,9 +10,11 @@ the reference's jitted steps do by their in_shardings: the batch by
 `batch_spec`'s specs and the decode cache by `cache_spec`'s (a plain
 tensor, whole and equal on every rank, is cut to this rank's shard; a
 DTensor is redistributed). The params must be placed already
-(`models.sharding.place_params`). The train step refuses a mesh of
-several ranks when it is built (its gradients across ranks are
-ROADMAP.md Queue 1 item 10d)."""
+(`models.sharding.place_params`). The train step on such a mesh takes
+placed params and optimizer state and places its batch the same way;
+its gradients cross the ranks through the port's own collectives (the
+transposes of `models.sharding.redistribute`'s), for the dense and MoE
+trunks (the others are ROADMAP.md Queue 1 item 10d2)."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -24,9 +26,11 @@ from repro_torch.data import tokens as tok_lib
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import (MetaMaker, TensorSpec, log_parse,
                                        split_pl, tree_map)
-from repro_torch.models.sharding import (AxisRules, mesh_size, on_ranks,
-                                         place, place_tree, placements,
-                                         resolve_spec, use_rules)
+from repro_torch.models.sharding import (AxisRules, is_dtensor,
+                                         mesh_context, mesh_size, on_ranks,
+                                         place, place_tree, placed_zeros,
+                                         placements, redistribute,
+                                         resolve_spec, use_rules, whole)
 from repro_torch.optim import clip_by_global_norm
 from repro_torch.optim.optimizers import Optimizer, tree_leaves
 
@@ -112,30 +116,45 @@ def track(params) -> Tuple[Dict, List[torch.Tensor]]:
 
 def grads_of(loss, tracked, leaves):
     """d loss / d each tracked leaf, as a tree of `tracked`'s structure (a
-    leaf the loss does not read gets zeros, as `jax.grad` gives)."""
+    leaf the loss does not read gets zeros, as `jax.grad` gives). On a
+    mesh each gradient is placed as its param (the reference's
+    `constrain_grads` pin to `param_sh`): no partial sum leaves here."""
     grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
                                      materialize_grads=True))
-    return tree_map(lambda _: next(grads), tracked)
+
+    def one(p):
+        g = next(grads)
+        return (redistribute(g, p.placements) if is_dtensor(p) else g)
+    return tree_map(one, tracked)
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch):
     """(loss, metrics, grads) of `tf.model_loss` at `params`; the loss and
-    metrics detached, the grads in the params' dtypes."""
+    metrics detached, the grads in the params' dtypes. On a mesh of
+    several ranks (under `use_rules`) the backward runs in
+    `sharding.mesh_context`, as the forward does, and every byte it moves
+    goes through the port's collectives (`sharding.redistribute`'s
+    transposes); the loss and metrics are plain tensors, equal on every
+    rank, and the gradients are placed as the params."""
     tracked, leaves = track(params)
     with torch.enable_grad():
         loss, metrics = tf.model_loss(tracked, cfg, batch)
-    grads = grads_of(loss, tracked, leaves)
+    with mesh_context():
+        grads = grads_of(loss, tracked, leaves)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)
 
 
 def _microbatches(batch, m: int):
     """The batch's rows in `m` consecutive microbatches (the reference's
-    reshape to (m, B / m, ...))."""
+    reshape to (m, B / m, ...)): rows [i B / m, (i + 1) B / m) of the
+    whole batch (a placed leaf is made whole first: its rows are a few
+    integers each)."""
     for k, v in batch.items():
         if v.shape[0] % m:
             raise ValueError(f"batch {k!r} of {v.shape[0]} rows does not "
                              f"split into grad_accum={m} microbatches")
+    batch = {k: whole(v) for k, v in batch.items()}
     return [{k: v[i * (v.shape[0] // m):(i + 1) * (v.shape[0] // m)]
              for k, v in batch.items()} for i in range(m)]
 
@@ -147,26 +166,33 @@ def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
     into m microbatches whose gradients are summed in a bfloat16
     accumulator and divided by m, as the reference's are (and the metrics
     are then the mean loss alone). The gradients are clipped to global
-    norm GRAD_CLIP, then `opt.update`d. `param_sh` and
-    cfg.constrain_grads pin each gradient to its param's sharding in the
-    reference; on the port's one device there is nothing to pin. Rules
-    over a mesh of several ranks raise NotImplementedError here, before
-    any autograd runs: `sharding.redistribute`'s collectives have no
-    backward yet (ROADMAP.md Queue 1 item 10d)."""
-    if on_ranks(rules):
+    norm GRAD_CLIP, then `opt.update`d.
+
+    On a mesh of several ranks the params and optimizer state must be
+    placed (`sharding.place_params`, `opt.init` of placed params), and
+    the batch is placed by `batch_spec` (each microbatch after its rows
+    are cut); every gradient is placed as its param, as the reference's
+    `constrain_grads` / `param_sh` pin does (`param_sh` itself is not
+    needed: the placements travel with the params), and the new params
+    and state keep the placements of the old. The enc-dec, hybrid and
+    RWKV6 trunks raise NotImplementedError there when the step is built
+    (ROADMAP.md Queue 1 item 10d2)."""
+    if on_ranks(rules) and (cfg.enc_dec or cfg.family in ("hybrid", "ssm")):
         raise NotImplementedError(
             f"{cfg.name}: a train step on a mesh of "
-            f"{mesh_size(rules.mesh)} ranks is ROADMAP.md Queue 1 item 10d")
+            f"{mesh_size(rules.mesh)} ranks is ROADMAP.md Queue 1 item 10d2 "
+            f"(the enc-dec, hybrid and RWKV6 trunks)")
 
     def train_step(params, opt_state, batch):
-        with use_rules(rules):
+        with use_rules(rules), mesh_context():
             if cfg.grad_accum > 1:
                 m = cfg.grad_accum
-                g_acc = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.bfloat16, device=p.device), params)
+                g_acc = tree_map(lambda p: placed_zeros(
+                    p.shape, p, dtype=torch.bfloat16), params)
                 loss_sum = None
                 for mb in _microbatches(batch, m):
-                    loss, _, grads = loss_and_grads(cfg, params, mb)
+                    loss, _, grads = loss_and_grads(
+                        cfg, params, place_batch(cfg, mb, rules))
                     g_acc = tree_map(lambda a, g: a + g.to(a.dtype), g_acc,
                                      grads)
                     del grads
@@ -177,7 +203,8 @@ def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
                 metrics = {"loss": loss_sum / torch.tensor(
                     m, dtype=loss_sum.dtype, device=loss_sum.device)}
             else:
-                loss, metrics, grads = loss_and_grads(cfg, params, batch)
+                loss, metrics, grads = loss_and_grads(
+                    cfg, params, place_batch(cfg, batch, rules))
             grads, gn = clip_by_global_norm(grads, GRAD_CLIP)
             new_params, new_state = opt.update(grads, opt_state, params)
         metrics["grad_norm"] = gn

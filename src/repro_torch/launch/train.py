@@ -15,8 +15,10 @@ one. A `--ckpt-dir` that holds a checkpoint of the same model resumes
 from it. Prints the device, `trained N steps in ...`, `loss: first=...
 last=...` and one `event: ...` line per restore, failure, remesh or
 straggler. Training runs in one process: under `torchrun` with more than
-one rank the launcher exits before any rank starts (training across
-ranks is ROADMAP.md Queue 1 item 10d).
+one rank the launcher exits before any rank starts: the train step runs
+across ranks (`launch.steps.build_train_step` on placed params), but the
+elastic runner and its checkpoints of placed state across ranks are
+ROADMAP.md Queue 1 item 10e.
 """
 from __future__ import annotations
 
@@ -65,9 +67,10 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        ap.error(f"training runs in one process: a train step across "
-                 f"{os.environ['WORLD_SIZE']} ranks is ROADMAP.md Queue 1 "
-                 f"item 10d")
+        ap.error(f"training runs in one process: the elastic runner and "
+                 f"its checkpoints of placed state across "
+                 f"{os.environ['WORLD_SIZE']} ranks are ROADMAP.md Queue 1 "
+                 f"item 10e")
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)

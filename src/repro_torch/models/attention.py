@@ -157,7 +157,9 @@ def _attn_shards(core, q, k, v, q_pos, kv_pos):
     where the core reads no positions) or of a head dim; k and v follow a
     batch or kv-head split and are whole along the others (every key for
     every query). The core runs on plain tensors: DTensor's einsum
-    flattens split head dims it may not."""
+    flattens split head dims it may not. Under autograd a split of the
+    query rows (or of a query head dim) is a sum over those ranks of k's
+    and v's gradients."""
     if not is_dtensor(q):
         return core(q, k, v, q_pos, kv_pos)
     from torch.distributed.tensor import Replicate, Shard
@@ -167,7 +169,8 @@ def _attn_shards(core, q, k, v, q_pos, kv_pos):
         q_pls.append(Shard(d) if d in (0, 1, 2, 3) else Replicate())
         kv_pls.append(Shard(d) if d in (0, 2) else Replicate())
     rows = local_slices(q.shape, q_pls, q.device_mesh)[1]
-    o = core(local_of(q, q_pls), local_of(k, kv_pls), local_of(v, kv_pls),
+    o = core(local_of(q, q_pls), local_of(k, kv_pls, out=q_pls),
+             local_of(v, kv_pls, out=q_pls),
              None if q_pos is None else q_pos[rows], kv_pos)
     return from_local_like(o, q_pls, tuple(q.shape[:4]) + (v.shape[-1],),
                            q.device_mesh)
@@ -224,6 +227,17 @@ def write_slot(cache, slot: int, row) -> None:
 # --------------------------------------------------------------------------
 
 
+def add_bias(x, b):
+    """x + b. On a mesh the bias is made whole first (DTensor would
+    gather it with collectives of its own) and the add runs in float32
+    and rounds once, as a bf16 add does: the bias's gradient, a sum over
+    the ranks' rows, is then reduced in float32 and rounded once, as on
+    one device."""
+    if not is_dtensor(b):
+        return x + b
+    return (x.float() + whole_on_mesh(b.float())).to(x.dtype)
+
+
 def _gqa_qkv(p, cfg: ModelConfig, x, positions):
     # promoting: the encoder's first layer sees bf16 frames (`contract`
     # casts mixed operands to their promoted dtype, as jnp does)
@@ -231,11 +245,8 @@ def _gqa_qkv(p, cfg: ModelConfig, x, positions):
     k = contract("bsd,dkh->bskh", x, p["wk"])
     v = contract("bsd,dkh->bskh", x, p["wv"])
     if cfg.qkv_bias:
-        # a bias is made whole before the add (on a mesh DTensor would
-        # gather it with collectives of its own)
-        q = q + whole_on_mesh(p["bq"])
-        k = k + whole_on_mesh(p["bk"])
-        v = v + whole_on_mesh(p["bv"])
+        q, k, v = (add_bias(q, p["bq"]), add_bias(k, p["bk"]),
+                   add_bias(v, p["bv"]))
     q = shard_act(q, "batch", _attn_seq_axis(cfg), "kv_heads", "heads",
                   "head_dim")
     if positions is not None:          # rope (not for abs-pos stubs)
@@ -273,9 +284,8 @@ def gqa_decode(p, cfg: ModelConfig, x1, pos: int, cache, *, window=0):
     k1 = contract("bsd,dkh->bskh", x1, p["wk"])
     v1 = contract("bsd,dkh->bskh", x1, p["wv"])
     if cfg.qkv_bias:
-        q = q + whole_on_mesh(p["bq"])
-        k1 = k1 + whole_on_mesh(p["bk"])
-        v1 = v1 + whole_on_mesh(p["bv"])
+        q, k1, v1 = (add_bias(q, p["bq"]), add_bias(k1, p["bk"]),
+                     add_bias(v1, p["bv"]))
     posv = torch.full((1,), pos, dtype=torch.int32, device=x1.device)
     q = apply_rope(q, posv, cfg.rope_theta, heads=2)
     k1 = apply_rope(k1, posv, cfg.rope_theta)

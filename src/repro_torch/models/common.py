@@ -133,9 +133,12 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     if type(gamma) is not torch.Tensor:
         # a DTensor gain split over "data" (FSDP's "embed") is gathered
-        # here, not inside the product (`sharding.redistribute`)
+        # here, not inside the product (`sharding.redistribute`), in
+        # float32: its gradient, a sum over the ranks' rows, is then
+        # reduced in float32 and rounded to the gain's dtype once, as on
+        # one device
         from repro_torch.models.sharding import whole_on_mesh
-        gamma = whole_on_mesh(gamma)
+        gamma = whole_on_mesh(gamma.float())
     h = x.float()
     h = h * torch.rsqrt(torch.mean(h * h, dim=-1, keepdim=True) + eps)
     return (h * gamma.float()).to(x.dtype)
@@ -146,7 +149,8 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if type(gamma) is not torch.Tensor:
         # DTensor gain and bias gathered as `rms_norm`'s gain is
         from repro_torch.models.sharding import whole_on_mesh
-        gamma, beta = whole_on_mesh(gamma), whole_on_mesh(beta)
+        gamma, beta = whole_on_mesh(gamma.float()), whole_on_mesh(
+            beta.float())
     h = x.float()
     mu = torch.mean(h, dim=-1, keepdim=True)
     var = torch.mean((h - mu) ** 2, dim=-1, keepdim=True)
@@ -209,13 +213,16 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE. logits (..., V) any float dtype, labels (...)
     integer."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
     if type(logits) is torch.Tensor:
+        lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    else:                       # a DTensor on a mesh of several ranks
-        from repro_torch.models.sharding import pick_last
-        gold = pick_last(logits, labels)
-    nll = lse - gold
+        nll = lse - gold
+    else:
+        # a DTensor on a mesh of several ranks: each token's loss from the
+        # ranks' columns (`token_nll`), then whole on every rank
+        from repro_torch.models.sharding import token_nll, whole
+        nll = whole(token_nll(logits, labels))
+        mask = whole(mask) if mask is not None else None
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

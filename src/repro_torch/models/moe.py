@@ -23,7 +23,10 @@ batch rows where the groups split over "data"; every token of the group
 where they do not, as at decode), runs its own experts on the tokens
 dispatched to them, and the combine is a partial sum over "model",
 reduced in float32. The sort, gather and scatter run on local shards
-(`_Shards`): DTensor has no strategy for them.
+(`_Shards`): DTensor has no strategy for them. Under autograd the
+experts' and router's gradients are this rank's partial sums, reduced
+to their placements; the routing decisions are integers and carry
+none.
 """
 from __future__ import annotations
 
@@ -134,17 +137,26 @@ class _Shards:
         ex = [q.is_shard() and q.dim == 0 for q in p["w1"].placements]
         ex_pls = tuple(Shard(0) if e else Replicate() for e in ex)
         rep = (Replicate(),) * len(ex)
-        self.p = {k: local_of(w, ex_pls if k in ("w1", "w2", "w3") else rep)
-                  for k, w in p.items() if k in ("router", "w1", "w2", "w3")}
-        self.e0 = local_slices(p["w1"].shape, ex_pls, self.dm)[0].start
         bt = [split_batch and not e and q.is_shard() and q.dim == 0
               for e, q in zip(ex, x.placements)]
-        self.x = local_of(x, tuple(Shard(0) if b else Replicate()
-                                   for b in bt))
         self.shape = tuple(x.shape)
         self.out_pls = tuple(Partial() if e else Shard(0) if b else
                              Replicate() for e, b in zip(ex, bt))
-        self.stat_pls = tuple(Partial() if b else Replicate() for b in bt)
+        self.p = {k: local_of(w, ex_pls if k in ("w1", "w2", "w3") else rep,
+                              out=self.out_pls)
+                  for k, w in p.items() if k in ("router", "w1", "w2", "w3")}
+        self.e0 = local_slices(p["w1"].shape, ex_pls, self.dm)[0].start
+        self.x = local_of(x, tuple(Shard(0) if b else Replicate()
+                                   for b in bt), out=self.out_pls)
+        # the ranks along the expert axes route the same tokens: the
+        # first of them holds the load-balance statistics and the others
+        # zeros, so that the router's gradient through `aux` enters the
+        # partial sum over those axes once, as its gradient through
+        # `out` does
+        self.stat_pls = tuple(Partial() if b or e else Replicate()
+                              for e, b in zip(ex, bt))
+        self.stat_lead = all(self.dm.get_local_rank(i) == 0
+                             for i, e in enumerate(ex) if e)
 
     def act(self, t, *logical):
         """`shard_act` on one rank; on several, `t` is a local shard
@@ -171,6 +183,8 @@ class _Shards:
         sums = torch.stack([sel.reshape(-1, e).sum(dim=0),
                             probs.reshape(-1, e).sum(dim=0),
                             torch.full((e,), float(n), device=sel.device)])
+        if not self.stat_lead:
+            sums = torch.zeros_like(sums)
         sums = whole(from_local_like(sums, self.stat_pls, (3, e), self.dm))
         return e * torch.sum((sums[0] / sums[2]) * (sums[1] / sums[2]))
 

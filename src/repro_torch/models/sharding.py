@@ -32,9 +32,20 @@ and the MoE dispatch run on each rank's local shards (`local_of`,
 the port's own (`redistribute`), on every backend. On one rank, and without
 rules, `shard_act` only checks the logical axes and the rest is plain
 PyTorch.
+
+Under autograd (the train step) those three helpers are
+`torch.autograd.Function`s whose backward issues the transpose of the
+forward's collectives through the same path: a gathered shard's gradient
+is cut (or reduced and cut where it is a partial sum), a reduced partial
+sum hands every rank the whole gradient, and a local shard's gradient is
+a partial sum over the mesh dims where the shard is whole but the ranks
+compute different results from it (`local_of(out=)`). DTensor's own
+`from_local` / `to_local` backward is not used: it moves gradients with
+the functional collectives.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -281,36 +292,58 @@ def _span(shape, pls, dm) -> list:
         shape, list(pls) + [None] * (dm.ndim - len(pls)), dm)]
 
 
-def redistribute(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
-    """DTensor `x` with placements `pls` on its mesh, on every backend by
-    the same path: each mesh dim that changes is made whole with
-    `all_gather_into_tensor` or `all_reduce` in its group, last mesh dim
-    first, and then cut locally. DTensor's own `x.redistribute` is not
-    used: over gloo on CUDA tensors the all-gather of the functional
-    collectives that it calls reads device memory as host memory (the
-    ranks die with SIGSEGV; torch 2.11, two ranks on an H100), and one
-    path is the one that the CPU tests hold against the reference."""
+def _move(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
+    """`redistribute`'s data movement, outside autograd: DTensor `x` with
+    placements `pls` (a new DTensor; `x` itself when nothing moves). Each
+    mesh dim that changes is made whole (`all_gather_into_tensor`,
+    `all_reduce`), last mesh dim first, then cut; a partial sum that
+    becomes a shard of a dim no other mesh dim splits is reduce-scattered
+    instead (`reduce_scatter_tensor`: gloo carries it, on CUDA tensors
+    too)."""
     pls = tuple(pls)
     have = tuple(x.placements)
     if have == pls:
         return x
     dm = x.device_mesh
     import torch.distributed as dist
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import DTensor, Replicate
     local = x.to_local()
     cur = list(have)
-    # a mesh dim after one that changes, on the same tensor dim, holds a
-    # piece of the changing one's piece: it is made whole first
+    # shards nest in mesh-dim order: a mesh dim after one that changes,
+    # splitting (before or after) a tensor dim that the changing one
+    # splits (before or after), holds or will hold a piece of its piece,
+    # so it is made whole first and cut again after it
     change = [h != w for h, w in zip(have, pls)]
     for i in range(len(cur)):
-        if change[i] and cur[i].is_shard():
-            for j in range(i + 1, len(cur)):
-                if cur[j].is_shard() and cur[j].dim == cur[i].dim:
-                    change[j] = True
+        if not change[i]:
+            continue
+        dims = {p.dim for p in (cur[i], pls[i]) if p.is_shard()}
+        for j in range(i + 1, len(cur)):
+            if any(p.is_shard() and p.dim in dims for p in (cur[j], pls[j])):
+                change[j] = True
     for i in reversed(range(len(cur))):
         if not change[i] or cur[i].is_replicate():
             continue
         group = dm.get_group(i)
+        if _scatters(cur, pls, i):
+            # a partial sum to a shard of a dim no other mesh dim splits:
+            # reduce-scatter, the padded pieces as torch.chunk cuts them
+            d, n = pls[i].dim, dm.size(i)
+            span = local.shape[d]
+            full = -(-span // n)
+            part = local.movedim(d, 0)
+            if part.shape[0] < n * full:
+                part = torch.cat([part, part.new_zeros(
+                    (n * full - part.shape[0],) + part.shape[1:])])
+            part = part.contiguous()
+            piece = part.new_empty((full,) + part.shape[1:])
+            dist.reduce_scatter_tensor(piece, part, group=group)
+            size = _chunk(span, n, dm.get_local_rank(i))[1]
+            local = piece[:size].movedim(0, d)
+            if cur[i].reduce_op == "avg":
+                local = local / n
+            cur[i] = pls[i]
+            continue
         if cur[i].is_partial():
             op = cur[i].reduce_op
             # a copy: the all-reduce writes in place, and `x` keeps its own
@@ -337,7 +370,6 @@ def redistribute(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
                                ((r, _chunk(span, n, r)[1])
                                 for r in range(n))]).movedim(0, d)
         cur[i] = Replicate()
-    shape = list(x.shape)
     for i, p in enumerate(pls):
         if p.is_shard() and cur[i] != p:
             if not cur[i].is_replicate():
@@ -348,7 +380,120 @@ def redistribute(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
             cur[i] = p
         elif p.is_partial() and not cur[i].is_partial():
             raise ValueError(f"redistributing {have} to {pls}")
-    return from_local_like(local.contiguous(), pls, shape, dm)
+    return DTensor.from_local(local.contiguous(), dm, pls, run_check=False,
+                              shape=x.shape, stride=_stride(x.shape))
+
+
+def _scatters(cur, pls, i: int) -> bool:
+    """Whether `_move` takes mesh dim i from a partial sum straight to a
+    shard by one reduce-scatter: a sum or mean to Shard(d), where no
+    other mesh dim splits d, before or after."""
+    p = pls[i]
+    if not (cur[i].is_partial() and cur[i].reduce_op in ("sum", "avg")
+            and p.is_shard()):
+        return False
+    return not any(q.is_shard() and q.dim == p.dim
+                   for j in range(len(cur)) if j != i
+                   for q in (cur[j], pls[j]))
+
+
+def _grad_of(pls: Sequence) -> tuple:
+    """The placements a gradient takes where the value held `pls`: those
+    of the value, but a partial sum's gradient is whole on every rank
+    (each partial adds into the sum once, so each gets the whole
+    gradient of the sum)."""
+    from torch.distributed.tensor import Replicate
+    return tuple(Replicate() if p.is_partial() else p for p in pls)
+
+
+def _as_dtensor(g, dm, pls, shape) -> torch.Tensor:
+    """A gradient as the DTensor it stands for: a DTensor as it is; a
+    plain tensor (this rank's local gradient) with placements `pls`."""
+    if is_dtensor(g):
+        return g
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(g.contiguous(), dm, tuple(pls),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_stride(shape))
+
+
+class _Redistribute(torch.autograd.Function):
+    """`_move` with its transpose as the backward, on the same groups by
+    the same path: the gradient, as it comes, is moved to the placements
+    `_grad_of` gives the input's. Per mesh dim that is a local cut where
+    the forward gathered a shard and the gradient is whole, a
+    reduce-scatter where the gradient is a partial sum, nothing where the
+    forward reduced a partial sum, and a gather where the forward cut a
+    whole value into shards."""
+
+    @staticmethod
+    def forward(ctx, x, pls):
+        ctx.have = tuple(x.placements)
+        ctx.meta = (x.device_mesh, tuple(x.shape))
+        return _move(x, pls)
+
+    @staticmethod
+    def backward(ctx, g):
+        dm, shape = ctx.meta
+        g = _as_dtensor(g, dm, ctx.have, shape)
+        return _move(g, _grad_of(ctx.have)), None
+
+
+class _LocalOf(torch.autograd.Function):
+    """This rank's local shard of DTensor `x` moved to `pls` (cast to
+    `dtype`); backward: the local gradient as a DTensor placed `grads`,
+    moved back to `x`'s placements (in `dtype`: a float32 product's
+    partial sums are reduced in float32), then cast to `x`'s dtype."""
+
+    @staticmethod
+    def forward(ctx, x, pls, grads, dtype):
+        ctx.have = tuple(x.placements)
+        ctx.meta = (x.device_mesh, tuple(x.shape), x.dtype, tuple(grads))
+        local = _move(x, pls).to_local()
+        return local if dtype is None else local.to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        dm, shape, dtype, grads = ctx.meta
+        g = _as_dtensor(g, dm, grads, shape)
+        return _move(g, _grad_of(ctx.have)).to(dtype), None, None, None
+
+
+class _FromLocal(torch.autograd.Function):
+    """A DTensor from this rank's `local` shard or partial sum; backward:
+    the gradient moved to `_grad_of(pls)`, this rank's local piece."""
+
+    @staticmethod
+    def forward(ctx, local, pls, shape, dm):
+        from torch.distributed.tensor import DTensor
+        ctx.meta = (tuple(pls), dm, tuple(shape))
+        return DTensor.from_local(local, dm, tuple(pls), run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=_stride(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        pls, dm, shape = ctx.meta
+        g = _as_dtensor(g, dm, _grad_of(pls), shape)
+        return _move(g, _grad_of(pls)).to_local(), None, None, None
+
+
+def redistribute(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
+    """DTensor `x` with placements `pls` on its mesh, on every backend by
+    the same path (`_move`): each mesh dim that changes is made whole
+    with `all_gather_into_tensor` or `all_reduce` in its group, last mesh
+    dim first, and then cut locally, or reduce-scattered straight to its
+    shard. DTensor's own `x.redistribute` is not
+    used: over gloo on CUDA tensors the all-gather of the functional
+    collectives that it calls reads device memory as host memory (the
+    ranks die with SIGSEGV; torch 2.11, two ranks on an H100), and one
+    path is the one that the CPU tests hold against the reference. Under
+    autograd the backward is the transpose, by the same path
+    (`_Redistribute`)."""
+    pls = tuple(pls)
+    if tuple(x.placements) == pls:
+        return x
+    return _Redistribute.apply(x, pls)
 
 
 def whole_on_mesh(x: torch.Tensor) -> torch.Tensor:
@@ -362,8 +507,86 @@ def whole_on_mesh(x: torch.Tensor) -> torch.Tensor:
 
 def whole(x: torch.Tensor) -> torch.Tensor:
     """A DTensor's whole value on every rank (`redistribute` to
-    replicas); a plain tensor as it is."""
-    return whole_on_mesh(x).to_local() if is_dtensor(x) else x
+    replicas); a plain tensor as it is. Under autograd every rank is
+    taken to compute the same from it (its gradient is whole)."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return local_of(x, (Replicate(),) * x.device_mesh.ndim)
+
+
+def sum_over(local: torch.Tensor, dm, mesh_dims: Sequence[int]
+             ) -> torch.Tensor:
+    """A plain tensor summed over the ranks of the mesh dims `mesh_dims`
+    of DeviceMesh `dm` (an all-reduce in each one's group, by
+    `redistribute`'s path), outside autograd; the same on each of those
+    ranks. No mesh dim: `local` as it is."""
+    mesh_dims = set(mesh_dims)
+    if not mesh_dims:
+        return local
+    from torch.distributed.tensor import Partial, Replicate
+    pls = tuple(Partial() if i in mesh_dims else Replicate()
+                for i in range(dm.ndim))
+    return _move(_as_dtensor(local, dm, pls, local.shape),
+                 (Replicate(),) * dm.ndim).to_local()
+
+
+def split_dims(t: torch.Tensor, dim: Optional[int] = None) -> list:
+    """The mesh dims that split DTensor `t` (along tensor dim `dim` only,
+    when given); none for a plain tensor."""
+    if not is_dtensor(t):
+        return []
+    if dim is not None:
+        dim %= t.dim()
+    return [i for i, p in enumerate(t.placements)
+            if p.is_shard() and (dim is None or p.dim == dim)]
+
+
+def shard_sums(sums: Sequence[torch.Tensor], like: Sequence[torch.Tensor]
+               ) -> list:
+    """Each `sums[j]`, a 0-dim sum over this rank's shard of `like[j]`, as
+    the sum over the whole tensor, equal on every rank: the ranks that
+    hold one shard twice (along a mesh dim that does not split the
+    tensor) count it once, and one all-reduce over the mesh adds the
+    rest. Plain tensors (one rank): `sums` as they are."""
+    dts = [t for t in like if is_dtensor(t)]
+    if not dts:
+        return list(sums)
+    dm = dts[0].device_mesh
+    keep = [all(p.is_shard() or dm.get_local_rank(i) == 0
+                for i, p in enumerate(t.placements)) for t in like]
+    vec = torch.stack([v if k else torch.zeros_like(v)
+                       for v, k in zip(sums, keep)])
+    return list(sum_over(vec, dm, range(dm.ndim)).unbind(0))
+
+
+def placed_like(local: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """`local` as a DTensor placed as DTensor `t` (this rank's shard of a
+    tensor of t's shape), outside autograd; a plain `t`: `local`."""
+    if not is_dtensor(t):
+        return local
+    return _as_dtensor(local, t.device_mesh, t.placements, t.shape)
+
+
+def placed_zeros(shape, like: torch.Tensor, pls: Optional[Sequence] = None,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Zeros of global `shape` in `dtype` on `like`'s device; for a
+    DTensor `like`, this rank's shard of them placed `pls` (default:
+    like's placements) on its mesh."""
+    if not is_dtensor(like):
+        return torch.zeros(tuple(shape), dtype=dtype, device=like.device)
+    dm = like.device_mesh
+    pls = tuple(like.placements) if pls is None else tuple(pls)
+    sl = local_slices(shape, pls, dm)
+    return _as_dtensor(torch.zeros([x.stop - x.start for x in sl],
+                                   dtype=dtype, device=like.device),
+                       dm, pls, shape)
+
+
+def local_part(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of DTensor `t` outside autograd; a plain `t` as
+    it is."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def place(t: torch.Tensor, pls: Sequence, mesh) -> torch.Tensor:
@@ -409,12 +632,29 @@ def mesh_context(rules: Optional[AxisRules] = None):
     """The context a model runs in on a mesh of several ranks: DTensor's
     implicit replication, so that the constants a module builds (positions,
     masks, slot indices; equal on every rank) combine with DTensors as
-    replicated ones. One rank: nothing."""
-    import contextlib
+    replicated ones. It nests: DTensor's own `implicit_replication`
+    switches the replication off when it exits, so only the outermost of
+    nested contexts enters it (a train step's update runs after the
+    model's forward has left its own). One rank: nothing."""
     if not on_ranks(rules):
         return contextlib.nullcontext()
-    from torch.distributed.tensor.experimental import implicit_replication
-    return implicit_replication()
+    return _mesh_context()
+
+
+@contextlib.contextmanager
+def _mesh_context():
+    depth = getattr(_CTX, "implicit", 0)
+    _CTX.implicit = depth + 1
+    try:
+        if depth:
+            yield
+        else:
+            from torch.distributed.tensor.experimental import (
+                implicit_replication)
+            with implicit_replication():
+                yield
+    finally:
+        _CTX.implicit = depth
 
 
 def _lead_letter(i: int, ins, ops, out: str):
@@ -482,7 +722,11 @@ def contract(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     exactly), its partial sums are reduced in float32, and the result is
     cast back, one rounding as on one device. DTensor's own einsum
     flattens dims it may not flatten when a later one is split (torch
-    2.11: "Attempted to flatten multiple dimensions")."""
+    2.11: "Attempted to flatten multiple dimensions"). Under autograd an
+    operand whole on a mesh dim that splits the product gets a partial
+    gradient there, reduced back to its placements: a product that is
+    differentiated and split runs in float32 as well, so that those
+    partial sums too are reduced in float32 and rounded once."""
     dt = ops[0].dtype
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
@@ -501,66 +745,132 @@ def contract(eq: str, *ops: torch.Tensor) -> torch.Tensor:
         out_bytes *= size[c]
     split = [_split_letter(i, ins, ops, out, out_bytes)
              for i in range(dm.ndim)]
+    y_pls = tuple(Shard(out.index(c)) if c is not None and c in out
+                  else Partial() if c is not None else Replicate()
+                  for c in split)
+    op_pls = [tuple(Shard(letters.index(c)) if c is not None and c in letters
+                    else Replicate() for c in split) for letters in ins]
     summed = any(c is not None and c not in out for c in split)
-    cd = torch.float32 if summed and dt != torch.float64 else dt
-    local = []
-    for letters, o in zip(ins, ops):
-        pls = tuple(Shard(letters.index(c)) if c is not None and c in letters
-                    else Replicate() for c in split)
-        lo = (local_of(o, pls) if is_dtensor(o)
-              else o[local_slices(o.shape, pls, dm)])
-        local.append(lo.to(cd))
-    y = torch.einsum(eq, *local)
-    pls = tuple(Shard(out.index(c)) if c is not None and c in out
-                else Partial() if c is not None else Replicate()
-                for c in split)
-    y = from_local_like(y, pls, tuple(size[c] for c in out), dm)
+    # under autograd an operand whole on a mesh dim that splits the
+    # product gets a partial gradient: the product runs in float32 so that
+    # it is reduced in float32 too
+    partial = torch.is_grad_enabled() and any(
+        o.requires_grad and grads_where(p, y_pls) != p
+        for o, p in zip(ops, op_pls))
+    cd = torch.float32 if (summed or partial) and dt != torch.float64 else dt
+    local = [local_of(o, p, out=y_pls, dtype=cd) if is_dtensor(o)
+             else o[local_slices(o.shape, p, dm)].to(cd)
+             for o, p in zip(ops, op_pls)]
+    y = from_local_like(torch.einsum(eq, *local), y_pls,
+                        tuple(size[c] for c in out), dm)
     want = []
-    for i, p in enumerate(pls):
+    for i, p in enumerate(y_pls):
         lead = _lead_letter(i, ins, ops, out)
         want.append(Shard(out.index(lead)) if lead is not None else
                     Replicate() if p.is_partial() else p)
     return redistribute(y, want).to(dt)
 
 
-def local_of(x: torch.Tensor, pls: Sequence) -> torch.Tensor:
+def grads_where(pls: Sequence, out: Sequence) -> tuple:
+    """The placements of the gradient of a local shard taken by `pls`
+    when the ranks compute from it a result placed `out`: where the shard
+    is whole on a mesh dim but the results differ across that dim (split,
+    or partial sums), each rank's gradient is its share of a sum
+    (Partial); elsewhere it is placed as the shard is (whole where every
+    rank computed the same)."""
+    from torch.distributed.tensor import Partial
+    return tuple(Partial() if p.is_replicate() and not o.is_replicate()
+                 else p for p, o in zip(pls, out))
+
+
+def local_of(x: torch.Tensor, pls: Sequence, out: Optional[Sequence] = None,
+             dtype=None) -> torch.Tensor:
     """The local shard of DTensor `x` after redistributing it to `pls` on
-    its own mesh."""
-    return redistribute(x, pls).to_local()
+    its own mesh (cast to `dtype`). Under autograd `out` says how the
+    result the rank computes from the shard is placed (`grads_where`;
+    None: as the shard, every rank computing the same where it is whole);
+    the backward moves the gradient back to `x`'s placements through the
+    port's collectives (`_LocalOf`)."""
+    pls = tuple(pls)
+    grads = pls if out is None else grads_where(pls, out)
+    return _LocalOf.apply(x, pls, grads, dtype)
 
 
 def from_local_like(local: torch.Tensor, pls: Sequence, shape: Sequence[int],
                     dm) -> torch.Tensor:
     """A DTensor of global `shape` on DeviceMesh `dm` from this rank's
-    `local` shard (or partial sum, under a Partial placement)."""
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(local, dm, tuple(pls), run_check=False,
-                              shape=torch.Size(shape), stride=_stride(shape))
+    `local` shard (or partial sum, under a Partial placement); under
+    autograd the backward hands each rank its piece of the gradient (the
+    whole gradient to a partial sum: `_FromLocal`)."""
+    return _FromLocal.apply(local, tuple(pls), tuple(shape), dm)
+
+
+def _row_placements(x: torch.Tensor):
+    """(the column mesh dims of DTensor `x`, those splitting its last dim;
+    x's placements with the shards kept and the rest whole; its rows'
+    placements, a shard of a leading dim kept and the rest whole)."""
+    from torch.distributed.tensor import Replicate
+    last = x.dim() - 1
+    cols = [p.is_shard() and p.dim == last for p in x.placements]
+    x_pls = tuple(q if q.is_shard() else Replicate() for q in x.placements)
+    r_pls = tuple(q if (q.is_shard() and q.dim < last) else Replicate()
+                  for q in x.placements)
+    return cols, x_pls, r_pls
+
+
+def _pick_local(xl, x, x_pls, idx, r_pls):
+    """This rank's x[..., idx] from its local shard `xl` of DTensor `x`
+    (placed `x_pls`): the entries whose index falls in its columns, zeros
+    for the others."""
+    il = (local_of(idx, r_pls) if is_dtensor(idx)
+          else idx[local_slices(idx.shape, r_pls, x.device_mesh)])
+    il = il.long() - local_slices(x.shape, x_pls, x.device_mesh)[-1].start
+    hit = (il >= 0) & (il < xl.shape[-1])
+    g = torch.gather(xl, -1, il.clamp(0, xl.shape[-1] - 1)[..., None])
+    return torch.where(hit, g[..., 0], torch.zeros((), dtype=xl.dtype,
+                                                    device=xl.device))
 
 
 def pick_last(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[..., idx] row by row (`torch.gather` on the last dim) for a
     DTensor `x` whose last dim may be split (the logits' "vocab"): each
     rank reads the indices that fall in its columns (zeros elsewhere)
-    and the result is a partial sum over those axes. DTensor's own
-    gather strategy fails on columns split under rows split by batch."""
-    from torch.distributed.tensor import Partial, Replicate
-    last = x.dim() - 1
-    cols = [p.is_shard() and p.dim == last for p in x.placements]
-    x_pls = tuple(q if q.is_shard() else Replicate() for q in x.placements)
-    i_pls = tuple(q if (q.is_shard() and q.dim < last) else Replicate()
-                  for q in x.placements)
-    xl = local_of(x, x_pls)
-    il = (local_of(idx, i_pls) if is_dtensor(idx)
-          else idx[local_slices(idx.shape, i_pls, x.device_mesh)])
-    il = il.long() - local_slices(x.shape, x_pls, x.device_mesh)[-1].start
-    hit = (il >= 0) & (il < xl.shape[-1])
-    g = torch.gather(xl, -1, il.clamp(0, xl.shape[-1] - 1)[..., None])
-    g = torch.where(hit, g[..., 0], torch.zeros((), dtype=xl.dtype,
-                                                 device=xl.device))
-    return from_local_like(
-        g, tuple(Partial() if c else q for c, q in zip(cols, i_pls)),
-        tuple(idx.shape), x.device_mesh)
+    and the result is a partial sum over those axes; its gradient lands
+    only on the rank whose columns hold the index. DTensor's own gather
+    strategy fails on columns split under rows split by batch."""
+    from torch.distributed.tensor import Partial
+    cols, x_pls, r_pls = _row_placements(x)
+    g_pls = tuple(Partial() if c else q for c, q in zip(cols, r_pls))
+    xl = local_of(x, x_pls, out=g_pls)
+    return from_local_like(_pick_local(xl, x, x_pls, idx, r_pls), g_pls,
+                           tuple(idx.shape), x.device_mesh)
+
+
+def token_nll(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log softmax(x)[label] over the last dim of the DTensor logits `x`
+    (float32; its "vocab" dim may be split), a DTensor placed as x's
+    rows. Each rank takes its columns' largest value (made the rows'
+    largest over the column axes by an all-reduce outside autograd: it
+    only steadies the exponentials), the sum of their exponentials and
+    the label's logit where it falls in its columns; one all-reduce adds
+    the last two over the column axes, and each rank computes the loss of
+    its rows. DTensor's logsumexp would move the logits with collectives
+    of its own."""
+    from torch.distributed.tensor import Partial
+    dm = x.device_mesh
+    cols, x_pls, r_pls = _row_placements(x)
+    part = tuple(Partial() if c else q for c, q in zip(cols, r_pls))
+    rows = tuple(x.shape[:-1])
+    xl = local_of(x, x_pls, out=part)
+    gold = _pick_local(xl, x, x_pls, labels, r_pls)
+    m = _move(_as_dtensor(xl.detach().amax(dim=-1), dm, tuple(
+        Partial("max") if c else q for c, q in zip(cols, r_pls)), rows),
+        r_pls).to_local()
+    s = torch.exp(xl - m[..., None]).sum(dim=-1)
+    both = local_of(from_local_like(torch.stack([s, gold], dim=-1), part,
+                                    rows + (2,), dm), r_pls, out=r_pls)
+    return from_local_like(m + torch.log(both[..., 0]) - both[..., 1],
+                           r_pls, rows, dm)
 
 
 # --------------------------------------------------------------------------

@@ -33,7 +33,10 @@ mesh) the entry points take params placed by `sharding.place_params`
 and run on DTensors, for every trunk: dense, MoE (GQA or MLA),
 encoder-decoder, the Mamba2 hybrid and RWKV6. Logits and caches come
 back as DTensors; the recurrent states are written into each rank's own
-shard of the cache (`_put`).
+shard of the cache (`_put`). `model_loss` is differentiated there too
+(the dense and MoE trunks' train step): its backward moves gradients
+only through `models.sharding`'s collectives, and its loss and metrics
+are plain tensors, equal on every rank.
 """
 from __future__ import annotations
 
@@ -421,20 +424,23 @@ def _embed_shards(table, tokens):
     the result is a partial sum over the row axes (which the caller's
     `shard_act` reduces) and split by columns over the column axes: the
     table itself never moves. DTensor's own embedding strategy fails on
-    a table split by rows under indices split by batch."""
+    a table split by rows under indices split by batch. The backward adds
+    each token's gradient into the rank's own rows (a token outside them
+    adds nothing), a partial sum over the axes that split the tokens but
+    not the table, reduced to the table's placements."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     t_pls = tuple(table.placements)
-    tl = table.to_local()
-    v0 = local_slices(table.shape, t_pls, table.device_mesh)[0].start
     k_pls = tuple(q if (q.is_shard() and p.is_replicate()) else Replicate()
                   for p, q in zip(t_pls, tokens.placements))
+    out_pls = tuple(Partial() if p.is_shard() and p.dim == 0 else
+                    Shard(tokens.dim()) if p.is_shard() else q
+                    for p, q in zip(t_pls, k_pls))
+    tl = local_of(table, t_pls, out=out_pls)
+    v0 = local_slices(table.shape, t_pls, table.device_mesh)[0].start
     idx = local_of(tokens, k_pls).long() - v0
     hit = (idx >= 0) & (idx < tl.shape[0])
     e = torch.where(hit[..., None], tl[idx.clamp(0, tl.shape[0] - 1)],
                     torch.zeros((), dtype=tl.dtype, device=tl.device))
-    out_pls = tuple(Partial() if p.is_shard() and p.dim == 0 else
-                    Shard(tokens.dim()) if p.is_shard() else q
-                    for p, q in zip(t_pls, k_pls))
     return from_local_like(e, out_pls,
                            tuple(tokens.shape) + (table.shape[1],),
                            table.device_mesh)

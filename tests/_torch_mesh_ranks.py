@@ -382,8 +382,268 @@ def lm_job(rank, world, p):
             out["archs"][f"{name}/{dtype}"] = r
     out["train_step"] = None
     try:
-        steps.build_train_step(treg.reduced(treg.ARCHS["llama3.2-1b"]),
+        steps.build_train_step(treg.reduced(treg.ARCHS["rwkv6-1.6b"]),
                                rules, adamw(1e-3))
     except NotImplementedError as e:
         out["train_step"] = str(e)
     return out
+
+
+# -- language-model training on a (data, model) mesh --------------------------
+
+# the optimizers of the train-step tests, as `tests/test_torch_lm_train.py`
+# makes them: the launcher's schedule over 20 steps
+TRAIN_STEPS = 20
+TRAIN_OPTS = {"adamw": {"lr": 1e-3}, "adafactor": {"lr": 1e-2},
+              "sgd": {"lr": 0.1}}
+
+
+def train_opt(m, which):
+    """Optimizer `which` of the optim package `m` (the port's or the
+    reference's), as the tests make it."""
+    if which == "sgd":
+        return m.sgd(**TRAIN_OPTS["sgd"])
+    sched = m.cosine_schedule(max(TRAIN_STEPS // 20, 1), TRAIN_STEPS)
+    return getattr(m, which)(schedule=sched, **TRAIN_OPTS[which])
+
+
+def _numpy_whole(tree):
+    """Every leaf whole, as float32 numpy (a collective on the mesh)."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.sharding import whole
+    return tree_map(lambda t: whole(t).detach().float().numpy(), tree)
+
+
+def _functional(fn):
+    """(fn(), the collectives it issued: gloo's and any functional one)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sorted({e.key for e in prof.key_averages() if e.key.startswith(
+        ("gloo:", "_c10d_functional::"))})
+
+
+def lm_train_job(rank, world, p):
+    """Each of p["cases"] on the world's (data, model) mesh: the arch's
+    reduced config (capacity `capacity_factor`, `grad_accum`), its params
+    in `dtype` placed by `place_params` and its batch by `batch_spec`;
+    with `grads`, `loss_and_grads` (the loss, metrics, every gradient
+    whole and each gradient's local shape); with `opt`, one
+    `build_train_step` step of that optimizer on placed params and state
+    (its metrics, the new params and state whole, the local shapes of the
+    state before and after, the bytes of this rank's params and state
+    against the whole). The collectives of each are recorded."""
+    from repro_torch import optim
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.models.sharding import (is_dtensor, make_rules,
+                                             place_params, use_rules)
+    mesh = _lm_mesh(p["mesh"])
+    rules = make_rules(mesh)
+    out = {"mesh": dict(mesh.shape), "cases": {}}
+    for key, case in p["cases"].items():
+        a = p["archs"][case["arch"]]
+        cfg = dataclasses.replace(treg.reduced(treg.ARCHS[case["arch"]]),
+                                  capacity_factor=a["capacity_factor"],
+                                  grad_accum=case.get("accum", 1))
+        _, logical = steps.abstract_params(cfg)
+        params = place_params(tf.params_from_numpy(
+            a["params"], device="cpu", dtype=getattr(torch, case["dtype"])),
+            logical, rules)
+        batch = {k: torch.from_numpy(v) for k, v in a["batch"].items()}
+        r = {}
+        if case.get("grads"):
+            with use_rules(rules):
+                (loss, metrics, grads), keys = _functional(
+                    lambda: steps.loss_and_grads(
+                        cfg, params, steps.place_batch(cfg, batch, rules)))
+            r.update(loss=float(loss), metrics={
+                k: float(v) for k, v in metrics.items()},
+                grads=_numpy_whole(grads), grad_shapes=_local_shapes(grads),
+                grad_collectives=keys,
+                plain=[i for i, g in enumerate(tree_leaves(grads))
+                       if not is_dtensor(g)])
+        if case.get("opt"):
+            opt = train_opt(optim, case["opt"])
+            state = opt.init(params)
+            r["state_shapes"] = _local_shapes(
+                {k: v for k, v in state.items() if k != "step"})
+            step = steps.build_train_step(cfg, rules, opt)
+            (new_p, new_s, metrics), keys = _functional(
+                lambda: step(params, state, batch))
+            r.update(step_metrics={k: float(v) for k, v in metrics.items()},
+                     params=_numpy_whole(new_p),
+                     state=_numpy_whole({k: v for k, v in new_s.items()
+                                         if k != "step"}),
+                     step=int(new_s["step"]),
+                     new_state_shapes=_local_shapes(
+                         {k: v for k, v in new_s.items() if k != "step"}),
+                     placements_kept=all(
+                         tuple(n.placements) == tuple(o.placements)
+                         for n, o in zip(tree_leaves(new_p),
+                                         tree_leaves(params))),
+                     step_collectives=keys)
+            held = whole = 0
+            for t in tree_leaves(params) + tree_leaves(
+                    {k: v for k, v in state.items() if k != "step"}):
+                held += t.to_local().numel() * t.element_size()
+                whole += t.numel() * t.element_size()
+            r["bytes"] = (held, whole)
+        out["cases"][key] = r
+    return out
+
+
+# -- gradients of the mesh primitives -----------------------------------------
+
+
+def _placement(code):
+    """"S<d>", "R" or "P" as a DTensor placement."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if code == "R":
+        return Replicate()
+    if code == "P":
+        return Partial()
+    return Shard(int(code[1:]))
+
+
+def _on_mesh(t, logical, rules, param):
+    """`t` (numpy) as a leaf that autograd tracks: on the mesh a DTensor
+    placed by the param rules (`param`) or the activation rules over its
+    logical axes, in one process a plain tensor."""
+    from repro_torch.models.sharding import place, placements, resolve_spec
+    x = torch.from_numpy(t)
+    if rules is not None:
+        spec = resolve_spec(x.shape, logical, rules.param_rules if param
+                            else rules.act_rules, rules)
+        x = place(x, placements(spec, rules.mesh), rules.mesh)
+    return x.detach().requires_grad_(x.is_floating_point())
+
+
+def _loss(*pairs):
+    """sum(whole(y) * w) over (y, w) pairs: a plain scalar, the same on
+    every rank."""
+    from repro_torch.models.sharding import whole
+    total = 0.0
+    for y, w in pairs:
+        total = total + (whole(y) * torch.from_numpy(w)).sum()
+    return total
+
+
+def _redistribute_case(case, rules):
+    """The input held by its placements `pin` (a Partial mesh dim holds
+    one of `pieces`, indexed by this rank's coordinate there), then
+    `redistribute` to every valid output placement, each backward on its
+    own: this rank's local leaf gradient for each output. One process:
+    the input is the sum of the pieces, and the gradient of each piece."""
+    from repro_torch.models.sharding import (from_local_like, local_slices,
+                                             redistribute)
+    pieces = torch.from_numpy(case["pieces"])
+    shape = tuple(pieces.shape[2:])
+    out = {}
+    if rules is None:
+        for pout in case["pouts"]:
+            leaf = pieces.clone().requires_grad_(True)
+            y = leaf.sum(dim=(0, 1))
+            _loss((y, case["w"])).backward()
+            out["/".join(pout)] = leaf.grad.numpy()
+        return out
+    dm = rules.mesh.device_mesh
+    pin = tuple(_placement(c) for c in case["pin"])
+    idx = tuple(dm.get_local_rank(i) if p.is_partial() else 0
+                for i, p in enumerate(pin))
+    sl = local_slices(shape, tuple(p if p.is_shard() else None
+                                   for p in pin), dm)
+    for pout in case["pouts"]:
+        leaf = pieces[idx][sl].clone().requires_grad_(True)
+        y = redistribute(from_local_like(leaf, pin, shape, dm),
+                         tuple(_placement(c) for c in pout))
+        _loss((y, case["w"])).backward()
+        out["/".join(pout)] = (idx, tuple((s.start, s.stop) for s in sl),
+                               leaf.grad.numpy())
+    return out
+
+
+def _grad_case(case, rules):
+    """The case's function on its inputs and the gradient of each input
+    (whole, numpy): on the mesh of `rules`, or in one process with
+    rules None."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.sharding import (contract, pick_last,
+                                             place_params, whole)
+    kind = case["kind"]
+    if kind == "redistribute":
+        return _redistribute_case(case, rules)
+    if kind == "contract":
+        ops = [_on_mesh(o, log, rules, param) for o, log, param in
+               zip(case["ops"], case["logical"], case["param"])]
+        loss = _loss((contract(case["eq"], *ops), case["w"]))
+        leaves = dict(enumerate(ops))
+    elif kind == "pick_last":
+        x = _on_mesh(case["x"], ("batch", "seq", "vocab"), rules, False)
+        idx = _on_mesh(case["idx"], ("batch", "seq"), rules, False)
+        picked = (pick_last(x, idx) if rules is not None else
+                  torch.gather(x, -1, idx.long()[..., None])[..., 0])
+        loss = _loss((picked, case["w"]))
+        leaves = {"x": x}
+    elif kind == "embed":
+        table = _on_mesh(case["table"], ("vocab", "embed"), rules, True)
+        tokens = _on_mesh(case["tokens"], ("batch", "seq"), rules, False)
+        e = (tf._embed_shards(table, tokens) if rules is not None
+             else table[tokens.long()])
+        pairs = [(e, case["w"])]
+        if case["tied"]:
+            pairs.append((contract("bsd,dv->bsv", e, table.t()),
+                          case["w2"]))
+        loss = _loss(*pairs)
+        leaves = {"table": table}
+    elif kind == "attn":
+        q = _on_mesh(case["q"], ("batch", "seq_model", "kv_heads", "heads",
+                                 "head_dim"), rules, False)
+        k, v = (_on_mesh(case[n], ("batch", "seq", "kv_heads", "head_dim"),
+                         rules, False) for n in ("k", "v"))
+        pos = torch.arange(q.shape[1])
+        o = attn._attn_dispatch(q, k, v, pos, pos, 0.25, True, 0, "naive")
+        loss = _loss((o, case["w"]))
+        leaves = {"q": q, "k": k, "v": v}
+    elif kind == "moe":
+        from repro_torch.configs import registry as treg
+        cfg = dataclasses.replace(
+            treg.reduced(treg.ARCHS[case["arch"]]),
+            moe_dispatch=case["dispatch"], capacity_factor=case["capacity"])
+        p = tree_map(lambda a: torch.from_numpy(a), case["params"])
+        if rules is not None:
+            p = place_params(p, case["logical"], rules)
+        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        x = _on_mesh(case["x"], ("batch", "seq", None), rules, False)
+        y, aux = moe.moe_forward(p, cfg, x)
+        loss = _loss((y, case["w"])) + case["aux_weight"] * whole(aux)
+        leaves = {"x": x, **{f"p/{k}": t for k, t in p.items()}}
+    else:
+        raise ValueError(kind)
+    names = list(leaves)
+    grads = torch.autograd.grad(loss, [leaves[n] for n in names])
+    return {n: whole(g).detach().numpy() for n, g in zip(names, grads)}
+
+
+def grad_cases(cases, rules):
+    """Every case under `rules` (None: one process), each with the
+    collectives it issued: {key: (result, collectives)}."""
+    from repro_torch.models.sharding import mesh_context, use_rules
+    out = {}
+    for key, case in cases.items():
+        with use_rules(rules), mesh_context(rules):
+            out[key] = _functional(lambda: _grad_case(case, rules))
+    return out
+
+
+def mesh_grads_job(rank, world, p):
+    """`grad_cases` on the world's (data, model) mesh."""
+    from repro_torch.models.sharding import make_rules
+    mesh = _lm_mesh(p["mesh"])
+    return {"mesh": dict(mesh.shape),
+            "cases": grad_cases(p["cases"], make_rules(mesh))}

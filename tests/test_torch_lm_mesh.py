@@ -31,8 +31,10 @@ results are the oracle: they are what GSPMD must compute.
 Each world is spawned once (`_torch_mesh_ranks.lm_job`) while this
 process computes the reference's results (`run_worlds`, which
 `tests/test_torch_lm_mesh_trunks.py` runs for the enc-dec, hybrid and
-RWKV trunks). Every world also builds a train step, which must refuse a
-mesh of several ranks naming ROADMAP.md Queue 1 item 10d."""
+RWKV trunks). Every world also builds a train step for reduced
+rwkv6-1.6b, a trunk whose train step across ranks is still to come: it
+must refuse the mesh naming ROADMAP.md Queue 1 item 10d2 (the dense and
+MoE trunks train across ranks: `tests/test_torch_lm_mesh_train.py`)."""
 import contextlib
 import dataclasses
 import io
@@ -528,30 +530,31 @@ def test_launcher_refuses_fleet_workers_under_torchrun_naming_item_10g(
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_train_step_refuses_several_ranks_naming_item_10d(worlds, world):
-    """`build_train_step` on a mesh of several ranks raises
-    NotImplementedError when it is built, naming ROADMAP.md Queue 1 item
-    10d, on every rank (its gradients through the port's collectives are
-    that item; before the guard it failed inside autograd)."""
+    """`build_train_step` for reduced rwkv6-1.6b on a mesh of several ranks
+    raises NotImplementedError when it is built, naming ROADMAP.md Queue 1
+    item 10d2 (the enc-dec, hybrid and RWKV6 trunks' train step across
+    ranks), on every rank; the dense and MoE trunks' is item 10d, done."""
     for r in worlds["ranks"][world]:
         msg = r["train_step"]
         assert msg is not None, "build_train_step did not raise"
-        assert "Queue 1 item 10d" in msg
+        assert "Queue 1 item 10d2" in msg and "rwkv6" in msg
         assert f"a mesh of {WORLDS[world][0] * WORLDS[world][1]} ranks" in msg
 
 
 def test_train_launcher_refuses_torchrun_naming_item_10d(monkeypatch,
                                                          capsys):
     """`launch.train.main` under a torchrun environment of two ranks exits
-    through argparse's error (code 2) naming ROADMAP.md Queue 1 item 10d,
-    before any rank starts; WORLD_SIZE 1 is one process, as without
-    torchrun."""
+    through argparse's error (code 2) naming ROADMAP.md Queue 1 item 10e
+    (the elastic runner and its checkpoints of placed state across
+    ranks), before any rank starts; WORLD_SIZE 1 is one process, as
+    without torchrun."""
     from repro_torch.launch import train as ttrain
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit) as e:
         ttrain.main(["--arch", "llama3.2-1b", "--device", "cpu"])
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "Queue 1 item 10d" in err and "2 ranks" in err
+    assert "Queue 1 item 10e" in err and "2 ranks" in err
 
 
 def test_shard_act_keeps_a_free_dims_placement():
