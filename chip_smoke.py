@@ -181,7 +181,12 @@ line each:
            launches. Rows 7 and 8 are the gathers' backward
            kernels at that call, held against their plain versions
            within the reordering bound of fp32 sums, with `index_add_`
-           on the precomputed slots as the library call.
+           on the precomputed slots as the library call; each also timed
+           on a shuffled copy of the call (no runs of equal queries) and
+           checked, as is the shuffled copy, on 1 << 20 queries all on
+           one slot; the COO row with the share of its warps' tiles
+           searched in the CTA's staged range, as the kernel counts
+           them, held against `bwd_search_counts`.
 
 Then the card's name and power limit as nvidia-smi prints them, and last
 {"ok": true, "device": {...}}. Any failed check raises: the script exits
@@ -278,6 +283,15 @@ GT_TIE_SHARE = 1e-3   # ... and at most this share of pixels may flip
 # of one render_uniform pass's appearance-plane call (its plain version
 # over the whole call would hold about 38 GB of int64 temporaries)
 EVAL_GATHER_ROWS = 12
+# the backward rows' shuffled copy of the training call, and their
+# one-slot stress case: BWD_ONE_SLOT queries all on one value slot, with
+# whole-number gradients in [-BWD_ONE_SLOT_GRAD, BWD_ONE_SLOT_GRAD] made
+# from BWD_ONE_SLOT_SEED: every partial sum is below 2^24 and exact in
+# fp32, so any order gives the plain version's sum bit for bit
+BWD_SHUFFLE_SEED = 1
+BWD_ONE_SLOT = 1 << 20
+BWD_ONE_SLOT_GRAD = 2
+BWD_ONE_SLOT_SEED = 2
 # the train phase: NerfTrainer on "lego" at NeRFConfig() (12 views of
 # 64 x 64, train_rays 4096 x 512 samples: one render_uniform pass a
 # step), resumed from the serve phase's encoded field, TRAIN_STEPS steps
@@ -1684,15 +1698,36 @@ def bwd_tol(torch, slot, hit, grad, nvalues) -> tuple:
     return 2.0 * k * 2.0 ** -24 * a, k
 
 
+def bwd_check(torch, name, what, got, want, slot, hit, grad, nvalues
+              ) -> tuple:
+    """(max |got - want|, largest excess over `bwd_tol`): fails if the
+    kernel's sums leave the reordering bound or a slot no query reads is
+    not 0."""
+    tol, k = bwd_tol(torch, slot, hit, grad, nvalues)
+    diff = (got.double() - want.double()).abs()
+    over = float((diff - tol).max())
+    unread = k == 0
+    check(over <= 0.0, f"{name} differs from plain beyond the reordering "
+          f"bound by {over} ({what})")
+    check(bool((got[unread] == 0).all()) and bool((want[unread] == 0).all()),
+          f"{name}: a value slot no query reads is not 0 ({what})")
+    return float(diff.max()), over, k
+
+
 def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
     """The backward kernel of one gather on the training step's captured
     appearance-plane call (its first EVAL_GATHER_ROWS rows, as the
     forward entries): held against its plain version within `bwd_tol`,
     exact zeros where no query reads; timed as the forward rows are, with
-    `index_add_` on the precomputed slots as the library call. The bound
-    counts the incoming gradient (4 bytes a query), the queries of nonzero
-    gradient (4 bytes each: the kernel skips the rest), the stream's
-    metadata and each value's read-modify-write (8 bytes)."""
+    `index_add_` on the precomputed slots as the library call. The same
+    on a shuffled copy of the call (queries and gradients permuted alike:
+    no runs to merge), and a check on BWD_ONE_SLOT queries all on the
+    call's first hit query, whose whole-number gradients must sum
+    exactly as the plain version's (the reordering bound, at that
+    contention, would pass a slot left 0). The bound counts the
+    incoming gradient (4 bytes a query), the queries of nonzero gradient
+    (4 bytes each: the kernel skips the rest), the stream's metadata and
+    each value's read-modify-write (8 bytes)."""
     bitmap_decode, coo_gather = mods
     args, kw, nq = call
     rows = nq // (4 * samples)
@@ -1703,17 +1738,18 @@ def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
     if fmt == "bitmap":
         words, rowptr, q_full, g_full = args
         nvalues, cols, rank = kw["nvalues"], kw["cols"], kw["rank"]
-        q, g = q_full[:n], g_full[:n]
 
-        def run_k():
+        def run_k(q, g):
             return bitmap_decode.bitmap_gather_bwd(
                 words, rowptr, q, g, nvalues=nvalues, cols=cols, rank=rank)
 
-        def run_p():
+        def run_p(q, g):
             return bitmap_decode.bitmap_gather_bwd_ref(
                 words, rowptr, q, g, nvalues, cols, rank=rank)
-        slot, hit = bitmap_decode.bitmap_slots(words, rowptr, nvalues, q,
-                                               cols, rank)
+
+        def slots(q):
+            return bitmap_decode.bitmap_slots(words, rowptr, nvalues, q,
+                                              cols, rank)
         meta = nbytes(words, rowptr, rank)
         name, source = ("bitmap_gather_bwd",
                         "src/repro_torch/kernels/csrc/bitmap_gather.cu")
@@ -1722,30 +1758,27 @@ def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
     else:
         coords, q_full, g_full = args
         nvalues = coords.shape[0]
-        q, g = q_full[:n], g_full[:n]
 
-        def run_k():
+        def run_k(q, g):
             return coo_gather.coo_gather_bwd(coords, q, g)
 
-        def run_p():
+        def run_p(q, g):
             return coo_gather.coo_gather_bwd_ref(coords, q, g)
-        slot, hit = coo_gather.coo_slots(coords, q)
+
+        def slots(q):
+            return coo_gather.coo_slots(coords, q)
         meta = nbytes(coords)
         name, source = ("coo_gather_bwd",
                         "src/repro_torch/kernels/csrc/coo_gather.cu")
         replaces, oracle = ("src/repro/kernels/coo_gather.py:40",
                             "src/repro/kernels/ref.py:41")
-    got, want = run_k(), run_p()
+    q, g = q_full[:n], g_full[:n]
+    slot, hit = slots(q)
+    got, want = run_k(q, g), run_p(q, g)
     torch.cuda.synchronize()
-    tol, k = bwd_tol(torch, slot, hit, g, nvalues)
-    diff = (got.double() - want.double()).abs()
-    over = float((diff - tol).max())
+    ea, over, k = bwd_check(torch, name, "the call", got, want, slot, hit,
+                            g, nvalues)
     unread = k == 0
-    check(over <= 0.0, f"{name} differs from plain beyond the reordering "
-          f"bound by {over}")
-    check(bool((got[unread] == 0).all()) and bool((want[unread] == 0).all()),
-          f"{name}: a value slot no query reads is not 0")
-    ea = float(diff.max())
     vals = torch.where(hit, g, torch.zeros_like(g))
 
     def run_lib():
@@ -1762,7 +1795,7 @@ def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
                             f"({oracle}); no Pallas backward exists",
            "launches": launches, "max_abs_err": ea,
            "max_over_tol": over, "tol": "2 k 2^-24 sum|g| per slot",
-           **timing_keys(torch, run_k, run_p),
+           **timing_keys(torch, lambda: run_k(q, g), lambda: run_p(q, g)),
            "bound_ms": b_ms, "bound_by": b_by,
            "library_ms": time_ms(torch, run_lib, 50)[0],
            "library_call": "torch.zeros(n).index_add_ on precomputed slots",
@@ -1772,7 +1805,67 @@ def gather_bwd_row(torch, mods, fmt, call, samples, cfg, launches) -> dict:
                      "slots_read": int((~unread).sum()),
                      "max_queries_a_slot": int(k.max())},
            "bytes": b_bytes}
-    del got, want, diff, tol, k, slot, hit, vals
+    if fmt == "coo":
+        _, staged = coo_gather.coo_gather_bwd_staged(coords, q, g)
+        predicted, live = coo_gather.bwd_search_counts(coords, q, g)
+        check(staged == predicted, f"coo_gather_bwd searched {staged} warp "
+              f"tiles in its staged ranges, the inputs predict {predicted}")
+        row["staged_warp_tile_share"] = staged / max(live, 1)
+        row["live_warp_tiles"] = live
+    del got, want, slot, hit, vals, k, unread
+
+    # a shuffled copy: the same sums, no runs of equal queries
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(BWD_SHUFFLE_SEED)
+    perm = torch.randperm(n, device=g.device, generator=gen)
+    qs, gs = q[perm].contiguous(), g[perm].contiguous()
+    del perm
+    slot, hit = slots(qs)
+    got, want = run_k(qs, gs), run_p(qs, gs)
+    torch.cuda.synchronize()
+    ea_s, over_s, _ = bwd_check(torch, name, "shuffled", got, want, slot,
+                                hit, gs, nvalues)
+    del got, want, slot, hit
+    shuffled = {"max_abs_err": ea_s, "max_over_tol": over_s,
+                "ms": time_ms(torch, lambda: run_k(qs, gs), 50)[0]}
+    if fmt == "coo":
+        _, staged = coo_gather.coo_gather_bwd_staged(coords, qs, gs)
+        predicted, live = coo_gather.bwd_search_counts(coords, qs, gs)
+        check(staged == predicted, f"coo_gather_bwd searched {staged} "
+              f"shuffled warp tiles in its staged ranges, the inputs "
+              f"predict {predicted}")
+        shuffled["staged_warp_tile_share"] = staged / max(live, 1)
+    row["shuffled"] = shuffled
+    del qs, gs
+
+    # every query on one slot: the call's first hit query of nonzero
+    # gradient, BWD_ONE_SLOT times, with whole-number gradients
+    slot, hit = slots(q)
+    first = int(torch.nonzero(hit & (g != 0))[0, 0])
+    q1 = q[first].repeat(BWD_ONE_SLOT)
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(BWD_ONE_SLOT_SEED)
+    g1 = torch.randint(-BWD_ONE_SLOT_GRAD, BWD_ONE_SLOT_GRAD + 1,
+                       (BWD_ONE_SLOT,), device=g.device,
+                       generator=gen).float()
+    del slot, hit
+    slot, hit = slots(q1)
+    got, want = run_k(q1, g1), run_p(q1, g1)
+    torch.cuda.synchronize()
+    ea_1, over_1, k1 = bwd_check(torch, name, "one slot", got, want, slot,
+                                 hit, g1, nvalues)
+    check(int((k1 > 0).sum()) == 1, f"{name}: the one-slot case reads "
+          f"{int((k1 > 0).sum())} slots")
+    sum_abs = float(g1.abs().double().sum())
+    check(sum_abs < 2.0 ** 24, f"{name}: the one-slot gradients' |g| sum "
+          f"{sum_abs} leaves fp32's exact integers")
+    check(bool(torch.equal(got, want)), f"{name}: the one-slot sum differs "
+          f"from plain by {ea_1}, and whole numbers sum exactly")
+    row["one_slot"] = {"queries": BWD_ONE_SLOT, "max_abs_err": ea_1,
+                       "max_over_tol": over_1, "exact": True,
+                       "slot_sum": float(want[k1 > 0].sum()),
+                       "sum_abs_grad": sum_abs}
+    del got, want, slot, hit, k1, q1, g1
     return row
 
 

@@ -145,6 +145,12 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def aligned16(*tensors: torch.Tensor) -> int:
+    """1 if every tensor's data starts on a 16-byte boundary (a kernel may
+    then move it as 16-byte vectors), else 0: the `vec` flag of a launch."""
+    return int(all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def check(name: str, code: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if code != 0:

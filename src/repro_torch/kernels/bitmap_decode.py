@@ -124,9 +124,9 @@ def bitmap_gather_bwd(words: torch.Tensor, rowptr: torch.Tensor,
     """The gradient of `bitmap_gather` with respect to its values: a
     float32 vector of `nvalues` with grad[i] added at the slot query i
     reads, for each query whose bit is set (`csrc/bitmap_gather.cu`
-    `bitmap_gather_bwd_kernel`, fp32 atomics: the sum's order changes
-    from run to run). Plain version `bitmap_gather_bwd_ref` on CPU
-    tensors."""
+    `bitmap_gather_bwd_kernel`: runs of equal queries summed in the warp,
+    one fp32 atomic a run, so the sum's order changes from run to run).
+    Plain version `bitmap_gather_bwd_ref` on CPU tensors."""
     tensors = (words, rowptr, queries, grad)
     if _build.all_on_cpu("bitmap_gather_bwd", *tensors):
         return bitmap_gather_bwd_ref(words, rowptr, queries, grad, nvalues,
@@ -155,11 +155,12 @@ def bitmap_gather_bwd(words: torch.Tensor, rowptr: torch.Tensor,
     fn = _build.entry("bitmap_gather_bwd_launch",
                       (_build.P, _build.P, _build.P, _build.I32, _build.I32,
                        _build.I32, _build.I32, _build.P, _build.P, _build.P,
-                       _build.I64, _build.P))
+                       _build.I64, _build.I32, _build.P))
     code = fn(words.data_ptr(), rowptr.data_ptr(),
               None if rank is None else rank.data_ptr(), nvalues, rows,
               nwords, cols, queries.data_ptr(), grad.data_ptr(),
-              out.data_ptr(), queries.shape[0], _build.stream_ptr(dev))
+              out.data_ptr(), queries.shape[0],
+              _build.aligned16(queries, grad), _build.stream_ptr(dev))
     _build.check("bitmap_gather_bwd", code)
     bitmap_gather_bwd.launches += 1
     return out

@@ -23,13 +23,29 @@
 // The backward (`bitmap_gather_bwd_kernel`) is the gradient of the same
 // function with respect to the values: the reference takes it by
 // differentiating its jnp oracle (src/repro/kernels/ref.py
-// `bitmap_gather_ref`), a scatter-add into the value slots. It is bound
-// by memory too: each query reads its gradient and query (8 bytes) and
-// adds into one value, whose read-modify-write stays in L2.
+// `bitmap_gather_ref`), a scatter-add into the value slots. Bound by
+// memory: the incoming gradient (4 bytes a query), the queries of nonzero
+// gradient (4 bytes each) and the values' read-modify-write in L2. One
+// thread a query with one atomic each ran at 2.5x that bound, and timing
+// its parts showed the slot computations and the scalar reads of the
+// gradient, not the atomics, holding it. So a CTA takes a tile of
+// consecutive queries, reads the gradient as 16-byte vectors and the
+// queries only where a gradient is not 0, merges runs of equal queries in
+// the warp, and computes the slot once a run, with one atomic a run
+// (gather_bwd.cuh).
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "gather_bwd.cuh"
+
 namespace {
+
+constexpr int kBwdPer = 8;                   // backward queries a thread
+constexpr int kBwdTile = kBwdThreads * kBwdPer;
+// a warp's list of runs: one row's most, flushed a run a lane a step
+// (a list of both rows, or two runs a lane, took more shared memory or
+// registers, and the shuffled call's slot reads were slower)
+constexpr int kBwdList = kBwdDirect;
 
 // The value slot query q reads: sets *addr and returns whether q's bit is
 // set. Row and word indices are clamped as the reference's gathers clamp
@@ -75,29 +91,36 @@ __global__ void bitmap_gather_kernel(const uint32_t* __restrict__ words,
 
 // The gradient of the gather with respect to the packed values:
 // dvalues[slot(q_i)] += grad[i] for each query whose bit is set, slot
-// being the address the forward reads. One thread a query; a zero
-// gradient adds nothing and skips its loads. Neighbouring queries are
-// neighbouring samples of one row and stencil corner and often share a
-// slot, so the fp32 atomics of a warp may meet on one address (a warp
-// merge of equal slots is the next design step). The sum's order, and its
-// last bits, change from run to run.
-__global__ void bitmap_gather_bwd_kernel(const uint32_t* __restrict__ words,
-                                         const int* __restrict__ rowptr,
-                                         const int* __restrict__ rank,
-                                         int nvalues, int rows, int nwords,
-                                         int cols,
-                                         const int* __restrict__ queries,
-                                         const float* __restrict__ grad,
-                                         float* __restrict__ dvalues,
-                                         long long nq) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= nq) return;
-  const float g = __ldg(grad + i);
-  if (g == 0.0f) return;
-  int addr;
-  if (bitmap_slot(words, rowptr, rank, nvalues, rows, nwords, cols,
-                  __ldg(queries + i), &addr))
-    atomicAdd(dvalues + addr, g);
+// being the address the forward reads (`bitmap_slot`, clamps included).
+// A tile of kBwdTile queries a CTA; each run of equal queries in a warp's
+// row is summed first, then its slot computed once and its sum added by
+// one fp32 atomic (gather_bwd.cuh). A zero gradient adds nothing and its
+// query is not read, a slot no query reads stays 0, and a run on a clear
+// bit adds nothing. The sum's order, and its last bits, change from run
+// to run.
+__global__ void __launch_bounds__(kBwdThreads)
+bitmap_gather_bwd_kernel(const uint32_t* __restrict__ words,
+                         const int* __restrict__ rowptr,
+                         const int* __restrict__ rank, int nvalues, int rows,
+                         int nwords, int cols,
+                         const int* __restrict__ queries,
+                         const float* __restrict__ grad,
+                         float* __restrict__ dvalues, long long nq,
+                         int vec) {
+  __shared__ BwdRuns<kBwdList> runs;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * kBwdTile;
+  int q[kBwdPer];
+  float g[kBwdPer];
+  const bool vector = vec && tile0 + kBwdTile <= nq;
+  bwd_load_grad(grad, tile0, nq, vector, g);
+  bwd_load_queries(queries, tile0, vector, g, q);
+  bwd_merge_flush<1>(q, g, runs, [&](const int (&key)[1],
+                                     const float (&sum)[1], unsigned) {
+    int addr;
+    if (bitmap_slot(words, rowptr, rank, nvalues, rows, nwords, cols,
+                    key[0], &addr))
+      atomicAdd(dvalues + addr, sum[0]);
+  });
 }
 
 }  // namespace
@@ -121,21 +144,21 @@ extern "C" int bitmap_gather_launch(const void* words, const void* rowptr,
 }
 
 // dvalues: nvalues floats, zeroed by the caller; the kernel adds into it.
+// vec: 1 where queries and grad are 16-byte aligned.
 extern "C" int bitmap_gather_bwd_launch(const void* words, const void* rowptr,
                                         const void* rank, int nvalues,
                                         int rows, int nwords, int cols,
                                         const void* queries, const void* grad,
-                                        void* dvalues, long long nq,
+                                        void* dvalues, long long nq, int vec,
                                         void* stream) {
-  if (nq > 0) {
-    const int threads = 256;
-    const long long blocks = (nq + threads - 1) / threads;
-    bitmap_gather_bwd_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  const long long blocks = (nq + kBwdTile - 1) / kBwdTile;
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (nq > 0)
+    bitmap_gather_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(words), static_cast<const int*>(rowptr),
         static_cast<const int*>(rank), nvalues, rows, nwords, cols,
         static_cast<const int*>(queries), static_cast<const float*>(grad),
-        static_cast<float*>(dvalues), nq);
-  }
+        static_cast<float*>(dvalues), nq, vec);
   return static_cast<int>(cudaGetLastError());
 }

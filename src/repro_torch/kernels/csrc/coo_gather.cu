@@ -35,10 +35,28 @@
 // The backward (`coo_gather_bwd_kernel`) is the gradient with respect to
 // the values, which the reference takes by differentiating its jnp oracle
 // (src/repro/kernels/ref.py `coo_gather_ref`): a scatter-add of each
-// query's gradient into the slot it read. Bound by memory: 8 bytes a query
-// (its gradient and coordinate) and the values' read-modify-write.
+// query's gradient into the slot it read. Bound by memory: the incoming
+// gradient (4 bytes a query), the queries of nonzero gradient and the
+// values' read-modify-write. One thread a query, each searching the whole
+// stream (17 dependent loads through L1 and L2), ran at 3x that bound,
+// held by the searches (its atomics cost nothing measurable). So it takes
+// the shared loads and run merge (gather_bwd.cuh) and the forward's
+// window: a CTA of kBwdSpan tiles bounds its first tile's window with
+// `warp_bound`, stages a range of the stream's coordinates around it in
+// shared memory (at most kBwdCapacity, about one row's entries at the
+// training shape; the CTA's following tiles of the row fall in it), and
+// each warp searches each run of equal queries once, in that range in
+// ceil(log2(range)) steps, two runs a lane in lockstep. Only the first
+// tile waits on barriers: a window of its own for each tile (the
+// forward's shape) put the bound's chain of loads between every tile and
+// the next, and the warps' tiles, 16 queries a thread, keep more bytes in
+// flight through each warp's chain of loads. Queries outside the range
+// are searched in device memory (a window wider than the capacity within
+// [lo, hi), as the forward's wide path).
 #include <climits>
 #include <cuda_runtime.h>
+
+#include "gather_bwd.cuh"
 
 namespace {
 
@@ -48,6 +66,11 @@ constexpr int kPer = 8;                      // queries per thread
 constexpr int kTile = kThreads * kPer;       // queries per CTA
 constexpr int kCapacity = 1024;              // window entries staged
 constexpr int kRow = kThreads * 4;           // a row of 16-byte vectors
+constexpr int kBwdPer = 16;                  // backward queries a thread
+constexpr int kBwdTile = kBwdThreads * kBwdPer;
+constexpr int kBwdSpan = 16;                 // backward tiles a CTA
+constexpr int kBwdCapacity = 3072;           // backward staged entries
+constexpr int kBwdList = kBwdDirect * (kBwdPer / 4);  // a warp's runs
 constexpr unsigned kFull = 0xffffffffu;
 
 // Number of entries of coords[0, n) below `key` (kUpper: at most `key`),
@@ -232,25 +255,140 @@ coo_gather_kernel(const int* __restrict__ coords,
 // The gradient of the gather with respect to the values:
 // dvalues[slot(q_i)] += grad[i] for each query whose coordinate is in the
 // stream, slot being the entry the forward reads (the query's lower
-// bound). One thread a query, a branchless binary search of the whole
-// stream through L1 (the first design of the forward), then one fp32
-// atomic; a zero gradient adds nothing and skips its search. Neighbouring
-// queries often share a slot, so a warp's atomics may meet on one
-// address; the sum's order, and its last bits, change from run to run.
-__global__ void __launch_bounds__(kThreads)
+// bound). A CTA takes kBwdSpan consecutive tiles of kBwdTile queries. Its
+// first tile's window [lo, hi) (the entries between its least and largest
+// query of nonzero gradient, `warp_bound`) sets the CTA's range: when the
+// window holds at most kBwdCapacity entries, kBwdCapacity coordinates
+// centred on it, staged in shared memory; otherwise the window itself, in
+// device memory. Then each warp, tile after tile and with no barrier,
+// merges its runs of equal queries (gather_bwd.cuh) and searches each run
+// once in the range when its queries of nonzero gradient lie strictly
+// between the entries just outside the range (in ceil(log2(entries))
+// steps), or else in the whole stream, and adds it by one fp32 atomic. A
+// zero gradient adds nothing, an entry no query reads stays 0, pad entries
+// (INT32_MAX) sort last and queries above the last coordinate are absent.
+// `staged`: nullptr, or an int the kernel adds the number of (tile, warp)
+// pairs with a query of nonzero gradient that it searched in shared memory
+// to. The sum's order, and its last bits, change from run to run.
+__global__ void __launch_bounds__(kBwdThreads)
 coo_gather_bwd_kernel(const int* __restrict__ coords, int n,
                       const int* __restrict__ queries,
                       const float* __restrict__ grad,
-                      float* __restrict__ dvalues, long long nq) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads
-                      + threadIdx.x;
-  if (i >= nq) return;
-  const float g = __ldg(grad + i);
-  if (g == 0.0f) return;
-  const int q = __ldg(queries + i);
-  int idx;
-  lower_bounds<1>([&](int k) { return __ldg(coords + k); }, n, &q, &idx);
-  if (idx < n && __ldg(coords + idx) == q) atomicAdd(dvalues + idx, g);
+                      float* __restrict__ dvalues, long long nq, int vec,
+                      int* __restrict__ staged) {
+  __shared__ int s_coords[kBwdCapacity];
+  __shared__ BwdRuns<kBwdList> runs;
+  __shared__ int s_min[kBwdWarps], s_max[kBwdWarps], s_win[2];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long t0 = static_cast<long long>(blockIdx.x) * kBwdSpan;
+  const long long t1 = min((nq + kBwdTile - 1) / kBwdTile, t0 + kBwdSpan);
+  int q[kBwdPer];
+  float g[kBwdPer];
+  const bool vector0 = vec && (t0 + 1) * kBwdTile <= nq;
+  bwd_load_grad(grad, t0 * kBwdTile, nq, vector0, g);
+  bwd_load_queries(queries, t0 * kBwdTile, vector0, g, q);
+
+  // the CTA's range [start, start + m), and the entries just outside it
+  // (INT_MIN / INT_MAX past the stream's ends); none without a query
+  int qmin = INT_MAX, qmax = INT_MIN;
+  bool any = false;
+#pragma unroll
+  for (int e = 0; e < kBwdPer; ++e) {
+    if (g[e] != 0.0f) {
+      qmin = min(qmin, q[e]);
+      qmax = max(qmax, q[e]);
+      any = true;
+    }
+  }
+  int start = 0, m = 0, below = INT_MAX, above = INT_MIN;
+  bool in_smem = false;
+  if (__syncthreads_or(any)) {
+    qmin = __reduce_min_sync(kFull, qmin);
+    qmax = __reduce_max_sync(kFull, qmax);
+    if (lane == 0) {
+      s_min[warp] = qmin;
+      s_max[warp] = qmax;
+    }
+    __syncthreads();
+    if (warp < 2) {
+      int v = warp == 0 ? INT_MAX : INT_MIN;
+      if (lane < kBwdWarps) v = warp == 0 ? s_min[lane] : s_max[lane];
+      const int b = warp == 0
+          ? warp_bound<false>(coords, n, __reduce_min_sync(kFull, v), lane)
+          : warp_bound<true>(coords, n, __reduce_max_sync(kFull, v), lane);
+      if (lane == 0) s_win[warp] = b;
+    }
+    __syncthreads();
+    const int lo = s_win[0];
+    const int hi = max(s_win[1], lo);
+    in_smem = hi - lo <= kBwdCapacity;
+    if (in_smem) {
+      start = max(0, lo - (kBwdCapacity - (hi - lo)) / 2);
+      const int end = min(n, start + kBwdCapacity);
+      start = max(0, end - kBwdCapacity);
+      m = end - start;
+      for (int i = threadIdx.x; i < m; i += kBwdThreads)
+        cp_async4(s_coords + i, coords + start + i);
+      cp_async_wait_all();
+    } else {
+      start = lo;
+      m = hi - lo;
+    }
+    below = start > 0 ? __ldg(coords + start - 1) : INT_MIN;
+    above = start + m < n ? __ldg(coords + start + m) : INT_MAX;
+  }
+
+  int warp_staged = 0;
+  for (long long t = t0; t < t1; ++t) {
+    if (t > t0) {
+      const bool vector = vec && (t + 1) * kBwdTile <= nq;
+      bwd_load_grad(grad, t * kBwdTile, nq, vector, g);
+      bwd_load_queries(queries, t * kBwdTile, vector, g, q);
+    }
+    int wmin = INT_MAX, wmax = INT_MIN;
+    bool mine = false;                       // a nonzero gradient here
+#pragma unroll
+    for (int e = 0; e < kBwdPer; ++e) {
+      if (g[e] != 0.0f) {
+        wmin = min(wmin, q[e]);
+        wmax = max(wmax, q[e]);
+        mine = true;
+      }
+    }
+    if (!__any_sync(kFull, mine)) continue;
+    wmin = __reduce_min_sync(kFull, wmin);
+    wmax = __reduce_max_sync(kFull, wmax);
+    const bool inside = below < wmin && wmax < above;
+    if (inside && in_smem) {
+      ++warp_staged;
+      bwd_merge_flush<2>(q, g, runs, [&](const int (&key)[2],
+                                      const float (&sum)[2], unsigned live) {
+        int idx[2];
+        lower_bounds<2>([&](int i) { return s_coords[i]; }, m, key, idx);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (((live >> e) & 1u) && idx[e] < m && s_coords[idx[e]] == key[e])
+            atomicAdd(dvalues + start + idx[e], sum[e]);
+      });
+    } else {
+      // device memory: the CTA's wide window, or the whole stream
+      const int* wc = inside ? coords + start : coords;
+      const int wm = inside ? m : n;
+      bwd_merge_flush<2>(q, g, runs, [&](const int (&key)[2],
+                                      const float (&sum)[2], unsigned live) {
+        int idx[2];
+        lower_bounds<2>([&](int i) { return __ldg(wc + i); }, wm, key, idx);
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (((live >> e) & 1u) && idx[e] < wm
+              && __ldg(wc + idx[e]) == key[e])
+            atomicAdd(dvalues + (wc - coords) + idx[e], sum[e]);
+      });
+    }
+  }
+  if (staged != nullptr && lane == 0 && warp_staged > 0)
+    atomicAdd(staged, warp_staged);
 }
 
 }  // namespace
@@ -276,18 +414,26 @@ extern "C" int coo_gather_launch(const void* coords, const void* values,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dvalues: n floats, zeroed by the caller; the kernel adds into it.
-extern "C" int coo_gather_bwd_launch(const void* coords, int n,
+// dvalues: n floats, zeroed by the caller; the kernel adds into it. tile,
+// capacity, span, blocks: the wrapper's plan (`coo_bwd_plan`), which must
+// agree with kBwdTile, kBwdCapacity and kBwdSpan and cover nq; vec: 1
+// where queries and grad are 16-byte aligned; staged: nullptr, or an int
+// the kernel adds the (tile, warp) pairs it searched in shared memory to.
+extern "C" int coo_gather_bwd_launch(const void* coords, int n, int tile,
+                                     int capacity, int span,
+                                     long long blocks, int vec,
                                      const void* queries, const void* grad,
                                      void* dvalues, long long nq,
-                                     void* stream) {
-  const long long blocks = (nq + kThreads - 1) / kThreads;
-  if (n < 1 || blocks > INT_MAX)
+                                     void* staged, void* stream) {
+  if (n < 1 || tile != kBwdTile || capacity != kBwdCapacity
+      || span != kBwdSpan || blocks * kBwdSpan * kBwdTile < nq
+      || blocks > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq > 0)
-    coo_gather_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+    coo_gather_bwd_kernel<<<static_cast<unsigned>(blocks), kBwdThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(coords), n, static_cast<const int*>(queries),
-        static_cast<const float*>(grad), static_cast<float*>(dvalues), nq);
+        static_cast<const float*>(grad), static_cast<float*>(dvalues), nq,
+        vec, static_cast<int*>(staged));
   return static_cast<int>(cudaGetLastError());
 }

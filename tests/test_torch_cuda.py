@@ -20,6 +20,7 @@ from repro_torch.kernels import _build, bitmap_decode, coo_gather, fused_sample
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import volume_render as tvr
 from repro_torch.serving import RenderEngine
+from _gather_bwd_cases import CASES as BWD_CASES, EXACT, case_inputs
 from _train_bounds import adamw_first_step_excess
 from test_torch_kernel_plans import occupancy_coo_calls
 
@@ -1292,12 +1293,13 @@ def _bwd_queries(rows, cols, nq, seed, repeat):
 @pytest.mark.parametrize("rows,cols,nq", [(8, 32, 1000), (40, 70, 4096),
                                           (16, 25600, 1 << 20)])
 @pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
-@pytest.mark.parametrize("repeat", [1, 64])
+@pytest.mark.parametrize("repeat", [1, 2, 3, 31, 33, 64, 257])
 def test_bitmap_gather_bwd_kernel_matches_plain(cuda, rows, cols, nq,
                                                 density, repeat):
     """Pad slots (nnz below the padded length), queries on zeros and runs
-    of queries on one slot: the kernel's sums within the reordering bound
-    of the plain version's, exact zeros where no query reads."""
+    of queries on one slot (runs across a lane's 4 queries, a warp's 128
+    and a CTA's tile): the kernel's sums within the reordering bound of
+    the plain version's, exact zeros where no query reads."""
     w = _matrix(rows, cols, density, rows + cols + repeat)
     enc = tsparse.encode_bitmap(w, device=cuda)
     q = torch.from_numpy(_bwd_queries(rows, cols, nq, nq, repeat)).to(cuda)
@@ -1324,7 +1326,7 @@ def test_bitmap_gather_bwd_kernel_matches_plain(cuda, rows, cols, nq,
 @pytest.mark.parametrize("size,nq", [(5, 128), (1000, 4096),
                                      (409600, 1 << 20)])
 @pytest.mark.parametrize("sparsity", [0.5, 0.95, 1.0])
-@pytest.mark.parametrize("repeat", [1, 64])
+@pytest.mark.parametrize("repeat", [1, 2, 3, 31, 33, 64, 257])
 def test_coo_gather_bwd_kernel_matches_plain(cuda, size, nq, sparsity,
                                              repeat):
     """As the bitmap backward: pad entries, absent queries, repeated
@@ -1346,6 +1348,100 @@ def test_coo_gather_bwd_kernel_matches_plain(cuda, size, nq, sparsity,
     assert bool((got[enc.nnz:] == 0).all())
     if sparsity == 1.0:
         assert not bool(got.any())
+
+
+def _card_grad(g, offset, dev):
+    """g on the card, `offset` floats into a buffer of its own."""
+    buf = torch.zeros(g.shape[0] + offset, device=dev)
+    buf[offset:] = torch.from_numpy(g).to(dev)
+    return buf[offset:]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_bitmap_gather_bwd_kernel_on_contended_queries(cuda, case):
+    """tests/_gather_bwd_cases.py at 1 << 20 queries of a (16, 25,600)
+    plane slice: every query on one slot, runs across lanes, warps and
+    tiles, shuffled, zero stretches, queries past the matrix (clamped),
+    an unaligned gradient view with nq % 4 != 0; with and without the
+    rank table, against the plain version within the reordering bound,
+    the one-slot case (whole-number gradients) exactly."""
+    rows, cols = 16, 25600
+    w = _matrix(rows, cols, 0.3, 21)
+    enc = tsparse.encode_bitmap(w, device=cuda)
+    qn, gn, off = case_inputs(case, w, 1 << 20, 22, far=3 * cols)
+    q = torch.from_numpy(qn).to(cuda)
+    g = _card_grad(gn, off, cuda)
+    assert (g.data_ptr() % 16 == 0) == (off == 0)
+    n = enc.values.shape[0]
+    want = bitmap_decode.bitmap_gather_bwd_ref(enc.words, enc.rowptr, q, g,
+                                               n, cols, rank=enc.rank)
+    slot, bit = bitmap_decode.bitmap_slots(enc.words, enc.rowptr, n, q, cols,
+                                           enc.rank)
+    tol, k = _bwd_tol(slot, bit, g, n)
+    if case in EXACT:
+        tol = torch.zeros_like(tol)
+    for rank in (enc.rank, None):
+        before = bitmap_decode.bitmap_gather_bwd.launches
+        got = bitmap_decode.bitmap_gather_bwd(enc.words, enc.rowptr, q, g,
+                                              nvalues=n, cols=cols,
+                                              rank=rank)
+        torch.cuda.synchronize()
+        assert bitmap_decode.bitmap_gather_bwd.launches == before + 1
+        _check_bwd(got, want, tol, k)
+    if case == "one_slot":
+        assert int((k > 0).sum()) == 1
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_coo_gather_bwd_kernel_on_contended_queries(cuda, case):
+    """The same cases on a COO (16, 25,600) slice at 5% density (1,280
+    entries a row, below the staging capacity): queries above the last
+    coordinate are absent; every warp's tile of the ascending runs is
+    searched in its CTA's staged range (a CTA's queries span a
+    sixteenth of the stream), none of the shuffled and wide streams
+    (windows far over the capacity), each as `bwd_search_counts`
+    predicts; the one-slot case exactly."""
+    w = _matrix(16, 25600, 0.05, 23)
+    enc = tsparse.encode_coo(w, device=cuda)
+    qn, gn, off = case_inputs(case, w, 1 << 20, 24, far=10 ** 6)
+    q = torch.from_numpy(qn).to(cuda)
+    g = _card_grad(gn, off, cuda)
+    want = coo_gather.coo_gather_bwd_ref(enc.coords, q, g)
+    slot, found = coo_gather.coo_slots(enc.coords, q)
+    tol, k = _bwd_tol(slot, found, g, enc.coords.shape[0])
+    if case in EXACT:
+        tol = torch.zeros_like(tol)
+    before = coo_gather.coo_gather_bwd.launches
+    got, staged = coo_gather.coo_gather_bwd_staged(enc.coords, q, g)
+    assert coo_gather.coo_gather_bwd.launches == before + 1
+    _check_bwd(got, want, tol, k)
+    _check_bwd(coo_gather.coo_gather_bwd(enc.coords, q, g), want, tol, k)
+    predicted, live = coo_gather.bwd_search_counts(enc.coords, q, g)
+    assert staged == predicted
+    if case.startswith("runs_") or case == "one_slot":
+        assert staged == live > 0
+    if case in ("shuffled", "wide"):
+        assert staged == 0
+
+
+def test_coo_gather_bwd_kernel_partly_staged(cuda):
+    """Ascending runs of 3 on a 10% dense slice (2,560 entries a row): a
+    CTA's queries span more coordinates than its staged range, so some
+    warp tiles search there and the rest in device memory, in one
+    launch; the sums within the reordering bound either way."""
+    w = _matrix(16, 25600, 0.1, 23)
+    enc = tsparse.encode_coo(w, device=cuda)
+    qn, gn, _ = case_inputs("runs_3", w, 1 << 20, 24, far=10 ** 6)
+    q = torch.from_numpy(qn).to(cuda)
+    g = torch.from_numpy(gn).to(cuda)
+    want = coo_gather.coo_gather_bwd_ref(enc.coords, q, g)
+    slot, found = coo_gather.coo_slots(enc.coords, q)
+    tol, k = _bwd_tol(slot, found, g, enc.coords.shape[0])
+    got, staged = coo_gather.coo_gather_bwd_staged(enc.coords, q, g)
+    _check_bwd(got, want, tol, k)
+    predicted, live = coo_gather.bwd_search_counts(enc.coords, q, g)
+    assert staged == predicted
+    assert 0 < staged < live
 
 
 def test_gather_bwd_wrappers_validate_cuda_inputs(cuda):

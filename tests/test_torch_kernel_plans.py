@@ -108,9 +108,12 @@ def test_coo_gather_staged_count_needs_the_kernel():
 
 def _cu_constants(name):
     """The file-scope `constexpr int` values of a kernel source (those at
-    the start of a line), in order, each evaluated over the earlier ones."""
+    the start of a line), in order, each evaluated over the earlier ones
+    and those of the headers of csrc/ that it includes."""
     text = (_build.CSRC / name).read_text()
     consts = {}
+    for header in re.findall(r'^#include "(\w+\.cuh)"', text, re.M):
+        consts.update(_cu_constants(header))
     for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text,
                                 re.M):
         consts[key] = eval(expr.replace("/", "//"), {}, dict(consts))
@@ -122,6 +125,11 @@ def _cu_constants(name):
     ("coo_gather.cu", "kPer", lambda: coo_gather.PER_THREAD),
     ("coo_gather.cu", "kTile", lambda: coo_gather.TILE),
     ("coo_gather.cu", "kCapacity", lambda: coo_gather.CAPACITY),
+    ("coo_gather.cu", "kBwdCapacity", lambda: coo_gather.BWD_CAPACITY),
+    ("coo_gather.cu", "kBwdSpan", lambda: coo_gather.BWD_SPAN),
+    ("gather_bwd.cuh", "kBwdThreads", lambda: coo_gather.BWD_THREADS),
+    ("coo_gather.cu", "kBwdPer", lambda: coo_gather.BWD_PER_THREAD),
+    ("coo_gather.cu", "kBwdTile", lambda: coo_gather.BWD_TILE),
     ("bitmap_matmul.cu", "kThreads", lambda: bitmap_decode.MATMUL_THREADS),
     ("bitmap_matmul.cu", "kChunkWords",
      lambda: bitmap_decode.MATMUL_THREADS),
