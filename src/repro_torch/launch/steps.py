@@ -13,8 +13,8 @@ DTensor is redistributed). The params must be placed already
 (`models.sharding.place_params`). The train step on such a mesh takes
 placed params and optimizer state and places its batch the same way;
 its gradients cross the ranks through the port's own collectives (the
-transposes of `models.sharding.redistribute`'s), for the dense and MoE
-trunks (the others are ROADMAP.md Queue 1 item 10d2)."""
+transposes of `models.sharding.redistribute`'s), for every trunk: dense,
+MoE, encoder-decoder, the Mamba2 hybrid and RWKV6."""
 from __future__ import annotations
 
 from typing import Dict, List, Tuple
@@ -27,7 +27,7 @@ from repro_torch.models import transformer as tf
 from repro_torch.models.common import (MetaMaker, TensorSpec, log_parse,
                                        split_pl, tree_map)
 from repro_torch.models.sharding import (AxisRules, is_dtensor,
-                                         mesh_context, mesh_size, on_ranks,
+                                         mesh_context, mesh_size,
                                          place, place_tree, placed_zeros,
                                          placements, redistribute,
                                          resolve_spec, use_rules, whole)
@@ -174,15 +174,7 @@ def build_train_step(cfg: ModelConfig, rules: AxisRules, opt: Optimizer,
     are cut); every gradient is placed as its param, as the reference's
     `constrain_grads` / `param_sh` pin does (`param_sh` itself is not
     needed: the placements travel with the params), and the new params
-    and state keep the placements of the old. The enc-dec, hybrid and
-    RWKV6 trunks raise NotImplementedError there when the step is built
-    (ROADMAP.md Queue 1 item 10d2)."""
-    if on_ranks(rules) and (cfg.enc_dec or cfg.family in ("hybrid", "ssm")):
-        raise NotImplementedError(
-            f"{cfg.name}: a train step on a mesh of "
-            f"{mesh_size(rules.mesh)} ranks is ROADMAP.md Queue 1 item 10d2 "
-            f"(the enc-dec, hybrid and RWKV6 trunks)")
-
+    and state keep the placements of the old."""
     def train_step(params, opt_state, batch):
         with use_rules(rules), mesh_context():
             if cfg.grad_accum > 1:

@@ -10,7 +10,9 @@ the ("embed",)-split mixing vectors and norm parameters are gathered
 whole before they meet the batch-split activations, and the WKV
 recurrence with its per-head group norm runs on each rank's batch rows
 and heads (`_wkv_shards`): its state is split by batch and heads, as the
-reference's cache spec `"stack|batch|heads||"` places it.
+reference's cache spec `"stack|batch|heads||"` places it. Under autograd
+the heads' u and group-norm leaves get their gradients summed over the
+ranks of the batch rows, in float32.
 """
 from __future__ import annotations
 
@@ -116,9 +118,11 @@ def _wkv(r, k, v, w, g, u, gn_g, gn_b, wkv0, eps, dtype):
 def _wkv_shards(p, r, k, v, w, g, wkv0, eps, dtype):
     """`_wkv` on a mesh of several ranks: each rank runs its batch rows and
     heads (the mesh dims that split r along dims 0 and 2; every other
-    dim whole), with its heads of u and the group norm, and the results
-    are wrapped back into DTensors: y split as r, the state (B,H,hd,hd)
-    by batch and heads. One rank: `_wkv` as it is."""
+    dim whole), with its heads of u and the group norm (in float32: under
+    autograd their gradients are partial sums over the rows' ranks, then
+    reduced in float32), and the results are wrapped back into DTensors:
+    y split as r, the state (B,H,hd,hd) by batch and heads. One rank:
+    `_wkv` as it is."""
     if not is_dtensor(r):
         return _wkv(r, k, v, w, g, p["u"], p["gn_g"], p["gn_b"], wkv0, eps,
                     dtype)
@@ -130,7 +134,8 @@ def _wkv_shards(p, r, k, v, w, g, wkv0, eps, dtype):
     head_pls = tuple(Shard(0) if q.is_shard() and q.dim == 2 else Replicate()
                      for q in pls)
     y, s_wkv = _wkv(*(local_of(t, pls) for t in (r, k, v, w, g)),
-                    *(local_of(p[n], head_pls) for n in ("u", "gn_g", "gn_b")),
+                    *(local_of(p[n], head_pls, out=pls, dtype=torch.float32)
+                      for n in ("u", "gn_g", "gn_b")),
                     None if wkv0 is None else local_of(wkv0, state_pls),
                     eps, dtype)
     B, _, H, hd = r.shape

@@ -19,6 +19,11 @@ places it) and its output is gathered; the scan, whose state h the
 reference's spec keeps whole over "model", runs on every head; and the
 gated norm's gain multiplies the rank's columns of `out_proj`'s split
 only, so that the out-projection's partial sums need no gather first.
+Under autograd (the train step) every piece a rank takes whole over the
+norm's column axes (the projection, the per-head leaves, the gathered
+conv output) has a partial gradient there, as the rank goes on with its
+own columns only (`local_of(out=)`, `_Shards.out`); those pieces are
+taken in float32, so that their partial sums are reduced in float32.
 """
 from __future__ import annotations
 
@@ -30,8 +35,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import Maker, TensorSpec
 from repro_torch.models.sharding import (contract, from_local_like,
-                                         is_dtensor, local_of, local_slices,
-                                         whole)
+                                         is_dtensor, local_of, local_slices)
 
 SSD_CHUNK = 128
 
@@ -101,8 +105,9 @@ class _Shards:
     """This rank's share of a Mamba2 block on a mesh of several ranks.
 
     `proj` is the in-projection's output on this rank's batch rows (the
-    mesh dims that split its dim 0), whole along every other dim; `p`
-    holds the replicated per-head leaves (a_log, d_skip, dt_bias), and
+    mesh dims that split its dim 0), whole along every other dim (float32
+    under autograd); `p` holds the replicated per-head leaves (a_log,
+    d_skip, dt_bias), and
     `state` gives a decode state's leaf on those rows. `conv` runs the
     causal conv on the rank's channels and gathers its output, `norm`
     returns the gated norm on the rank's columns of the out-projection
@@ -115,13 +120,29 @@ class _Shards:
         if not self.ranks:
             self.p, self.proj = p, zxbcdt
             return
-        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import Partial, Replicate, Shard
         self.dm = zxbcdt.device_mesh
         self.B, self.S = zxbcdt.shape[:2]
         self.rows = tuple(Shard(0) if q.is_shard() and q.dim == 0
                           else Replicate() for q in zxbcdt.placements)
-        self.proj = local_of(zxbcdt, self.rows)
-        self.p = {k: whole(p[k]) for k in ("a_log", "d_skip", "dt_bias")}
+        # what the ranks compute from a shard whole over their columns:
+        # their rows, and, over the mesh dims that split the gated norm's
+        # columns, results that differ (each rank goes on with its own
+        # columns only), so that a gradient there is a partial sum
+        self.out = tuple(Partial() if q.is_shard() and r.is_replicate()
+                         else r
+                         for r, q in zip(self.rows, p["norm"].placements))
+        # under autograd the pieces whose gradients are partial sums are
+        # taken in float32 (each use widens them anyway, or the conv casts
+        # its input back), so that those sums are reduced in float32 and
+        # round once, as on one device
+        self.dtype = zxbcdt.dtype
+        self.wide = torch.float32 if torch.is_grad_enabled() else None
+        self.proj = local_of(zxbcdt, self.rows, out=self.out,
+                             dtype=self.wide)
+        self.p = {k: local_of(p[k], (Replicate(),) * self.dm.ndim,
+                              out=self.out, dtype=self.wide)
+                  for k in ("a_log", "d_skip", "dt_bias")}
 
     def _cols(self, leaf):
         """(placements of a (B, S, C) activation whose C splits as the
@@ -158,12 +179,14 @@ class _Shards:
         act, own, cut = self._cols(self.w["conv_b"])
         w_own = tuple(Shard(1) if q.is_shard() else q for q in own)
         y, st = _causal_conv(
-            xbc[..., cut], local_of(self.w["conv_w"], w_own),
-            local_of(self.w["conv_b"], own),
+            xbc[..., cut].to(self.dtype),
+            local_of(self.w["conv_w"], w_own, out=act),
+            local_of(self.w["conv_b"], own, out=act),
             None if conv_state is None else local_of(conv_state, act))
         C = xbc.shape[-1]
         y = local_of(from_local_like(y, act, (self.B, y.shape[1], C),
-                                     self.dm), self.rows)
+                                     self.dm), self.rows, out=self.out,
+                     dtype=self.wide)
         return y, from_local_like(st, act, (self.B, st.shape[1], C),
                                   self.dm)
 
@@ -171,7 +194,7 @@ class _Shards:
         if not self.ranks:
             return _gated_norm(y, z, self.w["norm"], eps)
         act, own, cut = self._cols(self.w["norm"])
-        g = local_of(self.w["norm"], own)
+        g = local_of(self.w["norm"], own, out=act, dtype=self.wide)
         yl = (_gated(y, z, eps)[..., cut] * g.float()).to(y.dtype)
         return from_local_like(yl, act, (self.B, y.shape[1], y.shape[-1]),
                                self.dm)

@@ -33,10 +33,11 @@ mesh) the entry points take params placed by `sharding.place_params`
 and run on DTensors, for every trunk: dense, MoE (GQA or MLA),
 encoder-decoder, the Mamba2 hybrid and RWKV6. Logits and caches come
 back as DTensors; the recurrent states are written into each rank's own
-shard of the cache (`_put`). `model_loss` is differentiated there too
-(the dense and MoE trunks' train step): its backward moves gradients
-only through `models.sharding`'s collectives, and its loss and metrics
-are plain tensors, equal on every rank.
+shard of the cache (`_put`, decode only: the training forward writes
+nothing in place). `model_loss` is differentiated there too, for every
+trunk (the train step): its backward moves gradients only through
+`models.sharding`'s collectives, and its loss and metrics are plain
+tensors, equal on every rank.
 """
 from __future__ import annotations
 

@@ -298,8 +298,9 @@ def lm_job(rank, world, p):
     teacher-forced decode steps' logits; the cache's shapes after them;
     `model_loss` on a train batch (a hybrid arch's also with the chunked
     SSD); float32 `serve_lm`'s greedy tokens; `init_model(rules=)`
-    against `place_params` of the whole draw; and the error that
-    `build_train_step` raises on the mesh."""
+    against `place_params` of the whole draw; whether `build_train_step`
+    builds for reduced rwkv6-1.6b on the mesh; then the train cases of
+    p["train"] (`train_cases`) on the archs' params and loss batches."""
     from repro_torch.configs import registry as treg
     from repro_torch.launch import serve, steps
     from repro_torch.models import transformer as tf
@@ -380,12 +381,14 @@ def lm_job(rank, world, p):
                 r["serve_logits"] = [t.float().numpy() for t in seen]
                 r["serve_out"] = buf.getvalue()
             out["archs"][f"{name}/{dtype}"] = r
-    out["train_step"] = None
-    try:
-        steps.build_train_step(treg.reduced(treg.ARCHS["rwkv6-1.6b"]),
-                               rules, adamw(1e-3))
-    except NotImplementedError as e:
-        out["train_step"] = str(e)
+    out["train_step"] = callable(steps.build_train_step(
+        treg.reduced(treg.ARCHS["rwkv6-1.6b"]), rules, adamw(1e-3)))
+    # the train cases (`train_cases`) on the same mesh, each arch's params
+    # and loss batch
+    out["cases"] = train_cases(rules, {
+        name: {"params": a["params"], "batch": a["loss_batch"],
+               "capacity_factor": a["capacity_factor"]}
+        for name, a in p["archs"].items()}, p.get("train", {}))
     return out
 
 
@@ -424,27 +427,33 @@ def _functional(fn):
 
 
 def lm_train_job(rank, world, p):
-    """Each of p["cases"] on the world's (data, model) mesh: the arch's
-    reduced config (capacity `capacity_factor`, `grad_accum`), its params
-    in `dtype` placed by `place_params` and its batch by `batch_spec`;
-    with `grads`, `loss_and_grads` (the loss, metrics, every gradient
-    whole and each gradient's local shape); with `opt`, one
-    `build_train_step` step of that optimizer on placed params and state
-    (its metrics, the new params and state whole, the local shapes of the
-    state before and after, the bytes of this rank's params and state
-    against the whole). The collectives of each are recorded."""
+    """`train_cases` of p["cases"] on the world's (data, model) mesh."""
+    from repro_torch.models.sharding import make_rules
+    mesh = _lm_mesh(p["mesh"])
+    return {"mesh": dict(mesh.shape),
+            "cases": train_cases(make_rules(mesh), p["archs"], p["cases"])}
+
+
+def train_cases(rules, archs, cases):
+    """Each of `cases` on the mesh of `rules`: the arch's reduced config
+    (capacity `capacity_factor`, `grad_accum`), its params (`archs`) in
+    `dtype` placed by `place_params` and its batch by `batch_spec`; with
+    `grads`, `loss_and_grads` (the loss, metrics, every gradient whole
+    and each gradient's local shape); with `opt`, one `build_train_step`
+    step of that optimizer on placed params and state (its metrics, the
+    new params and state whole, the local shapes of the state before and
+    after, the bytes of this rank's params and state against the whole).
+    The collectives of each are recorded."""
     from repro_torch import optim
     from repro_torch.configs import registry as treg
     from repro_torch.launch import steps
     from repro_torch.models import transformer as tf
     from repro_torch.optim.optimizers import tree_leaves
-    from repro_torch.models.sharding import (is_dtensor, make_rules,
-                                             place_params, use_rules)
-    mesh = _lm_mesh(p["mesh"])
-    rules = make_rules(mesh)
-    out = {"mesh": dict(mesh.shape), "cases": {}}
-    for key, case in p["cases"].items():
-        a = p["archs"][case["arch"]]
+    from repro_torch.models.sharding import (is_dtensor, place_params,
+                                             use_rules)
+    out = {}
+    for key, case in cases.items():
+        a = archs[case["arch"]]
         cfg = dataclasses.replace(treg.reduced(treg.ARCHS[case["arch"]]),
                                   capacity_factor=a["capacity_factor"],
                                   grad_accum=case.get("accum", 1))
@@ -491,7 +500,7 @@ def lm_train_job(rank, world, p):
                 held += t.to_local().numel() * t.element_size()
                 whole += t.numel() * t.element_size()
             r["bytes"] = (held, whole)
-        out["cases"][key] = r
+        out[key] = r
     return out
 
 
@@ -572,9 +581,7 @@ def _grad_case(case, rules):
     from repro_torch.models import attention as attn
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
-    from repro_torch.models.common import tree_map
-    from repro_torch.models.sharding import (contract, pick_last,
-                                             place_params, whole)
+    from repro_torch.models.sharding import contract, pick_last, whole
     kind = case["kind"]
     if kind == "redistribute":
         return _redistribute_case(case, rules)
@@ -611,23 +618,85 @@ def _grad_case(case, rules):
         loss = _loss((o, case["w"]))
         leaves = {"q": q, "k": k, "v": v}
     elif kind == "moe":
-        from repro_torch.configs import registry as treg
         cfg = dataclasses.replace(
-            treg.reduced(treg.ARCHS[case["arch"]]),
-            moe_dispatch=case["dispatch"], capacity_factor=case["capacity"])
-        p = tree_map(lambda a: torch.from_numpy(a), case["params"])
-        if rules is not None:
-            p = place_params(p, case["logical"], rules)
-        p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+            _reduced(case), moe_dispatch=case["dispatch"],
+            capacity_factor=case["capacity"])
+        p, leaves = _params_on_mesh(case, rules)
         x = _on_mesh(case["x"], ("batch", "seq", None), rules, False)
         y, aux = moe.moe_forward(p, cfg, x)
         loss = _loss((y, case["w"])) + case["aux_weight"] * whole(aux)
-        leaves = {"x": x, **{f"p/{k}": t for k, t in p.items()}}
+        leaves["x"] = x
+    elif kind == "mamba":
+        from repro_torch.models import ssm
+        p, leaves = _params_on_mesh(case, rules)
+        x = _on_mesh(case["x"], ("batch", "seq", None), rules, False)
+        y, _ = ssm.mamba2_forward(p, _reduced(case), x, impl=case["impl"])
+        loss = _loss((y, case["w"]))
+        leaves["x"] = x
+    elif kind == "wkv":
+        from repro_torch.models import rwkv
+        p, leaves = _params_on_mesh(case, rules)
+        act = ("batch", "seq", "heads", "head_dim")
+        names = ("r", "k", "v", "decay", "g")
+        rkvwg = [_on_mesh(case[n], act, rules, False) for n in names]
+        y, _ = rwkv._wkv_shards(p, *rkvwg, None, 1e-5, torch.float32)
+        loss = _loss((y, case["w"]))
+        leaves.update(zip(names, rkvwg))
+    elif kind == "rwkv_layer":
+        from repro_torch.models import rwkv
+        p, leaves = _params_on_mesh(case, rules)
+        x = _on_mesh(case["x"], ("batch", "seq", None), rules, False)
+        y, _ = rwkv.rwkv6_forward(p, _reduced(case), x)
+        loss = _loss((y, case["w"]))
+        leaves["x"] = x
+    elif kind == "encode":
+        p, leaves = _params_on_mesh(case, rules)
+        frames = torch.from_numpy(case["frames"])
+        if rules is not None:
+            frames = _on_mesh(case["frames"], ("batch", "seq", None), rules,
+                              False).detach()
+        loss = _loss((tf._encode(p, _reduced(case), frames), case["w"]))
+    elif kind == "cross":
+        p, leaves = _params_on_mesh(case, rules)
+        x = _on_mesh(case["x"], ("batch", "seq_model", None), rules, False)
+        memory = _on_mesh(case["memory"], ("batch", "seq", None), rules,
+                          False)
+        y = attn.cross_forward(p, _reduced(case), x, memory)
+        loss = _loss((y, case["w"]))
+        leaves.update(x=x, memory=memory)
     else:
         raise ValueError(kind)
     names = list(leaves)
     grads = torch.autograd.grad(loss, [leaves[n] for n in names])
     return {n: whole(g).detach().numpy() for n, g in zip(names, grads)}
+
+
+def _reduced(case):
+    """The reduced config of the case's arch."""
+    from repro_torch.configs import registry as treg
+    return treg.reduced(treg.ARCHS[case["arch"]])
+
+
+def _params_on_mesh(case, rules):
+    """The case's param tree (numpy) as leaves that autograd tracks,
+    placed by `place_params` on the mesh of `rules` (None: one process),
+    and those leaves by path ("p/<key>/<key>...")."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.sharding import place_params
+    p = tree_map(lambda a: torch.from_numpy(a), case["params"])
+    if rules is not None:
+        p = place_params(p, case["logical"], rules)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), p)
+    leaves = {}
+
+    def walk(prefix, t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(f"{prefix}/{k}", v)
+        else:
+            leaves[prefix] = t
+    walk("p", p)
+    return p, leaves
 
 
 def grad_cases(cases, rules):

@@ -31,10 +31,8 @@ results are the oracle: they are what GSPMD must compute.
 Each world is spawned once (`_torch_mesh_ranks.lm_job`) while this
 process computes the reference's results (`run_worlds`, which
 `tests/test_torch_lm_mesh_trunks.py` runs for the enc-dec, hybrid and
-RWKV trunks). Every world also builds a train step for reduced
-rwkv6-1.6b, a trunk whose train step across ranks is still to come: it
-must refuse the mesh naming ROADMAP.md Queue 1 item 10d2 (the dense and
-MoE trunks train across ranks: `tests/test_torch_lm_mesh_train.py`)."""
+RWKV trunks, with their train steps). Every world also builds a train
+step for reduced rwkv6-1.6b: it must build on the mesh."""
 import contextlib
 import dataclasses
 import io
@@ -345,10 +343,12 @@ def _one_process(name, case) -> str:
     return buf.getvalue()
 
 
-def run_worlds(tmp, archs, during=None):
-    """Start every world on `archs`, compute the reference's results (and
-    call `during()`, whose result is kept under "during") while they run,
-    then collect the ranks."""
+def run_worlds(tmp, archs, during=None, train=None):
+    """Start every world on `archs` (and, with `train`, the train cases
+    `train(world)` after the serving runs: `_torch_mesh_ranks.train_cases`
+    on the archs' params and loss batches), compute the reference's
+    results (and call `during(cases)`, whose result is kept under
+    "during") while they run, then collect the ranks."""
     cases = {name: _case(name) for name in archs}
     started = {}
     for key, shape in WORLDS.items():
@@ -357,11 +357,12 @@ def run_worlds(tmp, archs, during=None):
         started[key] = ranks.start(ranks.lm_job, shape[0] * shape[1], wdir,
                                    {"mesh": shape, "B": B, "P": P,
                                     "n_decode": N_DECODE, "gen": N_DECODE,
-                                    "archs": cases})
+                                    "archs": cases,
+                                    "train": train(key) if train else {}})
     try:
         want = {name: _reference(name, cases[name]) for name in archs}
         one = {name: _one_process(name, cases[name]) for name in archs}
-        extra = during() if during is not None else None
+        extra = during(cases) if during is not None else None
     finally:
         out = {k: ranks.join(s, timeout_s=400.0) for k, s in started.items()}
     return {"ranks": out, "want": want, "one_process": one,
@@ -529,16 +530,14 @@ def test_launcher_refuses_fleet_workers_under_torchrun_naming_item_10g(
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_train_step_refuses_several_ranks_naming_item_10d(worlds, world):
-    """`build_train_step` for reduced rwkv6-1.6b on a mesh of several ranks
-    raises NotImplementedError when it is built, naming ROADMAP.md Queue 1
-    item 10d2 (the enc-dec, hybrid and RWKV6 trunks' train step across
-    ranks), on every rank; the dense and MoE trunks' is item 10d, done."""
+def test_train_step_builds_on_several_ranks_for_rwkv6(worlds, world):
+    """`build_train_step` for reduced rwkv6-1.6b builds on a mesh of
+    several ranks, on every rank: every trunk trains across ranks (the
+    dense and MoE trunks: `tests/test_torch_lm_mesh_train.py`; the
+    enc-dec, hybrid and RWKV6 trunks:
+    `tests/test_torch_lm_mesh_trunks.py`)."""
     for r in worlds["ranks"][world]:
-        msg = r["train_step"]
-        assert msg is not None, "build_train_step did not raise"
-        assert "Queue 1 item 10d2" in msg and "rwkv6" in msg
-        assert f"a mesh of {WORLDS[world][0] * WORLDS[world][1]} ranks" in msg
+        assert r["train_step"] is True
 
 
 def test_train_launcher_refuses_torchrun_naming_item_10d(monkeypatch,

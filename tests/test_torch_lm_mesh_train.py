@@ -38,8 +38,9 @@ import torch
 
 import _torch_mesh_ranks as ranks
 import test_torch_lm_mesh as lm_mesh
-from _lm_parity import (carry_batch, close_adamw_first_step, close_leaves,
-                        f32, leaf_items, train_batch)
+from _lm_parity import (RWKV_F32_GRAD_TOL, carry_batch,
+                        close_adamw_first_step, close_leaves, f32, leaf_items,
+                        train_batch)
 from repro import optim as joptim
 from repro.launch import elastic as jelastic
 from repro.launch import steps as jsteps
@@ -92,47 +93,53 @@ def _jrules():
 
 
 def _ref_step(jcfg, which, jp, jb, accum=1):
-    """The reference's jitted train step of optimizer `which`."""
+    """The reference's jitted train step of optimizer `which` (the
+    enc-dec's op by op: ROADMAP.md Queue 3 item 18)."""
     jcfg = dataclasses.replace(jcfg, grad_accum=accum)
     opt = ranks.train_opt(joptim, which)
-    return jax.jit(jsteps.build_train_step(jcfg, _jrules(), opt))(
-        jp, opt.init(jp), jb)
+    with lm_mesh._eager(jcfg):
+        return jax.jit(jsteps.build_train_step(jcfg, _jrules(), opt))(
+            jp, opt.init(jp), jb)
 
 
-def _reference(name, arch):
+def reference(name, arch, adafactor=None, sgd=None, accum=None):
     """The reference's float32 loss, metrics, gradients and AdamW step on
-    the arch's params and batch (the extra optimizers on 2 x 2's archs),
-    and its specs of the params and AdamW / adafactor state on shape-only
-    meshes of each world."""
+    the arch's params and batch (the enc-dec's op by op), the extra
+    optimizers of the 2 x 2 world (default: as this file's archs take
+    them; `accum`: grad_accum=2 with sgd), and its specs of the params and
+    AdamW / adafactor state on shape-only meshes of each world."""
     jcfg, _ = lm_mesh._cfgs(name)
     jp = jax.tree.map(jnp.asarray, arch["params"])
     jb = {k: jnp.asarray(v) for k, v in arch["batch"].items()}
-    (_, metrics), grads = jax.jit(jax.value_and_grad(
-        lambda p: jtf.model_loss(p, jcfg, jb), has_aux=True))(jp)
+    with lm_mesh._eager(jcfg):
+        (_, metrics), grads = jax.jit(jax.value_and_grad(
+            lambda p: jtf.model_loss(p, jcfg, jb), has_aux=True))(jp)
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "grads": grads, "adamw": _ref_step(jcfg, "adamw", jp, jb)}
-    if name in ADAFACTOR:
+    if name in ADAFACTOR if adafactor is None else adafactor:
         out["adafactor"] = _ref_step(jcfg, "adafactor", jp, jb)
-    if name in SGD:
+    if name in SGD if sgd is None else sgd:
         out["sgd"] = _ref_step(jcfg, "sgd", jp, jb)
-    if name == ACCUM[0]:
+    if name == ACCUM[0] if accum is None else accum:
         out["accum"] = _ref_step(jcfg, "sgd", jp, jb, accum=ACCUM[1])
     out["shapes"] = {w: _state_shapes(jcfg, dict(zip(("data", "model"), s)))
                      for w, s in WORLDS.items()}
     return out
 
 
-def _bf16_reference(arch):
-    """llama3.2-1b in bf16: the reference's jitted bf16 loss, the
-    reference's float32 gradients of the bf16-rounded params (the truth of
-    the noise rule) and the port's one-process bf16 gradients."""
-    jcfg, tcfg = lm_mesh._cfgs("llama3.2-1b")
+def bf16_reference(name, arch):
+    """An arch in bf16: the reference's jitted bf16 loss (the enc-dec's op
+    by op), the reference's float32 gradients of the bf16-rounded params
+    (the truth of the noise rule) and the port's one-process bf16
+    gradients."""
+    jcfg, tcfg = lm_mesh._cfgs(name)
     jb = {k: jnp.asarray(v) for k, v in arch["batch"].items()}
     bf = jax.tree.map(lambda a: jnp.asarray(a).astype(jnp.bfloat16),
                       arch["params"])
-    loss = float(jax.jit(lambda p: jtf.model_loss(p, jcfg, jb)[0])(bf))
-    truth = jax.jit(jax.grad(lambda p: jtf.model_loss(p, jcfg, jb)[0]))(
-        jax.tree.map(lambda a: a.astype(jnp.float32), bf))
+    with lm_mesh._eager(jcfg):
+        loss = float(jax.jit(lambda p: jtf.model_loss(p, jcfg, jb)[0])(bf))
+        truth = jax.jit(jax.grad(lambda p: jtf.model_loss(p, jcfg, jb)[0]))(
+            jax.tree.map(lambda a: a.astype(jnp.float32), bf))
     _, _, one = tsteps.loss_and_grads(
         tcfg, ttf.params_from_numpy(arch["params"], device="cpu",
                                     dtype=torch.bfloat16),
@@ -189,8 +196,9 @@ def runs(tmp_path_factory):
                                    wdir, {"mesh": shape, "archs": archs,
                                           "cases": _cases(key)})
     try:
-        want = {name: _reference(name, archs[name]) for name in ARCHS}
-        bf16 = _bf16_reference(archs["llama3.2-1b"])
+        want = {name: reference(name, archs[name]) for name in ARCHS}
+        bf16 = {"llama3.2-1b": bf16_reference("llama3.2-1b",
+                                              archs["llama3.2-1b"])}
     finally:
         out = {k: ranks.join(s, timeout_s=400.0) for k, s in started.items()}
     return {"ranks": out, "want": want, "bf16": bf16}
@@ -206,6 +214,16 @@ def _got(runs, world, key):
 
 def _close_metric(got, want, what):
     assert abs(got - want) <= TOL * max(1.0, abs(want)), (what, got, want)
+
+
+def grad_tol(name):
+    """(a gradient leaf's tolerance of the arch, the leaves held to one
+    bf16 ulp instead): RWKV6's float32 gradients at Queue 3 item 23's
+    5e-4, the enc-dec encoder's first norm gain (differentiated through
+    the frames' bf16 cast) at item 24's bf16 ulp, 1e-4 otherwise."""
+    cfg = lm_mesh._cfgs(name)[0]
+    return (RWKV_F32_GRAD_TOL if cfg.family == "ssm" else TOL,
+            {"['enc']['ln1']"} if cfg.enc_dec else ())
 
 
 @pytest.mark.parametrize("world,name", CASES, ids=IDS)
@@ -233,9 +251,10 @@ def test_gradients_match_the_reference(runs, world, name):
     """Every gradient leaf, made whole, within 1e-4 of that leaf's largest
     magnitude against `jax.value_and_grad`, on every rank; each a DTensor
     placed as its param."""
+    tol, loose = grad_tol(name)
     for got in _got(runs, world, f"{name}/adamw"):
         assert not got["plain"]
-        close_leaves(got["grads"], runs["want"][name]["grads"], TOL)
+        close_leaves(got["grads"], runs["want"][name]["grads"], tol, loose)
 
 
 @pytest.mark.parametrize("world,name", CASES, ids=IDS)
@@ -244,11 +263,12 @@ def test_adamw_step_matches_the_reference(runs, world, name):
     the reference's step by the first-step rule; AdamW's m within 1e-4;
     the step counter 1; each new leaf keeps its param's placements."""
     jp, js, _ = runs["want"][name]["adamw"]
+    tol, loose = grad_tol(name)
     for got in _got(runs, world, f"{name}/adamw"):
         close_adamw_first_step(got["params"], jp, js["m"],
                                ranks.TRAIN_OPTS["adamw"]["lr"], ADAMW_B1,
-                               ADAMW_EPS, TOL)
-        close_leaves(got["state"]["m"], js["m"], TOL)
+                               ADAMW_EPS, tol)
+        close_leaves(got["state"]["m"], js["m"], tol, loose)
         assert got["step"] == int(js["step"]) == 1
         assert got["placements_kept"]
 
@@ -322,11 +342,11 @@ def test_sgd_step_matches_the_reference_on_2x2(runs, name):
         close_leaves(got["params"], jp, TOL)
 
 
-def test_grad_accum_matches_the_reference_on_2x2(runs):
+def test_grad_accum_matches_the_reference_on_2x2(runs, name=ACCUM[0]):
     """grad_accum=2 on 2 x 2 (microbatches of rows [0, 2) and [2, 4),
     each placed by `batch_spec`; the bf16 accumulator placed as the
-    params) against the reference's grad_accum=2 on one device."""
-    name, m = ACCUM
+    params) against the reference's grad_accum=2 on one device, with
+    sgd."""
     jp, _, jm = runs["want"][name]["accum"]
     assert set(jm) == {"loss", "grad_norm"}
     for got in _got(runs, "2x2", f"{name}/accum"):
@@ -343,15 +363,16 @@ def _noise(got, one, truth):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_bf16_within_the_noise_of_one_process(runs, world):
+def test_bf16_within_the_noise_of_one_process(runs, world,
+                                              name="llama3.2-1b"):
     """bf16 llama3.2-1b: the loss within 5e-2 of the reference's bf16
     loss; every gradient leaf no farther from the reference's float32
     gradient of the same bf16 params than the port's one-process bf16
     gradient is, x1.25 in max and in mean."""
-    ref = runs["bf16"]
+    ref = runs["bf16"][name]
     one = dict((p, f32(g)) for p, _, g in leaf_items(ref["truth"],
                                                        ref["one"]))
-    for got in _got(runs, world, "llama3.2-1b/bf16"):
+    for got in _got(runs, world, f"{name}/bf16"):
         assert abs(got["loss"] - ref["loss"]) < BF16_LOSS_TOL
         for path, truth, g in leaf_items(ref["truth"], got["grads"]):
             g, t = f32(g), f32(truth)
@@ -368,16 +389,16 @@ def test_worlds_are_the_meshes_asked_for(runs):
             assert r["mesh"] == {"data": data, "model": model}
 
 
-TRUNKS_LATER = ("seamless-m4t-large-v2", "zamba2-7b", "rwkv6-1.6b")
+TRUNKS = ("seamless-m4t-large-v2", "zamba2-7b", "rwkv6-1.6b")
 
 
-@pytest.mark.parametrize("name", TRUNKS_LATER + ARCHS + (
+@pytest.mark.parametrize("name", TRUNKS + ARCHS + (
     "granite-3-8b", "internvl2-76b"))
-def test_train_step_builds_across_ranks_for_the_dense_and_moe_trunks(name):
-    """On a (2, 1) mesh `build_train_step` builds for the dense and MoE
-    archs and raises NotImplementedError for the enc-dec, hybrid and
-    RWKV6 trunks, naming ROADMAP.md Queue 1 item 10d2, before any rank
-    is needed (a mesh of shapes only)."""
+def test_train_step_builds_across_ranks_for_every_trunk(name):
+    """On a (2, 1) mesh `build_train_step` builds for every trunk (dense,
+    MoE, enc-dec, hybrid and RWKV6), before any rank is needed (a mesh
+    of shapes only); the enc-dec, hybrid and RWKV6 trunks' steps run in
+    `tests/test_torch_lm_mesh_trunks.py`'s worlds."""
     from repro_torch import optim as toptim
     from repro_torch.configs import registry as treg
     from repro_torch.launch.mesh import HostMesh
@@ -385,14 +406,7 @@ def test_train_step_builds_across_ranks_for_the_dense_and_moe_trunks(name):
     cfg = treg.reduced(treg.ARCHS[name])
     rules = tsharding.make_rules(HostMesh({"data": 2, "model": 1},
                                           ("data", "model"), None))
-    if name in TRUNKS_LATER:
-        with pytest.raises(NotImplementedError,
-                           match="a mesh of 2 ranks is ROADMAP.md Queue 1 "
-                                 "item 10d2"):
-            tsteps.build_train_step(cfg, rules, toptim.adamw(1e-3))
-    else:
-        assert callable(tsteps.build_train_step(cfg, rules,
-                                                toptim.adamw(1e-3)))
+    assert callable(tsteps.build_train_step(cfg, rules, toptim.adamw(1e-3)))
 
 
 def test_mesh_context_nests():
