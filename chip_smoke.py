@@ -590,6 +590,20 @@ LM_MESH_TRAIN_TOL = 1e-4
 LM_MESH_TRAIN_RECURRENT_TOL = 5e-4
 LM_MESH_TRAIN_BF16_LOSS_TOL = 5e-2
 LM_MESH_TRAIN_SAMPLES = 1 << 18
+# the elastic runner across ranks at published widths, in the 1 x 2 lm_mesh
+# world after its train runs: llama3.2-1b cut to 2 of 16 layers, bf16
+# params drawn placed, AdamW at the launcher's lr, a checkpoint every 2
+# steps, a failure injected at step 3 (rank 1 leaves; rank 0 restores
+# step 2 onto one rank). Its readings: the gather and write seconds and
+# bytes of each checkpoint of placed state, the restore's seconds, each
+# rank's bytes on the mesh, each step's ms; its check: the survivor's
+# step after the remesh and final checkpoint against one process
+# resumed from a copy of the same checkpoint (bit for bit, else within
+# the spread of two such resumes)
+LM_MESH_ELASTIC = {"world": (1, 2), "arch": "llama3.2-1b",
+                   "cut": {"n_layers": 2}, "dtype": "bfloat16", "batch": 4,
+                   "seq": 128, "steps": 4, "ckpt_every": 2, "fail_at": 3,
+                   "model_axis": 2}
 # the lm_train phase: language-model training (launch/steps.py's
 # build_train_step over models/transformer.model_loss and autograd, the
 # optim package, data/tokens.py, launch/elastic.py, launch/train.py; no
@@ -642,6 +656,11 @@ LM_TRAIN_LAUNCH_FULL = ["--arch", "llama3.2-1b", "--no-reduced", "--steps",
                         "3", "--batch", "8", "--seq", "512"]
 LM_TRAIN_LAUNCH_ARCHS = ("deepseek-v3-671b", "seamless-m4t-large-v2")
 LM_TRAIN_LAUNCH_TIMEOUT_S = 600
+# the same launcher under torchrun, two ranks sharing the card over gloo:
+# the injected failure drops rank 1 and rank 0 restores onto one rank
+LM_TRAIN_TORCHRUN = ["--standalone", "--nproc-per-node", "2", "-m",
+                     "repro_torch.launch.train"]
+LM_TRAIN_TORCHRUN_DEVICE = ["--device", "cuda:0", "--backend", "gloo"]
 # the full-size launcher run writes two 12.4 GB checkpoints into the
 # temporary directory (RAM-backed on the card's machine) and holds a
 # 12.4 GB host copy of its state for each: it starts only with this much
@@ -3622,14 +3641,15 @@ def lm_mesh_probe(torch, dist, dev) -> dict:
 
 def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
                  shape: tuple, runs: list, seed: int,
-                 train_runs: list = ()) -> None:
+                 train_runs: list = (), elastic: bool = False) -> None:
     """One rank of an lm_mesh world (a spawned process sharing the card
     over gloo): the mesh `shape` (data, model); per run and dtype its
     param bytes, float32 `serve_lm` greedy tokens, the teacher-forced
     logits and times (rank 0 writes the logits); an enc-dec run's encoder
     frames are the single process's. Then the train runs of the world
-    (`lm_mesh_train_runs`: the lm_mesh_train part). Writes rank<r>.json,
-    or rank<r>.err."""
+    (`lm_mesh_train_runs`: the lm_mesh_train part), and with `elastic`
+    the elastic runner's remesh (`lm_mesh_elastic`). Writes
+    rank<r>.json, or rank<r>.err."""
     import faulthandler
     import os
     import traceback
@@ -3715,6 +3735,10 @@ def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
                 line["runs"].append(r)
         line["train"] = lm_mesh_train_runs(torch, lm, rules, rank, tmp,
                                            list(train_runs), seed, dev)
+        if elastic:
+            check(bf16_ok, f"gloo on bf16 CUDA tensors: {probe}")
+            line["elastic"] = lm_mesh_elastic(torch, lm, rank, tmp, seed,
+                                              dev)
         # no rank tears its connections down under another's last
         # collective
         dist.all_reduce(torch.zeros(1))
@@ -3729,13 +3753,14 @@ def lm_mesh_rank(rank: int, world: int, tmp: str, device: str,
 
 
 def lm_mesh_world(tmp: str, device: str, shape: tuple, runs: list,
-                  seed: int, train_runs: list) -> list:
+                  seed: int, train_runs: list, elastic: bool = False
+                  ) -> list:
     """The ranks of one lm_mesh world (`lm_mesh_rank`): their lines."""
     import os
     world = shape[0] * shape[1]
     t0 = time.perf_counter()
     codes = mesh_spawn(lm_mesh_rank, world,
-                       (tmp, device, shape, runs, seed, train_runs),
+                       (tmp, device, shape, runs, seed, train_runs, elastic),
                        LM_MESH_TIMEOUT_S)
     errors = []
     for r, code in enumerate(codes):
@@ -3840,7 +3865,8 @@ def lm_mesh_phase(torch, seed, dev) -> tuple:
                        os.path.join(wdir, "inputs.npz"))
             t0 = time.perf_counter()
             ranks = lm_mesh_world(wdir, str(dev), shape, runs, seed, [
-                r for r in LM_MESH_TRAIN_RUNS if tuple(r["world"]) == shape])
+                r for r in LM_MESH_TRAIN_RUNS if tuple(r["world"]) == shape],
+                elastic=shape == LM_MESH_ELASTIC["world"])
             seconds[f"world_{shape[0]}x{shape[1]}"] = (
                 time.perf_counter() - t0)
             dirs[shape] = wdir
@@ -3873,6 +3899,9 @@ def lm_mesh_phase(torch, seed, dev) -> tuple:
             {"rank": rk["rank"], "runs": rk["train"]} for rk in w["ranks"]]}
             for w in lines],
         "checks": train_rows}
+    train_line["elastic"] = lm_mesh_elastic_check([
+        rk.pop("elastic") for w in lines for rk in w["ranks"]
+        if "elastic" in rk])
     for w in lines:
         for rk in w["ranks"]:
             del rk["train"]
@@ -4198,6 +4227,162 @@ def lm_mesh_train_runs(torch, lm, rules, rank: int, tmp: str, runs: list,
             r.update(key=run["key"], dtype=dtype,
                      seconds=time.perf_counter() - t0)
             out.append(r)
+    return out
+
+
+def lm_mesh_elastic(torch, lm, rank: int, tmp: str, seed: int, dev) -> dict:
+    """In a rank of the LM_MESH_ELASTIC world: `ElasticRunner` over the
+    world's ranks with the failure injected, the state drawn placed. The
+    survivor then runs one process resumed from a copy of the checkpoint
+    it restored. Returns the rank's log, builds (mesh, ranks, bytes held
+    against the whole), step ms, the checkpoint manager's timings, and
+    the survivor's comparison."""
+    import filecmp
+    import os
+    spec = LM_MESH_ELASTIC
+    cfg = dataclasses.replace(lm.registry.ARCHS[spec["arch"]], **spec["cut"])
+    dtype = getattr(torch, spec["dtype"])
+    built, step_ms = [], []
+
+    def build(mesh):
+        rules = lm.sharding.make_rules(mesh)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params, _ = lm.common.split_pl(lm.tf.init_model(
+            cfg, gen, dtype=dtype, device=dev, rules=rules))
+        opt = lm.optim.adamw(lr=LM_TRAIN_LR, schedule=lm.optim.
+                             cosine_schedule(1, spec["steps"]))
+        state = (params, opt.init(params))
+        leaves = lm.ckpt.checkpoint.flatten(state)[0]
+        built.append({
+            "mesh": dict(mesh.shape), "ranks": mesh.ranks,
+            "local_bytes": sum(lm.sharding.local_part(t).numel()
+                               * t.element_size() for t in leaves),
+            "whole_bytes": sum(t.numel() * t.element_size()
+                               for t in leaves)})
+        fn = lm.steps.build_train_step(cfg, rules, opt)
+
+        def step_fn(st, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, metrics = fn(*st, batch)
+            torch.cuda.synchronize()
+            step_ms.append({"ranks": mesh.size,
+                            "ms": (time.perf_counter() - t0) * 1e3})
+            return (p, o), metrics
+        return step_fn, state
+
+    def batches(step):
+        return lm_train_batch(lm, cfg, spec["batch"], spec["seq"], seed,
+                              step, dev)
+
+    def runner(directory):
+        return lm.elastic.ElasticRunner(
+            build, directory, model_axis=spec["model_axis"],
+            ckpt_every=spec["ckpt_every"], device=dev)
+
+    run_dir = os.path.join(tmp, "elastic")
+    t0 = time.perf_counter()
+    r = runner(run_dir)
+    state, log = r.run(spec["steps"], batches,
+                       inject_failure_at=spec["fail_at"])
+    out = {"rank": rank, "seconds": time.perf_counter() - t0, "log": log,
+           "built": list(built), "step_ms": list(step_ms),
+           "timings": r.manager.timings, "survivor": state is not None}
+    del state
+    torch.cuda.empty_cache()
+    if out["survivor"]:
+        restored = [e for e in log if e[0] == "remesh"][0][1] - 1
+        last = spec["steps"] - 1
+        resumed = {}
+        for name in ("resumed", "resumed_again"):
+            d = copy_step(run_dir, restored, os.path.join(tmp, name))
+            t0 = time.perf_counter()
+            one = runner(d)
+            _, resumed[name] = one.run(spec["steps"], batches, devices=[dev])
+            torch.cuda.empty_cache()
+            files = sorted(os.listdir(os.path.join(d, f"step_{last:08d}")))
+            same = all(filecmp.cmp(
+                os.path.join(run_dir, f"step_{last:08d}", f),
+                os.path.join(d, f"step_{last:08d}", f), shallow=False)
+                for f in files)
+            if name == "resumed":
+                out["resume"] = {"log": resumed[name], "restored": restored,
+                                 "seconds": time.perf_counter() - t0,
+                                 "final_checkpoint_equal": same}
+                if same:
+                    break
+        if not out["resume"]["final_checkpoint_equal"]:
+            a, b, c = (ckpt_tensors(torch, d, last) for d in (
+                run_dir, os.path.join(tmp, "resumed"),
+                os.path.join(tmp, "resumed_again")))
+            out["resume"].update(
+                max_abs_diff=max(float((x - y).abs().max())
+                                 for x, y in zip(a, b)),
+                resumed_spread=max(float((y - z).abs().max())
+                                   for y, z in zip(b, c)))
+    return out
+
+
+def lm_mesh_elastic_check(ranks: list) -> dict:
+    """The LM_MESH_ELASTIC ranks' lines held: each rank's events (the
+    survivor: the reference's, a remesh onto one rank; rank 1: the steps
+    and the failure), bytes on the mesh under the whole state's, one
+    save a checkpoint step on the mesh's rank 0, the survivor's restore
+    of the step before the failure, and its step after the remesh
+    against one process resumed from the same checkpoint. Returns the
+    readings."""
+    spec = LM_MESH_ELASTIC
+    fail, every, n = spec["fail_at"], spec["ckpt_every"], spec["steps"]
+    restored = fail - 1 - (fail - 1) % every
+    check(len(ranks) == spec["world"][0] * spec["world"][1],
+          f"lm_mesh_elastic: {len(ranks)} ranks")
+    before = [("step", s) for s in range(fail)] + [("failure", fail)]
+    out = {"spec": spec, "ranks": []}
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        # the logs came through JSON: their events are lists
+        r["log"] = [tuple(e) for e in r["log"]]
+        events = [e[:2] for e in r["log"] if e[0] != "straggler"]
+        remesh = [e for e in r["log"] if e[0] == "remesh"]
+        if r["rank"] == 0:
+            check(r["survivor"] and events == before + [
+                ("remesh", restored + 1)] + [
+                ("step", s) for s in range(restored + 1, n)]
+                and remesh[0][2] == 1, f"lm_mesh_elastic rank 0 log "
+                f"{r['log']}")
+            res = r["resume"]
+            one = [tuple(e) for e in res["log"] if e[0] != "straggler"]
+            after = [e for e in r["log"] if e[0] == "step"
+                     and e[1] > restored]
+            check(one[0] == ("restore", restored, 1)
+                  and [e[1] for e in one[1:]] == [e[1] for e in after],
+                  f"lm_mesh_elastic resumed one process: {res['log']}")
+            if res["final_checkpoint_equal"]:
+                check([e for e in one[1:]] == after, f"lm_mesh_elastic: "
+                      f"losses {after} against one process's {one}")
+            else:
+                check(0 < res["resumed_spread"]
+                      and res["max_abs_diff"] <= res["resumed_spread"],
+                      f"lm_mesh_elastic: the survivor's final params differ "
+                      f"from one process resumed from step {restored} by "
+                      f"{res['max_abs_diff']}, two such resumes by "
+                      f"{res['resumed_spread']}")
+            restores = [t for t in r["timings"] if t["what"] == "restore"]
+            check([t["step"] for t in restores] == [restored],
+                  f"lm_mesh_elastic restores {restores}")
+        else:
+            check(not r["survivor"] and events == before,
+                  f"lm_mesh_elastic rank {r['rank']} log {r['log']}")
+        first = r["built"][0]
+        check(first["local_bytes"] < first["whole_bytes"],
+              f"lm_mesh_elastic rank {r['rank']} holds {first}")
+        saves = [t for t in r["timings"] if t["what"] == "save"]
+        on_mesh = [t for t in saves if t["step"] < fail]
+        check([t["step"] for t in on_mesh] == list(range(0, fail, every))
+              and all(("bytes" in t) == (r["rank"] == 0) for t in on_mesh),
+              f"lm_mesh_elastic rank {r['rank']} saves {saves}")
+        out["ranks"].append({k: r[k] for k in (
+            "rank", "seconds", "log", "built", "step_ms", "timings")}
+            | ({"resume": r["resume"]} if r["rank"] == 0 else {}))
     return out
 
 
@@ -4684,13 +4869,86 @@ def lm_train_full(torch, lm, name: str, spec: dict, seed: int, dev) -> dict:
 
 def lm_train_launch(torch, *arg_lists) -> list:
     """`python -m repro_torch.launch.train <args>` as a user runs it, on
-    the card, for each of `arg_lists` (started together): exit 0, the
-    card's name, the trained-steps and loss lines (finite), and its
-    events, one dict each."""
+    the card, for each of `arg_lists` (started together; arguments that
+    start with LM_TRAIN_TORCHRUN run it under `torch.distributed.run`):
+    exit 0, the card's name, the trained-steps and loss lines (finite),
+    and its events, one dict each."""
+    n = len(LM_TRAIN_TORCHRUN)
+    modules = ["torch.distributed.run" if a[:n] == LM_TRAIN_TORCHRUN
+               else "repro_torch.launch.train" for a in arg_lists]
     return [lm_train_result(args, out, seconds) for args, (out, seconds) in
             zip(arg_lists, run_launchers(
-                torch, "repro_torch.launch.train", arg_lists,
-                LM_TRAIN_LAUNCH_TIMEOUT_S))]
+                torch, modules, arg_lists, LM_TRAIN_LAUNCH_TIMEOUT_S))]
+
+
+def copy_step(src: str, step: int, dst: str) -> str:
+    """A new checkpoint directory `dst` that holds a copy of step `step`
+    of `src` alone."""
+    import os
+    import shutil
+    name = f"step_{step:08d}"
+    shutil.copytree(os.path.join(src, name), os.path.join(dst, name))
+    return dst
+
+
+def lm_train_torchrun(torch, tmp: str, ranked: dict, restored: int,
+                      n: int) -> dict:
+    """The launcher under torchrun (two gloo ranks on the card, failure
+    at LM_TRAIN_FAIL_AT, run beside `lm_train_launch_phase`'s): its
+    events (the failure, the remesh onto one rank), its final checkpoint
+    against one process resumed from a copy of its pre-failure
+    checkpoint (bit for bit, else within the spread of two such resumes),
+    and a one-process checkpoint (the uninterrupted run's step
+    `restored`) resumed on two ranks."""
+    import os
+    want = [("failure", LM_TRAIN_FAIL_AT,
+             f"injected loss at step {LM_TRAIN_FAIL_AT}"),
+            ("remesh", restored + 1, 1)]
+    events = [e for e in ranked["events"] if e[0] != "straggler"]
+    check(events == want, f"torchrun train launcher events "
+          f"{ranked['events']}, not {want}")
+    check(ranked["steps"] == n + LM_TRAIN_FAIL_AT - restored - 1,
+          f"torchrun train launcher steps {ranked['steps']}")
+    resumed, two = lm_train_launch(
+        torch, LM_TRAIN_LAUNCH + ["--ckpt-dir", copy_step(
+            os.path.join(tmp, "ranked"), restored,
+            os.path.join(tmp, "ranked_resumed"))],
+        LM_TRAIN_TORCHRUN + LM_TRAIN_LAUNCH + LM_TRAIN_TORCHRUN_DEVICE + [
+            "--ckpt-dir", copy_step(os.path.join(tmp, "whole"), restored,
+                                    os.path.join(tmp, "whole_on_two"))])
+    for r, ranks in ((resumed, 1), (two, 2)):
+        events = [e for e in r["events"] if e[0] != "straggler"]
+        check(events == [("restore", restored, ranks)]
+              and r["steps"] == n - restored - 1,
+              f"train launcher {r['args']}: {r['events']}, {r['steps']} "
+              f"steps")
+    same = (ckpt_bytes(os.path.join(tmp, "ranked"), n - 1)
+            == ckpt_bytes(os.path.join(tmp, "ranked_resumed"), n - 1))
+    out = {"args": ranked["args"], "events": ranked["events"],
+           "seconds": ranked["seconds"], "train_s": ranked["train_s"],
+           "loss_last": [ranked["loss_last"], resumed["loss_last"]],
+           "final_checkpoint_equal_to_one_process_resumed": same,
+           "resumed_seconds": resumed["seconds"],
+           "one_process_checkpoint_on_two_ranks": {
+               "args": two["args"], "events": two["events"],
+               "seconds": two["seconds"], "loss_last": two["loss_last"]}}
+    if not same:
+        again, = lm_train_launch(torch, LM_TRAIN_LAUNCH + [
+            "--ckpt-dir", copy_step(os.path.join(tmp, "ranked"), restored,
+                                    os.path.join(tmp, "ranked_again"))])
+        a, b, c = (ckpt_tensors(torch, os.path.join(tmp, d), n - 1)
+                   for d in ("ranked", "ranked_resumed", "ranked_again"))
+        diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+        spread = max(float((y - z).abs().max()) for y, z in zip(b, c))
+        out.update(max_abs_diff=diff, resumed_spread=spread)
+        check(spread > 0 and diff <= spread, f"torchrun train launcher: "
+              f"its final params differ from one process resumed from "
+              f"its step {restored} by {diff}, two such resumes by "
+              f"{spread}")
+    else:
+        check(ranked["loss_last"] == resumed["loss_last"],
+              f"torchrun train launcher last losses {out['loss_last']}")
+    return out
 
 
 def lm_train_result(args, out: str, seconds: float) -> dict:
@@ -4766,16 +5024,19 @@ def lm_train_launch_phase(torch, lm) -> dict:
     every = int(LM_TRAIN_LAUNCH[LM_TRAIN_LAUNCH.index("--ckpt-every") + 1])
     restored = LM_TRAIN_FAIL_AT - 1 - (LM_TRAIN_FAIL_AT - 1) % every
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        # the two runs, and the reduced archs', side by side: the card
-        # idles through their start-up; only the full-size run is timed
-        # alone
-        fail, whole, *reduced = lm_train_launch(
+        # the two runs, the reduced archs' and the torchrun run side by
+        # side: the card idles through their start-up; only the full-size
+        # run is timed alone
+        fail, whole, *reduced, ranked = lm_train_launch(
             torch, LM_TRAIN_LAUNCH + [
                 "--inject-failure", str(LM_TRAIN_FAIL_AT), "--ckpt-dir",
                 os.path.join(tmp, "fail")],
             LM_TRAIN_LAUNCH + ["--ckpt-dir", os.path.join(tmp, "whole")],
             *[["--arch", arch, "--reduced", "--steps", "4", "--ckpt-dir",
-               os.path.join(tmp, arch)] for arch in LM_TRAIN_LAUNCH_ARCHS])
+               os.path.join(tmp, arch)] for arch in LM_TRAIN_LAUNCH_ARCHS],
+            LM_TRAIN_TORCHRUN + LM_TRAIN_LAUNCH + LM_TRAIN_TORCHRUN_DEVICE + [
+                "--inject-failure", str(LM_TRAIN_FAIL_AT), "--ckpt-dir",
+                os.path.join(tmp, "ranked")])
         want = [("failure", LM_TRAIN_FAIL_AT,
                  f"injected loss at step {LM_TRAIN_FAIL_AT}"),
                 ("remesh", restored + 1, 1)]
@@ -4810,6 +5071,7 @@ def lm_train_launch_phase(torch, lm) -> dict:
             check(r["steps"] == 4 and not r["events"],
                   f"train launcher {r['args']}: {r}")
         out["reduced"] = reduced
+        out["torchrun"] = lm_train_torchrun(torch, tmp, ranked, restored, n)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_full_") as d:
         free = shutil.disk_usage(d).free
         mem = memory_gb()

@@ -26,6 +26,15 @@ either package restores in the other:
     (`flatten`). `treedef` is written for readers only; neither package
     parses it;
   * the last `keep` steps are retained.
+
+A tree placed on a mesh of several ranks (DTensor leaves, as the train
+step across ranks holds its params and optimizer state) is saved as its
+whole values, leaf by leaf through the port's collectives, and written
+by the mesh's rank 0 alone: the files are those of one process holding
+the same values. A restore places each leaf as its `like` leaf, cut on
+each rank with no collective, so a checkpoint written on any mesh
+restores onto any other, and onto one process (the reference passes
+`shardings=`; here the placements travel with `like`).
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ import json
 import os
 import shutil
 import threading
+import time
 import zlib
 from typing import Any, List, Optional, Tuple
 
@@ -105,16 +115,71 @@ def unflatten(like, leaves: List[Any]):
 _BF16_BITS = np.dtype("V2")
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf, copy: bool = False) -> np.ndarray:
     """A leaf as a host array; a bfloat16 tensor as a V2 array of its bits
-    (the other tensors keep their dtype)."""
+    (the other tensors keep their dtype). `copy`: an array of its own,
+    never a view of a CPU tensor's memory. A DTensor raises: it is made
+    whole first (`_host_leaves`)."""
+    if _is_dtensor(leaf):
+        raise TypeError("a DTensor leaf is made whole on its mesh before "
+                        "it is copied to the host")
     if isinstance(leaf, torch.Tensor):
+        fresh = leaf.device.type != "cpu"       # .cpu() copies it
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
-            return leaf.contiguous().view(torch.int16).numpy().view(
+            arr = leaf.contiguous().view(torch.int16).numpy().view(
                 _BF16_BITS)
-        return leaf.numpy()
-    return np.asarray(leaf)
+        else:
+            arr = leaf.numpy()
+        return np.array(arr) if copy and not fresh else arr
+    return np.array(leaf) if copy else np.asarray(leaf)
+
+
+def _is_dtensor(x) -> bool:
+    if not isinstance(x, torch.Tensor):
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _mesh_of(flat):
+    """The DeviceMesh that the DTensor leaves of `flat` lie on (None where
+    none is a DTensor); leaves on two meshes raise."""
+    dm = None
+    for x in flat:
+        if _is_dtensor(x):
+            if dm is None:
+                dm = x.device_mesh
+            elif x.device_mesh != dm:
+                raise ValueError(f"a tree on two meshes: {dm} and "
+                                 f"{x.device_mesh}")
+    return dm
+
+
+def _writes(dm) -> bool:
+    """Whether this rank writes a tree on DeviceMesh `dm`: the mesh's rank
+    0 does (and one process, `dm` None)."""
+    return dm is None or all(c == 0 for c in dm.get_coordinate())
+
+
+def _host_leaves(flat, copy: bool = False):
+    """Each leaf of `flat` in turn as a host array on the rank that
+    writes, None on the others. A DTensor leaf is made whole on its mesh
+    by the port's collectives (`sharding.whole_on_mesh`): every rank of
+    the mesh takes the leaves in the same order, on its own thread, and
+    the whole leaf leaves the device before the next is gathered, so no
+    rank holds the whole tree on its device."""
+    writer = _writes(_mesh_of(flat))
+    for leaf in flat:
+        if _is_dtensor(leaf):
+            from repro_torch.models.sharding import whole_on_mesh
+            with torch.no_grad():
+                w = whole_on_mesh(leaf.detach()).to_local().contiguous()
+            arr = _host(w, copy) if writer else None
+            del w
+            yield arr
+        else:
+            yield _host(leaf, copy) if writer else None
 
 
 def _dtype_name(arr: np.ndarray) -> str:
@@ -139,8 +204,18 @@ def _save_leaf(path: str, arr: np.ndarray) -> None:
 
 def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3,
                     extra_meta: Optional[dict] = None):
-    os.makedirs(directory, exist_ok=True)
+    """Write `tree` as step `step` of `directory` and return its path. A
+    tree placed on a mesh of several ranks (DTensor leaves) is written
+    as its whole values, the files those of one process: every rank of
+    the mesh must call this (each leaf is made whole by a collective),
+    and only the mesh's rank 0 writes (the others return None)."""
     flat, treedef = flatten(tree)
+    arrays = _host_leaves(flat)
+    if not _writes(_mesh_of(flat)):
+        for _ in arrays:                        # the collectives only
+            pass
+        return None
+    os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"step_{step:08d}.tmp")
     final = os.path.join(directory, f"step_{step:08d}")
     if os.path.exists(tmp):
@@ -148,8 +223,7 @@ def save_checkpoint(directory: str, step: int, tree: Any, *, keep: int = 3,
     os.makedirs(tmp)
     manifest = {"step": step, "treedef": treedef, "leaves": [],
                 "extra": extra_meta or {}}
-    for i, leaf in enumerate(flat):
-        arr = _host(leaf)
+    for i, arr in enumerate(arrays):
         _save_leaf(os.path.join(tmp, f"leaf_{i:05d}.npy"), arr)
         manifest["leaves"].append({
             "shape": list(arr.shape), "dtype": _dtype_name(arr),
@@ -220,7 +294,11 @@ def _tensor(arr: np.ndarray, meta: dict) -> torch.Tensor:
 def restore_checkpoint(directory: str, step: int, like: Any, *,
                        device: DeviceLike = None) -> Any:
     """Restore into the structure of `like`, every leaf a tensor on
-    `device` (None: the card)."""
+    `device` (None: the card), but a leaf whose `like` is a DTensor is
+    placed as it (`sharding.place` of the whole value: this rank's shard
+    is cut on the host, with no collective, and copied to the device of
+    like's shard). The files hold whole values, so a checkpoint written
+    on any mesh restores onto any other, and onto one process."""
     dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step:08d}")
     manifest = read_manifest(directory, step)
@@ -228,9 +306,17 @@ def restore_checkpoint(directory: str, step: int, like: Any, *,
     if len(flat_like) != len(manifest["leaves"]):
         raise ValueError(f"leaf count mismatch: {len(flat_like)} vs "
                          f"{len(manifest['leaves'])}")
-    # _load_leaf's arrays are fresh and writable (0-d arrays stay 0-d)
-    out = [_tensor(_load_leaf(path, i, meta), meta).to(dev)
-           for i, meta in enumerate(manifest["leaves"])]
+    out = []
+    for i, (meta, ref) in enumerate(zip(manifest["leaves"], flat_like)):
+        # _load_leaf's arrays are fresh and writable (0-d arrays stay 0-d)
+        t = _tensor(_load_leaf(path, i, meta), meta)
+        if _is_dtensor(ref):
+            from repro_torch.models.sharding import place
+            out.append(place(t, ref.placements, ref.device_mesh,
+                             device=ref.to_local().device))
+        else:
+            out.append(t.to(dev))
+        del t
     return unflatten(like, out)
 
 
@@ -313,26 +399,46 @@ def unspill_field(directory: str, cfg, *, device: DeviceLike = None):
 
 
 class CheckpointManager:
-    """Async save + restore-latest + retention. One writer at a time."""
+    """Async save + restore-latest + retention. One writer at a time. On a
+    mesh of several ranks (a tree of DTensors) every rank of the mesh
+    calls each method at the same points: the leaves are made whole on
+    the callers' threads, and only the mesh's rank 0 holds the host copy
+    and writes (retention included). `timings` holds, per save, the
+    seconds of the gather and host copy (`gather_s`, the caller's
+    thread), of the write (`write_s`, rank 0's thread) and the bytes
+    written, and per restore its seconds."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
+        self.timings: List[dict] = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
     def save_async(self, step: int, tree: Any):
-        """Copy every tensor to host numpy on the caller's thread (so the
-        caller may go on updating its tensors), then write on a thread."""
+        """Copy every leaf to host numpy on the caller's thread (a placed
+        leaf made whole first; so the caller may go on updating its
+        tensors), then write on a thread (on the mesh's rank 0 only)."""
         self.wait()                             # one save in flight
-        leaves, _ = flatten(tree)
-        # a copy: a CPU tensor's .numpy() shares its memory
-        host_tree = unflatten(tree, [np.array(_host(x)) for x in leaves])
+        t0 = time.perf_counter()
+        flat, _ = flatten(tree)
+        writer = _writes(_mesh_of(flat))
+        arrays = list(_host_leaves(flat, copy=True))
+        rec = {"what": "save", "step": step,
+               "gather_s": time.perf_counter() - t0}
+        self.timings.append(rec)
+        if not writer:
+            return
+        rec["bytes"] = sum(a.nbytes for a in arrays)
+        host_tree = unflatten(tree, arrays)
+        del arrays
 
         def work():
+            t1 = time.perf_counter()
             try:
                 save_checkpoint(self.directory, step, host_tree,
                                 keep=self.keep)
+                rec["write_s"] = time.perf_counter() - t1
             except BaseException as e:          # surfaced on next wait()
                 self._error = e
 
@@ -353,8 +459,29 @@ class CheckpointManager:
             raise err
 
     def restore_latest(self, like: Any, *, device: DeviceLike = None):
+        """(step, tree) of the latest published step restored into the
+        structure of `like` (`restore_checkpoint`), or (None, None). On a
+        mesh of several ranks the mesh's rank 0 picks the step once its
+        writer has joined and tells the others (an all-reduce), so every
+        rank restores the same step and none reads one before it is
+        published."""
+        self.wait()
+        t0 = time.perf_counter()
+        flat, _ = flatten(like)
+        dm = _mesh_of(flat)
         step = latest_step(self.directory)
+        if dm is not None:
+            from repro_torch.models.sharding import local_part, sum_over
+            dev = next(local_part(x).device for x in flat if _is_dtensor(x))
+            pick = torch.tensor([-1 if step is None else step],
+                                dtype=torch.int64, device=dev)
+            if not _writes(dm):
+                pick.zero_()
+            step = int(sum_over(pick, dm, range(dm.ndim))[0])
+            step = None if step < 0 else step
         if step is None:
             return None, None
-        return step, restore_checkpoint(self.directory, step, like,
-                                        device=device)
+        out = restore_checkpoint(self.directory, step, like, device=device)
+        self.timings.append({"what": "restore", "step": step,
+                             "seconds": time.perf_counter() - t0})
+        return step, out

@@ -34,16 +34,25 @@ COLLECTIVE_TIMEOUT_S = 300.0
 @dataclasses.dataclass(frozen=True)
 class HostMesh:
     """A mesh's shape (axis -> size) and axis names, this rank's device,
-    and the DeviceMesh over the process group (None for one rank, and for
-    a mesh that only carries a shape, as sharding specs need)."""
+    the DeviceMesh over the process group (None for one rank, and for a
+    mesh that only carries a shape, as sharding specs need), and the
+    process group's ranks that the mesh holds, in its row-major order
+    (None without a process group)."""
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
     device: Optional[torch.device]
     device_mesh: Any = None
+    ranks: Optional[Tuple[int, ...]] = None
 
     @property
     def size(self) -> int:
         return math.prod(self.shape[a] for a in self.axis_names)
+
+    @property
+    def member(self) -> bool:
+        """Whether this process is one of the mesh's ranks (a rank left
+        out of a mesh over some of the world's ranks is not)."""
+        return self.ranks is None or dist.get_rank() in self.ranks
 
     def group(self, axis: str):
         """The process group along `axis` that holds this rank; None where
@@ -63,13 +72,17 @@ class HostMesh:
         """This rank's place in the mesh (0 on a one-rank mesh)."""
         if self.size == 1:
             return 0
-        return self._live().get_rank()
+        self._live()
+        return self.ranks.index(dist.get_rank())
 
     def _live(self):
         if self.device_mesh is None:
             raise ValueError(
                 f"the mesh {self.shape} carries a shape only: build it over "
                 f"a process group (launch.mesh.init_ranks) to communicate")
+        if not self.member:
+            raise ValueError(f"this process (rank {dist.get_rank()}) is not "
+                             f"one of the mesh's ranks {list(self.ranks)}")
         return self.device_mesh
 
 
@@ -119,25 +132,67 @@ def _mesh_device_type(dev: torch.device) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def _device_mesh(world_group, device_type: str, shape: Tuple[int, ...],
-                 names: Tuple[str, ...]):
-    """One DeviceMesh per (process group, device type, shape): building
-    one creates process groups, a collective every rank must enter, so
-    the ranks build each mesh once and share it."""
-    from torch.distributed.device_mesh import init_device_mesh
-    return init_device_mesh(device_type, shape, mesh_dim_names=names)
+def _device_mesh(world_group, device_type: str, ranks: Tuple[int, ...],
+                 shape: Tuple[int, ...], names: Tuple[str, ...]):
+    """One DeviceMesh per (process group, device type, ranks, shape):
+    building one creates process groups, a collective that every rank of
+    the world must enter (those outside the mesh too, which hold it with
+    no coordinate), so the ranks build each mesh once, in the same order,
+    and share it."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh(device_type, torch.tensor(ranks).view(shape),
+                      mesh_dim_names=names)
+
+
+def _ranks_mesh(shape: Dict[str, int], names: Tuple[str, ...],
+                ranks: Tuple[int, ...], device: DeviceLike) -> HostMesh:
+    """The mesh of `shape` over `ranks` of the initialised process group
+    (row-major), on `device` on the ranks it holds; a rank outside it
+    builds it too and gets it with device None. One rank of a larger
+    world gives the one-device mesh, built with no collective."""
+    dims = tuple(shape[a] for a in names)
+    ranks = tuple(ranks)
+    world = dist.get_world_size()
+    if math.prod(dims) != len(ranks) or len(set(ranks)) != len(ranks):
+        raise ValueError(f"a mesh of {dict(shape)} over the ranks "
+                         f"{list(ranks)}")
+    if not all(0 <= r < world for r in ranks):
+        raise ValueError(f"ranks {list(ranks)} outside the process group's "
+                         f"{world}")
+    here = dist.get_rank() in ranks
+    dev = resolve_device(device) if here else None
+    if len(ranks) == 1 and world > 1:
+        return HostMesh(dict(shape), names, dev, None, ranks)
+    # every rank builds it on its own device type: that of the ranks in it
+    dtype = _mesh_device_type(resolve_device(device))
+    dm = _device_mesh(dist.group.WORLD, dtype, ranks, dims, names)
+    return HostMesh(dict(shape), names, dev, dm, ranks)
 
 
 def _world_mesh(shape: Dict[str, int], names: Tuple[str, ...],
                 device: DeviceLike) -> HostMesh:
-    dev = resolve_device(device)
     dims = tuple(shape[a] for a in names)
     world = dist.get_world_size()
     if math.prod(dims) != world:
         raise ValueError(f"a mesh of {dict(shape)} needs {math.prod(dims)} "
                          f"ranks, the process group has {world}")
-    dm = _device_mesh(dist.group.WORLD, _mesh_device_type(dev), dims, names)
-    return HostMesh(dict(shape), names, dev, dm)
+    return _ranks_mesh(shape, names, tuple(range(world)), device)
+
+
+def make_submesh(ranks, data: int, model: int,
+                 device: DeviceLike = None) -> HostMesh:
+    """The (data, model) mesh over `ranks` of the initialised process
+    group, row-major (the survivors of a failure: `launch.elastic`).
+    Every rank of the world must call it, those left out too: building
+    its process groups is a collective over the world. On the ranks it
+    holds it is live on `device` (None: the card); a rank left out gets
+    it with `member` False and device None. One rank: the one-device
+    mesh on that rank."""
+    if not dist.is_initialized():
+        raise ValueError(f"a mesh over the ranks {list(ranks)} needs a "
+                         f"process group (launch.mesh.init_ranks)")
+    return _ranks_mesh({"data": data, "model": model}, ("data", "model"),
+                       tuple(ranks), device)
 
 
 def make_host_mesh(device: DeviceLike = None) -> HostMesh:

@@ -7,33 +7,41 @@ reference's cosine schedule and its optimizer size rule.
         --steps 100 --batch 8 --seq 128 --reduced --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
         --steps 4 --batch 2 --seq 16 --device cpu --inject-failure 2
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch llama3.2-1b --device cpu --inject-failure 2
 
 `--device` (default `cuda`) is where the model trains; the CPU runs only
 when asked for, and without a card the default raises. `--reduced` (the
 default) trains the arch's reduced config, `--no-reduced` its published
 one. A `--ckpt-dir` that holds a checkpoint of the same model resumes
-from it. Prints the device, `trained N steps in ...`, `loss: first=...
-last=...` and one `event: ...` line per restore, failure, remesh or
-straggler. Training runs in one process: under `torchrun` with more than
-one rank the launcher exits before any rank starts: the train step runs
-across ranks (`launch.steps.build_train_step` on placed params), but the
-elastic runner and its checkpoints of placed state across ranks are
-ROADMAP.md Queue 1 item 10e.
+from it, on any number of ranks. Prints the device, `trained N steps in
+...`, `loss: first=... last=...` and one `event: ...` line per restore,
+failure, remesh or straggler. Under torchrun each process is one rank
+(`--device cuda`: its own card; ranks that share one card need
+`--device cuda:0 --backend gloo`), and the ranks train on the (world, 1)
+("data", "model") mesh, as the reference's launcher on all of its
+host's devices: params drawn placed (`init_model(rules=)`), optimizer
+state placed as they are, the batch placed by the step. An injected
+failure drops half of the ranks; the survivors restore the latest
+checkpoint onto their mesh. Rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.configs.registry import ARCHS, get_arch, reduced
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
 from repro_torch.launch.elastic import ElasticRunner
+from repro_torch.launch.mesh import init_ranks
 from repro_torch.launch.steps import build_train_step, count_params
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import split_pl
@@ -57,20 +65,45 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="where the model trains: cuda (default) or cpu")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the process group's backend; "
+                         "gloo for ranks that share one card (default: "
+                         "nccl on cards, gloo on the CPU)")
     return ap
 
 
 def main(argv=None):
-    """Train as the command line says; returns the runner's (state, log).
-    Under a torchrun environment of several ranks (WORLD_SIZE > 1) it
-    exits through argparse's error, code 2, before any rank starts."""
+    """Train as the command line says; returns the runner's (state, log)
+    (None for the state of a rank that an injected failure dropped).
+    Under torchrun (WORLD_SIZE set) this process starts its rank first."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        ap.error(f"training runs in one process: the elastic runner and "
-                 f"its checkpoints of placed state across "
-                 f"{os.environ['WORLD_SIZE']} ranks are ROADMAP.md Queue 1 "
-                 f"item 10e")
+    started = False
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        # torchrun: this process is one rank ("cuda" means its own card)
+        args.device = str(init_ranks(
+            None if args.device == "cuda" else args.device,
+            backend=args.backend))
+        started = True
+    try:
+        with contextlib.ExitStack() as stack:
+            if dist.is_initialized() and dist.get_rank() != 0:
+                # rank 0 prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            out = train(args)
+        if started:
+            # no rank tears its connections down under another's last
+            # collective
+            dist.barrier()
+        return out
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def train(args):
+    """The run of `main` on parsed arguments, on this process's rank."""
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
@@ -84,7 +117,8 @@ def main(argv=None):
     def build(mesh):
         rules = make_rules(mesh)
         gen = torch.Generator(device=mesh.device).manual_seed(0)
-        params, _ = split_pl(tf.init_model(cfg, gen, device=mesh.device))
+        params, _ = split_pl(tf.init_model(cfg, gen, device=mesh.device,
+                                           rules=rules))
         opt = pick_optimizer(count_params(params), lr=args.lr,
                              schedule=sched)
         opt_state = opt.init(params)
@@ -98,9 +132,12 @@ def main(argv=None):
         return step_fn, (params, opt_state)
 
     runner = ElasticRunner(build=build, ckpt_dir=args.ckpt_dir,
-                           model_axis=1, ckpt_every=args.ckpt_every)
+                           model_axis=1, ckpt_every=args.ckpt_every,
+                           device=dev)
+    ranks = (list(range(dist.get_world_size())) if dist.is_initialized()
+             else [dev])
     t0 = time.time()
-    state, log = runner.run(args.steps, stream.batch, devices=[dev],
+    state, log = runner.run(args.steps, stream.batch, devices=ranks,
                             inject_failure_at=args.inject_failure)
     dt = time.time() - t0
     losses = [e for e in log if e[0] == "step"]

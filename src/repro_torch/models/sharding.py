@@ -202,6 +202,10 @@ UNCONSTRAINED = _Unconstrained()
 
 
 def _device_mesh(mesh):
+    """The DeviceMesh of a mesh of `launch.mesh` (or a DeviceMesh)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if isinstance(mesh, DeviceMesh):
+        return mesh
     if getattr(mesh, "device_mesh", None) is None:
         raise ValueError(
             f"the mesh {dict(mesh.shape)} carries a shape only: build it "
@@ -589,11 +593,15 @@ def local_part(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if is_dtensor(t) else t
 
 
-def place(t: torch.Tensor, pls: Sequence, mesh) -> torch.Tensor:
-    """`t` as a DTensor on `mesh` with placements `pls`: a DTensor is
-    redistributed; a plain tensor, the same whole value on every rank, is
-    cut to this rank's shard locally (no collective), and the shard is a
-    copy of its own, so the whole tensor can be freed. A Partial
+def place(t: torch.Tensor, pls: Sequence, mesh,
+          device: Optional[torch.device] = None) -> torch.Tensor:
+    """`t` as a DTensor on `mesh` (a mesh of `launch.mesh`, or a
+    DeviceMesh) with placements `pls`: a DTensor is redistributed; a
+    plain tensor, the same whole value on every rank, is cut to this
+    rank's shard locally (no collective), and the shard is a copy of its
+    own, so the whole tensor can be freed. `device` (None: t's) is where
+    the shard goes: the cut comes first, so the whole tensor never
+    reaches it (a checkpoint's leaf, read on the host). A Partial
     placement is not a placement of a whole value and raises."""
     from torch.distributed.tensor import DTensor
     dm = _device_mesh(mesh)
@@ -603,7 +611,9 @@ def place(t: torch.Tensor, pls: Sequence, mesh) -> torch.Tensor:
     if isinstance(t, DTensor):
         return redistribute(t, pls)
     local = t[local_slices(t.shape, pls, dm)]
-    if any(p.is_shard() for p in pls):
+    if device is not None and torch.device(device) != local.device:
+        local = local.to(device, memory_format=torch.contiguous_format)
+    elif any(p.is_shard() for p in pls):
         local = local.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(local, dm, pls, run_check=False,
                               shape=t.shape, stride=_stride(t.shape))

@@ -12,6 +12,7 @@ import pickle
 import time
 import traceback
 
+import numpy as np
 import torch
 
 COLLECTIVE_TIMEOUT_S = 60.0
@@ -716,3 +717,199 @@ def mesh_grads_job(rank, world, p):
     mesh = _lm_mesh(p["mesh"])
     return {"mesh": dict(mesh.shape),
             "cases": grad_cases(p["cases"], make_rules(mesh))}
+
+
+# -- the elastic runner and checkpoints of placed state -----------------------
+
+ELASTIC_STEPS = 6
+ELASTIC_CKPT_EVERY = 2
+ELASTIC_FAIL_AT = 3
+ELASTIC_LR = 1e-3
+
+
+def elastic_opt(m):
+    """The runner tests' AdamW, of the optim package `m` (the port's or
+    the reference's): its lr, cosine over the run's steps."""
+    return m.adamw(lr=ELASTIC_LR, schedule=m.cosine_schedule(1, ELASTIC_STEPS))
+
+
+def _whole_numpy(tree):
+    """Every leaf's whole value as numpy in its own dtype (a collective on
+    the mesh for each DTensor leaf)."""
+    from repro_torch.ckpt.checkpoint import flatten, unflatten
+    from repro_torch.models.sharding import local_part, whole_on_mesh
+    return unflatten(tree, [local_part(whole_on_mesh(t.detach())).numpy()
+                            for t in flatten(tree)[0]])
+
+
+def _elastic_build(p, log_meshes=None):
+    """The runner's `build` for reduced llama3.2-1b on p["params"]
+    (float32, placed by the mesh's rules) with `elastic_opt`."""
+    from repro_torch import optim
+    from repro_torch.configs import registry as treg
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.sharding import make_rules, place_params
+    cfg = treg.reduced(treg.ARCHS["llama3.2-1b"])
+    _, logical = steps.abstract_params(cfg)
+
+    def build(mesh):
+        if log_meshes is not None:
+            log_meshes.append((dict(mesh.shape), mesh.ranks))
+        rules = make_rules(mesh)
+        params = place_params(tf.params_from_numpy(
+            p["params"], device="cpu", dtype=torch.float32), logical, rules)
+        opt = elastic_opt(optim)
+        fn = steps.build_train_step(cfg, rules, opt)
+
+        def step_fn(state, batch):
+            new_p, new_s, metrics = fn(*state, batch)
+            return (new_p, new_s), metrics
+        return step_fn, (params, opt.init(params))
+    return build
+
+
+def _batches(p):
+    return lambda s: {k: torch.from_numpy(v)
+                      for k, v in p["batches"][s].items()}
+
+
+def _files(path):
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as f:
+            out[name] = f.read()
+    return out
+
+
+def _saved_on(mesh, p, tmp, name):
+    """(a) One AdamW step on `mesh` from p["params"], then (params, state)
+    saved by the manager (save_async) and by `save_checkpoint`: the
+    directories and the whole values (numpy, on the mesh's rank 0)."""
+    from repro_torch.ckpt import CheckpointManager, save_checkpoint
+    step_fn, state = _elastic_build(p)(mesh)
+    state, _ = step_fn(state, _batches(p)(0))
+    out = {}
+    mgr = CheckpointManager(os.path.join(tmp, f"manager_{name}"))
+    mgr.save_async(1, state)
+    mgr.wait()
+    out["manager"] = mgr.directory
+    out["direct"] = os.path.join(tmp, f"direct_{name}")
+    out["direct_returned"] = save_checkpoint(out["direct"], 1, state)
+    out["whole"] = _whole_numpy(state)
+    out["timings"] = mgr.timings
+    return out
+
+
+def _restored_on(mesh, p, directory):
+    """(b) The latest step of `directory` restored onto `mesh` by the
+    manager, like the state that `build` places there: per leaf whether
+    it equals `sharding.place` of the whole value read from the file
+    (values, placements, local shape), and the step picked."""
+    from repro_torch.ckpt import CheckpointManager, read_manifest
+    from repro_torch.ckpt.checkpoint import flatten
+    from repro_torch.models.sharding import is_dtensor, place
+    _, like = _elastic_build(p)(mesh)
+    step, got = CheckpointManager(directory).restore_latest(like,
+                                                            device="cpu")
+    manifest = read_manifest(directory, step)
+    flat_like, _ = flatten(like)
+    flat_got, _ = flatten(got)
+    differ = []
+    for i, (meta, ref, g) in enumerate(zip(manifest["leaves"], flat_like,
+                                           flat_got)):
+        arr = np.load(os.path.join(directory, f"step_{step:08d}",
+                                   f"leaf_{i:05d}.npy"))
+        want = torch.from_numpy(np.array(arr))
+        if is_dtensor(ref):
+            want = place(want, ref.placements, mesh)
+            same = (is_dtensor(g) and tuple(g.placements) == tuple(
+                ref.placements) and g.shape == want.shape
+                and g.to_local().shape == want.to_local().shape
+                and torch.equal(g.to_local(), want.to_local()))
+        else:
+            same = not is_dtensor(g) and torch.equal(g, want)
+        if not same:
+            differ.append(i)
+    return {"step": step, "differ": differ, "leaves": len(flat_got)}
+
+
+def _runner_on(p, directory, log_meshes, **run):
+    from repro_torch.launch import elastic
+    runner = elastic.ElasticRunner(
+        _elastic_build(p, log_meshes), directory,
+        model_axis=p["model_axis"], ckpt_every=ELASTIC_CKPT_EVERY,
+        device="cpu")
+    state, log = runner.run(ELASTIC_STEPS, _batches(p), **run)
+    return runner, state, log
+
+
+def elastic_job(rank, world, p):
+    """On this world: (a) saves on each of p["meshes"] (name -> (ranks,
+    model_axis), every rank building each mesh in the same order), (b)
+    each of those checkpoints and p["restore_dirs"] restored onto each
+    mesh, (c) `ElasticRunner` with a failure injected (the survivors'
+    final params whole; with p["resume_check"] the survivor's steps after
+    the restore beside one process resumed from a copy of the same
+    checkpoint), (d) with p["resume_dir"] a copy of a one-process
+    checkpoint resumed on the world's ranks."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.launch import elastic
+    tmp = os.path.join(p["tmp"], f"rank{rank}")
+    os.makedirs(tmp, exist_ok=True)
+    shared = p["tmp"]
+    out = {"saved": {}, "restored": {}}
+    meshes = {name: elastic.make_mesh_from(list(ranks), axis, device="cpu")
+              for name, (ranks, axis) in p["meshes"].items()}
+    out["meshes"] = {name: (dict(m.shape), m.ranks, m.member,
+                            m.rank if m.member else None)
+                     for name, m in meshes.items()}
+    for name, mesh in meshes.items():
+        if mesh.member:
+            r = _saved_on(mesh, p, shared if mesh.rank == 0 else tmp, name)
+            out["saved"][name] = r if mesh.rank == 0 else {
+                k: r[k] for k in ("direct_returned", "timings")}
+    dist.barrier()
+    dirs = dict(p["restore_dirs"])
+    dirs.update({f"save_{n}": os.path.join(shared, f"manager_{n}")
+                 for n in meshes})
+    for name, mesh in meshes.items():
+        if mesh.member:
+            out["restored"][name] = {k: _restored_on(mesh, p, d)
+                                     for k, d in dirs.items()}
+    dist.barrier()
+    # (c) the runner
+    run_dir = os.path.join(shared, "run")
+    built = []
+    runner, state, log = _runner_on(p, run_dir, built,
+                                    inject_failure_at=ELASTIC_FAIL_AT)
+    out.update(log=log, built=built, survivor=state is not None,
+               timings=runner.manager.timings)
+    if state is not None:
+        whole = _whole_numpy(state[0])
+        if rank == 0:
+            out["final_params"] = whole
+    if p.get("resume_check") and state is not None and rank == 0:
+        restored = [e for e in log if e[0] == "remesh"][0][1] - 1
+        again = os.path.join(tmp, "resumed")
+        shutil.copytree(os.path.join(run_dir, f"step_{restored:08d}"),
+                        os.path.join(again, f"step_{restored:08d}"))
+        _, _, log1 = _runner_on(p, again, None,
+                                devices=[torch.device("cpu")])
+        last = f"step_{ELASTIC_STEPS - 1:08d}"
+        out["resume"] = {
+            "log": log1, "restored": restored,
+            "files_equal": _files(os.path.join(run_dir, last))
+            == _files(os.path.join(again, last))}
+    dist.barrier()
+    # (d) a copy of a one-process checkpoint resumed on every rank
+    if p.get("resume_dir"):
+        d = os.path.join(shared, "resume_world")
+        if rank == 0:
+            shutil.copytree(p["resume_dir"], d)
+        dist.barrier()
+        _, _, log2 = _runner_on(p, d, None)
+        out["resumed_world"] = log2
+    return out

@@ -540,22 +540,6 @@ def test_train_step_builds_on_several_ranks_for_rwkv6(worlds, world):
         assert r["train_step"] is True
 
 
-def test_train_launcher_refuses_torchrun_naming_item_10d(monkeypatch,
-                                                         capsys):
-    """`launch.train.main` under a torchrun environment of two ranks exits
-    through argparse's error (code 2) naming ROADMAP.md Queue 1 item 10e
-    (the elastic runner and its checkpoints of placed state across
-    ranks), before any rank starts; WORLD_SIZE 1 is one process, as
-    without torchrun."""
-    from repro_torch.launch import train as ttrain
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit) as e:
-        ttrain.main(["--arch", "llama3.2-1b", "--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "Queue 1 item 10e" in err and "2 ranks" in err
-
-
 def test_shard_act_keeps_a_free_dims_placement():
     """`shard_act`'s placements: a named dim takes its axis; an axis the
     spec does not name keeps a shard of an UNCONSTRAINED dim (GSPMD lets

@@ -155,7 +155,8 @@ def test_make_mesh_from_gives_the_references_shapes():
 def test_meshes_without_a_process_group(tmp_path):
     """The host mesh is one device without a process group; a pipeline
     mesh of several ranks needs one; a mesh of shapes alone refuses to
-    communicate; and the elastic runner refuses several devices."""
+    communicate; and the elastic runner on several devices raises (no
+    run quietly trains on one)."""
     m = tmesh.make_host_mesh("cpu")
     assert (m.shape, m.size, m.rank, m.group("data")) == (
         {"data": 1, "model": 1}, 1, 0, None)
@@ -170,8 +171,10 @@ def test_meshes_without_a_process_group(tmp_path):
     with pytest.raises(ValueError, match="rank and world_size"):
         tmesh.init_ranks("cpu", init_method="file:///nonexistent")
     runner = telastic.ElasticRunner(build=None, ckpt_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 10e"):
+    with pytest.raises(ValueError, match="needs a process group"):
         runner.run(1, lambda s: {}, devices=["cuda:0", "cuda:1"])
+    with pytest.raises(ValueError, match="needs a process group"):
+        runner.run(1, lambda s: {}, devices=range(4))
 
 
 # -- the worlds ---------------------------------------------------------------
