@@ -153,6 +153,15 @@ line each:
            tensors; the serving launcher under `torchrun
            --nproc-per-node 1` restoring the launch phase's lego, its
            PSNRs equal to the launch phase's train run to 0.01 dB;
+           `nerf_steps`: in (b)'s ranks, the (1, 2) mesh with
+           NeRFConfig()'s R channels split over "model": the render
+           step on a 32 x 32 view with the field decoded (split) and
+           encoded (whole on each rank: the gather kernels, launched on
+           each), one AdamW train step on 1,024 "lego" rays, each
+           against one process on the card (images 1e-4, loss 1e-5
+           relative, params by AdamW's first-step rule at 1e-4); per
+           rank and in one process each step's ms, gloo's ms and calls,
+           and the rank's share of the planes' and lines' bytes (50%);
   kernels  {"kernels": [...]}: per kernel its launches on its path (serve,
            kernel_ops or train), the largest error against its plain
            version
@@ -387,6 +396,29 @@ MESH_PROBES = ("all_reduce", "broadcast", "all_gather",
                "gather", "scatter", "all_to_all_single", "barrier",
                "send_recv")
 MESH_LAUNCH_ARGS = ["--scenes", "lego"]
+# the mesh phase's nerf_steps part, in the gloo x 2 world's ranks after
+# their engine: the (1, 2) mesh, NeRFConfig()'s R channels split over
+# "model" (8 + 24 a rank; `core.distributed.place_nerf_params`). The
+# render step (`build_render_step`) on one NERF_STEP_RES x NERF_STEP_RES
+# view of the mesh orbit with the serve phase's field decoded (dense
+# params, split), and with the field encoded (whole on each rank: the
+# gather kernels); one AdamW train step (`build_nerf_train_step`) from
+# the decoded params on NERF_STEP_RAYS rays of "lego" (drawn with seed 0
+# from NERF_STEP_VIEWS views of NERF_STEP_RES x NERF_STEP_RES). Each
+# against the same step in one process on the card, computed by the
+# parent before it spawns: images within NERF_STEP_IMG_TOL (the sums
+# over R split in two), the loss within NERF_STEP_LOSS_RTOL relative,
+# the params by AdamW's first-step rule at NERF_STEP_PARAM_TOL. Each step
+# runs NERF_STEP_REPEATS times (the last timed, the kernels counted in
+# it alone) and once more under the profiler (gloo's ms).
+NERF_STEP_RES = 32
+NERF_STEP_RAYS = 1024
+NERF_STEP_VIEWS = 2
+NERF_STEP_ANGLE = 0.3
+NERF_STEP_IMG_TOL = 1e-4
+NERF_STEP_LOSS_RTOL = 1e-5
+NERF_STEP_PARAM_TOL = 1e-4
+NERF_STEP_REPEATS = 2
 
 
 # the lm phase: language-model serving of the dense archs
@@ -2599,6 +2631,100 @@ def mesh_collective_ms(torch, dist, tdist, rules, n_rays: int, dev) -> dict:
     return out
 
 
+def nerf_step_inputs(torch, m, occ, dev) -> dict:
+    """The nerf_steps part's inputs, on the card: the occupancy grid `occ`,
+    the rays of one NERF_STEP_RES view of the mesh orbit, and
+    NERF_STEP_RAYS rays of "lego" with their colours."""
+    o, d = m.rendering.camera_rays(orbit_camera(m, NERF_STEP_ANGLE,
+                                                NERF_STEP_RES, dev))
+    ds = m.rays.build_dataset(m.rays.make_scene("lego"), NERF_STEP_VIEWS,
+                              NERF_STEP_RES, NERF_STEP_RES, device=dev)
+    ro, rd, rgb = next(ds.batches(NERF_STEP_RAYS, seed=0))
+    return {"occ": occ, "render_o": o, "render_d": d, "rays_o": ro,
+            "rays_d": rd, "rgb": rgb}
+
+
+def nerf_steps_run(torch, tdist, cfg, field, params, inp, rules, dev,
+                   kernels) -> tuple:
+    """The nerf_steps part on `rules`' mesh (None: one process): the
+    render step of `params` (the decoded field, placed on the mesh) and
+    of the encoded `field`, and one AdamW train step from `params`, each
+    NERF_STEP_REPEATS times and once more under the profiler. Returns
+    (outputs as host arrays, {step: ms of the last run, gloo's ms and
+    calls in the profiled run, the functional collectives}, the kernels'
+    launches in the encoded step's last run, AdamW's first moment after
+    the step, whole)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.optim import adamw
+    opt = adamw(lr=cfg.lr_grid, b2=0.99)
+    state = opt.init(params)
+    render = tdist.build_render_step(cfg, rules)
+    train = tdist.build_nerf_train_step(cfg, opt, rules)
+    batch = {k: inp[k] for k in ("rays_o", "rays_d", "rgb")}
+    rays = (inp["occ"], inp["render_o"], inp["render_d"])
+    calls = {"render_dense": lambda: render(params, *rays),
+             "render_encoded": lambda: render(field, *rays),
+             "train": lambda: train(params, state, batch)}
+    out, steps, launches = {}, {}, {}
+    for name, fn in calls.items():
+        for _ in range(NERF_STEP_REPEATS):
+            zero_counts(kernels)
+            mesh_sync(torch, dev)
+            t0 = time.perf_counter()
+            res = fn()
+            mesh_sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            if name == "render_encoded":
+                launches = launch_counts(kernels)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+            mesh_sync(torch, dev)
+        coll = collective_spans(prof)
+        gloo = [v for k, v in coll.items() if k.startswith("gloo:")]
+        steps[name] = {
+            "ms": ms, "gloo_ms": sum(v[1] for v in gloo),
+            "gloo_calls": sum(v[0] for v in gloo),
+            "functional_collectives": sorted(
+                k for k in coll if k.startswith("_c10d_functional::"))}
+        if name == "train":
+            new, new_state, loss = res
+            out["loss"] = float(loss)
+            out.update({f"p/{k}": v.cpu().numpy() for k, v in
+                        tdist.whole_nerf_params(new).items()})
+            m1 = {k: v.cpu().numpy() for k, v in
+                  tdist.whole_nerf_params(new_state["m"]).items()}
+        else:
+            out[name] = res.cpu().numpy()
+    return out, steps, launches, m1
+
+
+def nerf_steps_rank(torch, tdist, cfg, field, tmp: str, rank: int, dev,
+                    kernels) -> dict:
+    """The nerf_steps part in one rank of the gloo x 2 world on the (1, 2)
+    mesh: its line (ms, gloo, launches, this rank's bytes of planes and
+    lines against the whole's); its outputs to rank<r>_nerf.npz."""
+    import os
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import make_rules
+    t0 = time.perf_counter()
+    rules = make_rules(make_mesh(1, 2, device=dev))
+    with np.load(os.path.join(tmp, "nerf_steps.npz")) as f:
+        inp = {k: torch.from_numpy(f[k]).to(dev) for k in f.files}
+    placed = tdist.place_nerf_params(cfg, field.decode().params, rules)
+    keys = ("sigma_planes", "sigma_lines", "app_planes", "app_lines")
+    local = sum(placed[k].to_local().numel() * 4 for k in keys)
+    whole = sum(placed[k].numel() * 4 for k in keys)
+    out, steps, launches, _ = nerf_steps_run(torch, tdist, cfg, field,
+                                             placed, inp, rules, dev,
+                                             kernels)
+    np.savez(os.path.join(tmp, f"rank{rank}_nerf.npz"), **out)
+    return {"mesh": dict(rules.mesh.shape), "steps": steps,
+            "seconds": time.perf_counter() - t0,
+            "launches": launches, "factor_bytes_local": local,
+            "factor_bytes_whole": whole, "factor_share": local / whole,
+            "loss": out["loss"]}
+
+
 def mesh_probe_rank(rank: int, world: int, tmp: str, device: str) -> None:
     """One rank of the gloo probe (a spawned process on `device`): writes
     rank<r>.json as it goes. It leaves without a last collective: one
@@ -2687,6 +2813,9 @@ def mesh_rank(rank: int, world: int, backend: str, tmp: str, device: str,
                     for r in results]}
         line["collectives"] = mesh_collective_ms(
             torch, dist, tdist, make_rules(mesh), MESH_RES ** 2, dev)
+        if world > 1:
+            line["nerf_steps"] = nerf_steps_rank(torch, tdist, cfg, field,
+                                                 tmp, rank, dev, kernels)
         if world == 1:
             # gpipe at one stage: the pipeline mesh of the one rank
             rng = np.random.default_rng(0)
@@ -2784,7 +2913,48 @@ def mesh_probe_world(world: int, tmp: str, device: str) -> dict:
     return out
 
 
-def mesh_phase(torch, m, cfg, field, dev, root, train_psnr) -> tuple:
+def nerf_steps_check(torch, cfg, want: dict, m1: dict, ranks: list) -> dict:
+    """Each rank's nerf_steps outputs (rank<r>_nerf.npz, its line) against
+    one process's: image errors, the loss's relative error, the params'
+    ratio to AdamW's first-step bound; this rank's share of the bytes of
+    planes and lines, its gather launches in the encoded step, no
+    functional collective. Returns the ranks' lines with the errors."""
+    out = []
+    for r, (line, got) in enumerate(ranks):
+        where = f"nerf_steps rank {r}"
+        for k in ("render_dense", "render_encoded"):
+            line[f"{k}_max_abs_err"] = err = max_diff(got[k], want[k])
+            check(got[k].shape == want[k].shape == (NERF_STEP_RES ** 2, 3)
+                  and err <= NERF_STEP_IMG_TOL, f"{where}: {k} image "
+                  f"error {err}")
+        rel = abs(line["loss"] - want["loss"]) / abs(want["loss"])
+        line["loss_rel_err"] = rel
+        check(rel <= NERF_STEP_LOSS_RTOL, f"{where}: loss {line['loss']} "
+              f"against {want['loss']}")
+        ratio = adamw_first_step_ratio(
+            torch, {k: torch.from_numpy(got[f"p/{k}"]) for k in m1},
+            {k: torch.from_numpy(want[f"p/{k}"]) for k in m1},
+            {k: torch.from_numpy(v) for k, v in m1.items()},
+            NERF_STEP_PARAM_TOL, lr=cfg.lr_grid)
+        line["param_vs_first_step_bound"] = ratio
+        check(ratio <= 1.0, f"{where}: params at {ratio} of AdamW's "
+              f"first-step bound")
+        check(line["factor_share"] == 0.5, f"{where}: "
+              f"{line['factor_share']} of the planes' and lines' bytes")
+        for name in ("bitmap_gather", "coo_gather"):
+            check(line["launches"][name] > 0, f"{where}: {name} was not "
+                  f"launched in the encoded render step")
+        for k, st in line["steps"].items():
+            check(not st["functional_collectives"], f"{where}: {k} ran "
+                  f"{st['functional_collectives']}")
+        check(line["steps"]["render_dense"]["gloo_calls"] > 0,
+              f"{where}: the split render step ran no collective")
+        out.append(line)
+    return out
+
+
+def mesh_phase(torch, m, cfg, field, dev, root, train_psnr,
+               kernels) -> tuple:
     """RenderEngine(mesh=) across ranks against the single-process engine
     on the card, gpipe at one stage, the gloo probe on CUDA tensors, and
     the serving launcher under torchrun. Returns (phase line, per kernel
@@ -2798,17 +2968,34 @@ def mesh_phase(torch, m, cfg, field, dev, root, train_psnr) -> tuple:
                             adaptive_pair_budget=False, trace_requests=False)
     want, want_s = mesh_render(torch, single, cams)
     cubes = single.cubes.count
+    # the nerf_steps part in one process, before the ranks spawn
+    from repro_torch.core import distributed as tdist
+    t0 = time.perf_counter()
+    nerf_in = nerf_step_inputs(torch, m, single.cubes.occ, dev)
     del single
+    nerf_want, nerf_single, nerf_launches, nerf_m1 = nerf_steps_run(
+        torch, tdist, cfg, field, field.decode().params, nerf_in, None, dev,
+        kernels)
+    nerf_single_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    nerf_ranks = []
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         m.ckpt.save_field(os.path.join(tmp, "field"), 0, field)
+        np.savez(os.path.join(tmp, "nerf_steps.npz"),
+                 **{k: v.cpu().numpy() for k, v in nerf_in.items()})
         worlds = {}
         for backend, world in MESH_WORLDS:
             wdir = os.path.join(tmp, f"{backend}{world}")
             os.makedirs(wdir)
-            os.symlink(os.path.join(tmp, "field"), os.path.join(wdir, "field"))
-            worlds[f"{backend}x{world}"] = mesh_world(
+            for name in ("field", "nerf_steps.npz"):
+                os.symlink(os.path.join(tmp, name), os.path.join(wdir, name))
+            worlds[f"{backend}x{world}"] = res = mesh_world(
                 backend, world, wdir, str(dev), dataclasses.asdict(cfg))
+            if world > 1:
+                for r, (line, _) in enumerate(res):
+                    with np.load(os.path.join(wdir, f"rank{r}_nerf.npz")) as f:
+                        nerf_ranks.append((line.pop("nerf_steps"),
+                                           dict(f.items())))
         probe_dir = os.path.join(tmp, "probe")
         os.makedirs(probe_dir)
         probe = mesh_probe_world(2, probe_dir, str(dev))
@@ -2865,11 +3052,26 @@ def mesh_phase(torch, m, cfg, field, dev, root, train_psnr) -> tuple:
                                "views_per_s": 1.0 / want_s,
                                "cubes": cubes},
             "ranks": ranks, "gloo_on_cuda": probe,
+            "nerf_steps": {
+                "res": NERF_STEP_RES, "train_rays": NERF_STEP_RAYS,
+                "img_tol": NERF_STEP_IMG_TOL,
+                "loss_rtol": NERF_STEP_LOSS_RTOL,
+                "param_tol": NERF_STEP_PARAM_TOL,
+                "single_process": {"seconds": nerf_single_s,
+                                   "steps": nerf_single,
+                                   "launches": nerf_launches,
+                                   "loss": nerf_want["loss"]},
+                "ranks": nerf_steps_check(torch, cfg, nerf_want, nerf_m1,
+                                          nerf_ranks)},
             "launcher": {"args": args, "seconds": seconds, "psnr": psnr,
                          "psnr_max_diff_db": diff,
                          "kernel_launches": launches[-1]}}
-    return line, {name: {"launches_per_rank": v}
-                  for name, v in entries.items()}
+    nerf_launches = {name: [r["launches"][name]
+                            for r in line["nerf_steps"]["ranks"]]
+                     for name in ("bitmap_gather", "coo_gather")}
+    return line, {name: {"launches_per_rank": v, **(
+        {"nerf_steps_launches_per_rank": nerf_launches[name]}
+        if name in nerf_launches else {})} for name, v in entries.items()}
 
 
 def lm_serve(torch, lm, cfg, params, tokens, frontend, n_decode, dev,
@@ -4584,7 +4786,8 @@ def leaf_rel_err(torch, got, want, skip=()) -> tuple:
     return worst, where
 
 
-def adamw_first_step_ratio(torch, got, want, m, tol) -> float:
+def adamw_first_step_ratio(torch, got, want, m, tol,
+                           lr: float = LM_TRAIN_LR) -> float:
     """The largest ratio over every param of |got - want| to AdamW's
     first-step bound (LM_TRAIN_ADAMW; see the lm_train constants):
     tol x its leaf's largest + lr x 4 tol max|g| / (|g| + eps), g = m /
@@ -4596,7 +4799,7 @@ def adamw_first_step_ratio(torch, got, want, m, tol) -> float:
         a, b = a.float().cpu(), b.float().cpu()
         g = mm.float().cpu().abs() / (1 - b1)
         bnd = (tol * b.abs().max()
-               + LM_TRAIN_LR * 4 * tol * g.max() / (g + eps))
+               + lr * 4 * tol * g.max() / (g + eps))
         diff = (a - b).abs()
         ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / bnd)
         worst = max(worst, float(ratio.max()))
@@ -5788,7 +5991,7 @@ def main() -> int:
         train_psnr = {k: v for k, v in line["runs"][0]["psnr"].items()
                       if k.startswith("lego ")}
         line, mesh_entries = mesh_phase(torch, m, cfg, field, dev, root,
-                                        train_psnr)
+                                        train_psnr, kernels)
         emit(line)
 
 

@@ -15,6 +15,8 @@ sets. The port of `repro/core/field.py`.
   with_trainable(t)   the same structure with new payloads
   l1(), tv()          the training regularisers
 
+`SplitField` is a dense field whose planes and lines are split over
+the ranks of a "model" group (`core.distributed.split_field`).
 `as_backend` is the one place that inspects a field's concrete type.
 `field_state`/`field_from_state` carry a field between this package and
 the reference as a json-able spec plus named numpy arrays;
@@ -24,7 +26,7 @@ config.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -347,6 +349,80 @@ class CompressedField(FieldBackend):
         """Per factor key, the format of each mode slice."""
         return {k: tuple(ef.fmt for ef in efs)
                 for k, efs in self.factors.items()}
+
+
+@dataclasses.dataclass(eq=False)
+class SplitField(FieldBackend):
+    """A dense field split over the ranks of a "model" group
+    (`core.distributed.split_field`): `params` are this rank's local
+    tensors, its channels lo:hi of each split head's planes and lines
+    (`channels`: "sigma" / "app" -> (lo, hi); a head not named is whole),
+    the rest whole. Eq. 2 runs on the local channels and `reduce` sums
+    the partials over the group: the density's sum before its softplus,
+    the (N, app_dim) features after the local channels' basis rows.
+    `share` passes the whole basis to the rows a rank uses (its backward
+    sums the rows' gradients over the group). L1 and TV sum each split
+    leaf's shard over the whole leaf's count (`numel`) and reduce once;
+    a whole head is evaluated whole on every rank and counted once. The
+    MLP runs on the reduced features, the same on every rank. Encoding,
+    pruning and moving a split field are not defined: make its params
+    whole first (`core.distributed.whole_nerf_params`)."""
+
+    params: Dict[str, torch.Tensor]
+    cfg: NeRFConfig
+    channels: Dict[str, Tuple[int, int]]
+    numel: Dict[str, int]
+    reduce: Callable[[torch.Tensor], torch.Tensor]
+    share: Callable[[torch.Tensor], torch.Tensor]
+    kind = "split"
+
+    def sigma(self, pts):
+        raw = tensorf.sigma_sum(self.params["sigma_planes"],
+                                self.params["sigma_lines"], self.cfg, pts)
+        if "sigma" in self.channels:
+            raw = self.reduce(raw)
+        return torch.nn.functional.softplus(raw)
+
+    def app_features(self, pts):
+        if "app" not in self.channels:
+            return tensorf.eval_app_features(self.params, self.cfg, pts)
+        lo, hi = self.channels["app"]
+        basis = tensorf.basis_rows(self.share(self.params["basis"]),
+                                   self.cfg.r_color, lo, hi)
+        return self.reduce(tensorf.app_sum(
+            self.params["app_planes"], self.params["app_lines"], basis,
+            self.cfg, pts))
+
+    @property
+    def mlp_params(self):
+        return self.params
+
+    def trainable(self):
+        return dict(self.params)
+
+    def with_trainable(self, t):
+        return dataclasses.replace(self, params=dict(t))
+
+    def _is_split(self, key: str) -> bool:
+        return key.split("_")[0] in self.channels
+
+    def _regulariser(self, term, keys) -> torch.Tensor:
+        """The sum of `term(leaf, count)` over `keys`: the split leaves'
+        shares reduced over the group, the whole leaves' added after."""
+        part = [term(self.params[k], self.numel[k]) for k in keys
+                if self._is_split(k)]
+        out = self.reduce(torch.stack(part).sum()) if part else 0.0
+        for k in keys:
+            if not self._is_split(k):
+                out = out + term(self.params[k], None)
+        return out
+
+    def l1(self):
+        return self._regulariser(tensorf.factor_l1, sparse.FACTOR_KEYS)
+
+    def tv(self):
+        return self._regulariser(tensorf.plane_tv,
+                                 ("sigma_planes", "app_planes"))
 
 
 def as_backend(field, cfg: Optional[NeRFConfig] = None) -> FieldBackend:

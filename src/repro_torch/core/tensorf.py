@@ -146,19 +146,42 @@ def vm_components(planes, lines, pts_g) -> torch.Tensor:
     return torch.stack(outs)
 
 
+def sigma_sum(planes, lines, cfg: NeRFConfig,
+              pts: torch.Tensor) -> torch.Tensor:
+    """Eq. 2's sum over the modes and the components of `planes` and
+    `lines` (all R, or a rank's channels of them): the density before
+    its softplus, (N,)."""
+    return vm_components(planes, lines, to_grid(cfg, pts)).sum(dim=(0, 1))
+
+
 def eval_sigma(params, cfg: NeRFConfig, pts: torch.Tensor) -> torch.Tensor:
     """Density (Eq. 2): softplus of the sum over modes and components."""
-    comp = vm_components(params["sigma_planes"], params["sigma_lines"],
-                         to_grid(cfg, pts))
-    return F.softplus(comp.sum(dim=(0, 1)))
+    return F.softplus(sigma_sum(params["sigma_planes"],
+                                params["sigma_lines"], cfg, pts))
+
+
+def app_sum(planes, lines, basis: torch.Tensor, cfg: NeRFConfig,
+            pts: torch.Tensor) -> torch.Tensor:
+    """The components of `planes` and `lines` through `basis`, the rows
+    that meet them (`basis_rows`): the appearance features (N, app_dim),
+    or a rank's share of their sum over R."""
+    comp = vm_components(planes, lines, to_grid(cfg, pts))
+    feat = comp.reshape(3 * comp.shape[1], -1).T        # (N, 3*R)
+    return feat @ basis                                 # (N, app_dim)
+
+
+def basis_rows(basis: torch.Tensor, r_color: int, lo: int,
+               hi: int) -> torch.Tensor:
+    """The rows of the (3 * r_color, app_dim) basis that appearance
+    channels lo:hi meet. The features are mode-major (row m * r_color +
+    r), so a range of channels meets three strided blocks, one a mode."""
+    return basis.view(3, r_color, -1)[:, lo:hi].reshape(3 * (hi - lo), -1)
 
 
 def eval_app_features(params, cfg: NeRFConfig,
                       pts: torch.Tensor) -> torch.Tensor:
-    comp = vm_components(params["app_planes"], params["app_lines"],
-                         to_grid(cfg, pts))
-    feat = comp.reshape(3 * cfg.r_color, -1).T          # (N, 3*Rc)
-    return feat @ params["basis"]                       # (N, app_dim)
+    return app_sum(params["app_planes"], params["app_lines"],
+                   params["basis"], cfg, pts)
 
 
 # --------------------------------------------------------------------------
@@ -342,23 +365,44 @@ def abs_grad1(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
+def _mean(x: torch.Tensor, count: Optional[int]) -> torch.Tensor:
+    """x.mean(), or x's sum over `count`, a float32 0-dim tensor (a
+    shard's share of the whole tensor's mean)."""
+    if count is None:
+        return x.mean()
+    return x.sum() / torch.tensor(float(count), dtype=torch.float32,
+                                  device=x.device)
+
+
+def factor_l1(w: torch.Tensor, numel: Optional[int] = None) -> torch.Tensor:
+    """The mean |w| of a factor tensor of `numel` elements (None: w's
+    own); of a shard, its share of the whole tensor's mean."""
+    return _mean(abs_grad1(w), numel)
+
+
+def plane_tv(p: torch.Tensor, numel: Optional[int] = None) -> torch.Tensor:
+    """The mean squared difference of neighbours along each axis of the
+    (..., G, G) planes `p` of `numel` elements (None: p's own); of a
+    shard cut on a leading dim, its share of the whole tensor's."""
+    n = None if numel is None else numel // p.shape[-1] * (p.shape[-1] - 1)
+    d1 = _mean(torch.square(p[..., 1:, :] - p[..., :-1, :]), n)
+    d2 = _mean(torch.square(p[..., :, 1:] - p[..., :, :-1]), n)
+    return d1 + d2
+
+
 def field_l1(params) -> torch.Tensor:
     """L1 sparsity regulariser: the mean |w| of each factor tensor,
     summed; it induces the factor sparsity the hybrid encoding uses."""
-    return (abs_grad1(params["sigma_planes"]).mean()
-            + abs_grad1(params["sigma_lines"]).mean()
-            + abs_grad1(params["app_planes"]).mean()
-            + abs_grad1(params["app_lines"]).mean())
+    return (factor_l1(params["sigma_planes"])
+            + factor_l1(params["sigma_lines"])
+            + factor_l1(params["app_planes"])
+            + factor_l1(params["app_lines"]))
 
 
 def field_tv(params) -> torch.Tensor:
     """Total variation of the planes (smoothness): the mean squared
     difference of neighbours along each plane axis."""
-    def tv(p):
-        d1 = torch.square(p[..., 1:, :] - p[..., :-1, :]).mean()
-        d2 = torch.square(p[..., :, 1:] - p[..., :, :-1]).mean()
-        return d1 + d2
-    return tv(params["sigma_planes"]) + tv(params["app_planes"])
+    return plane_tv(params["sigma_planes"]) + plane_tv(params["app_planes"])
 
 
 def prune_factors(params, tol: float = 1e-3):

@@ -177,28 +177,91 @@ def store_job(rank, world, p):
             "device": str(store.device)}
 
 
-def steps_job(rank, world, p):
-    """`build_render_step` and one `build_nerf_train_step` on the world
-    mesh."""
-    from repro_torch.configs.rtnerf import NeRFConfig
+@contextlib.contextmanager
+def _counted(*fns):
+    """Count the calls of each `(module, name)` function while inside:
+    yields {name: calls}."""
+    calls, saved = {}, []
+    for mod, name in fns:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        calls[name] = 0
+
+        def wrapper(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+        setattr(mod, name, wrapper)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _steps_on(cfg, rules, p, split):
+    """`build_render_step` (the scene's dense params, whole; a dict, or
+    a DenseField on a mesh whose data axis is split) and one
+    `build_nerf_train_step` on `rules`' mesh. On a "model" axis
+    (`split`) also: the render step of the encoded `p["step_field"]`
+    and the calls of the gathers' plain versions in it, each leaf's
+    placements and local shapes (params, AdamW's m and v), the local
+    parts of the returned params, and the collectives the split steps
+    ran."""
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import distributed as tdist
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.sharding import make_rules
+    from repro_torch.core import field as tfield
+    from repro_torch.kernels import bitmap_decode, coo_gather
     from repro_torch.optim import adamw
-    rules = make_rules(make_host_mesh("cpu"))
     t = {k: torch.from_numpy(v) for k, v in p["render_params"].items()}
-    cfg = NeRFConfig(**p["step_cfg"])
-    rgb = tdist.build_render_step(cfg, rules)(
-        t, torch.from_numpy(p["occ"]), torch.from_numpy(p["render_o"]),
-        torch.from_numpy(p["render_d"]))
+    occ, ro, rd = (torch.from_numpy(p[k]) for k in ("occ", "render_o",
+                                                     "render_d"))
     opt = adamw(lr=cfg.lr_grid, b2=0.99)
     params = {k: torch.from_numpy(v) for k, v in p["train_params"].items()}
     batch = {k: torch.from_numpy(v) for k, v in p["batch"].items()}
-    params, state, loss = tdist.build_nerf_train_step(cfg, opt, rules)(
-        params, opt.init(params), batch)
-    return {"rgb": rgb.numpy(), "loss": float(loss),
-            "params": {k: v.detach().numpy() for k, v in params.items()},
-            "step": int(state["step"])}
+    if split and rules.mesh.shape["data"] == 1:
+        # placed by the caller; on the other meshes by the step, and the
+        # render step takes a DenseField there
+        params = tdist.place_nerf_params(cfg, params, rules)
+    elif split:
+        t = tfield.DenseField(t, cfg)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        rgb = tdist.build_render_step(cfg, rules)(t, occ, ro, rd)
+        params, state, loss = tdist.build_nerf_train_step(cfg, opt, rules)(
+            params, opt.init(params), batch)
+    out = {"rgb": rgb.numpy(), "loss": float(loss), "step": int(
+        state["step"]), "params": {k: v.detach().numpy() for k, v in
+                                   tdist.whole_nerf_params(params).items()}}
+    if not split:
+        return out
+    out["collectives"] = sorted(
+        e.key for e in prof.key_averages()
+        if e.key.startswith(("gloo:", "_c10d_functional::")))
+    out["local"] = {k: v.to_local().detach().numpy()
+                    for k, v in params.items()}
+    out["placed"] = {
+        f"{tree}/{k}": (tuple(v.shape), tuple(v.to_local().shape),
+                        tuple(repr(x) for x in v.placements))
+        for tree, leaves in (("params", params), ("m", state["m"]),
+                             ("v", state["v"]))
+        for k, v in leaves.items()}
+    _, field, _ = _field(p, "step_field")
+    with _counted((bitmap_decode, "bitmap_gather_ref"),
+                  (coo_gather, "coo_gather_ref")) as calls:
+        out["rgb_encoded"] = tdist.build_render_step(cfg, rules)(
+            field, occ, ro, rd).numpy()
+    out["gather_calls"] = dict(calls)
+    return out
+
+
+def steps_job(rank, world, p):
+    """`_steps_on` on each mesh shape of `p["step_meshes"][world]`: the
+    world's host mesh for (world, 1), a (data, model) mesh otherwise."""
+    from repro_torch.configs.rtnerf import NeRFConfig
+    from repro_torch.models.sharding import make_rules
+    cfg = NeRFConfig(**p["step_cfg"])
+    return {shape: _steps_on(cfg, make_rules(_lm_mesh(shape)), p,
+                             split=shape[1] > 1)
+            for shape in p["step_meshes"][world]}
 
 
 def launch_job(rank, world, p):

@@ -8,8 +8,10 @@ with its counters exactly, through sharded chunks and through a chunk
 that does not divide the ranks (99 rays: the reference's 100-ray chunk
 on 8 devices divides 2 and 4); on 2 ranks the store evicts as the
 reference's store does, `build_render_step` and `build_nerf_train_step`
-give the reference's one-device step, and the serving launcher prints
-the PSNRs of one rank. Each world is spawned once (`_torch_mesh_ranks`)
+give the reference's one-device step on the (2, 1) host mesh and, with
+the field's R channels split over "model", on 1 x 2, 2 x 2 and 1 x 4
+(where r_sigma = 2 stays whole), and the serving launcher prints the
+PSNRs of one rank. Each world is spawned once (`_torch_mesh_ranks`)
 and its results asserted case by case. The reference's own engine on a
 mesh fails here (ROADMAP.md Queue 3 item 26), so its single-device
 engine is the oracle: GSPMD's sharded engine computes exactly that."""
@@ -59,6 +61,14 @@ ODD_CHUNK = 99
 WORLDS = (2, 4)
 STEP_RES = 12
 TRAIN_RAYS = 96
+# the meshes of the render and train steps in each world: (data, model)
+STEP_MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2), (1, 4)]}
+SPLIT = [(w, shape) for w, shapes in STEP_MESHES.items()
+         for shape in shapes if shape[1] > 1]
+SPLIT_IDS = [f"{w}ranks-{d}x{m}" for w, (d, m) in SPLIT]
+# the encoded field of the render step: the scene's slices lie 0.875 to
+# 0.9375 sparse, so at this threshold some are bitmap and some COO
+STEP_THRESHOLD = 0.9
 LAUNCH_ARGS = ["--arch", "rtnerf", "--scene", "lego", "--views", "1",
                "--res", "16", "--train-steps", "2", "--device", "cpu"]
 STORE_OPS = [("register", "a", "s0"), ("register", "b", "s1"),
@@ -263,18 +273,22 @@ def _steps(field, occ):
             "train_params": numpy_params(CFG, 3), "batch": batch}
 
 
-def _reference_steps(p):
-    """The reference's one-device render step and train step."""
+def _reference_steps(p, cf):
+    """The reference's one-device render step (of the dense params and
+    of the encoded field `cf`) and train step."""
     jnp_ = lambda tree: {k: jnp.asarray(v) for k, v in tree.items()}
-    rgb = jdist.build_render_step(CFG)(
-        jnp_(p["render_params"]), jnp.asarray(p["occ"]),
-        jnp.asarray(p["render_o"]), jnp.asarray(p["render_d"]))
+    render = jdist.build_render_step(CFG)
+    rays = (jnp.asarray(p["occ"]), jnp.asarray(p["render_o"]),
+            jnp.asarray(p["render_d"]))
+    rgb = render(jnp_(p["render_params"]), *rays)
+    rgb_encoded = render(cf, *rays)
     opt = jadamw(lr=CFG.lr_grid, b2=0.99)
     jp = jnp_(p["train_params"])
     jp1, jstate, jloss = jdist.build_nerf_train_step(CFG, opt)(
         jp, opt.init(jp), jnp_(p["batch"]))
-    return {"rgb": np.asarray(rgb), "loss": float(jloss), "params": jp1,
-            "m": jstate["m"], "lr": CFG.lr_grid}
+    return {"rgb": np.asarray(rgb), "rgb_encoded": np.asarray(rgb_encoded),
+            "loss": float(jloss), "params": jp1, "m": jstate["m"],
+            "lr": CFG.lr_grid}
 
 
 def _psnrs(out: str):
@@ -292,6 +306,7 @@ def worlds(tmp_path_factory):
     budget = int(2.5 * jfield.as_backend(store_scenes["s0"][0], CFG)
                  .encode().factor_bytes())
     steps_in = _steps(field, occ)
+    step_cf = field.encode(STEP_THRESHOLD)
     tmp = tmp_path_factory.mktemp("mesh")
     payload = {"cfg": dataclasses.asdict(CFG), "scene": _state(cf, cubes),
                "cams": [(np.array(c.c2w), np.array(c.origin), c.focal, c.h,
@@ -302,13 +317,14 @@ def worlds(tmp_path_factory):
                "launch_args": LAUNCH_ARGS + ["--ckpt-dir",
                                              str(tmp / "ckpt2")],
                **{k: _state(*v) for k, v in store_scenes.items()},
-               **steps_in}
+               **steps_in, "step_meshes": STEP_MESHES,
+               "step_field": _state(step_cf, cubes)}
     started = {}
     for world in WORLDS:
         wdir = tmp / f"world{world}"
         wdir.mkdir()
-        jobs = ["engine"] + (["store", "steps", "launch"] if world == 2
-                             else [])
+        jobs = ["engine", "steps"] + (["store", "launch"] if world == 2
+                                      else [])
         started[world] = ranks.start(ranks.world_job, world, wdir,
                                      {**payload, "jobs": jobs})
     try:
@@ -318,7 +334,7 @@ def worlds(tmp_path_factory):
             want[key]["one_device"] = _one_device_engine(cf, cubes, cams,
                                                          chunk)
         store = _reference_store(store_scenes, budget, str(tmp / "jspill"))
-        steps = _reference_steps(steps_in)
+        steps = _reference_steps(steps_in, step_cf)
         from repro_torch.launch import serve as tserve
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -409,15 +425,16 @@ def test_store_evicts_as_the_reference_on_each_rank(worlds):
 def test_render_step_on_two_ranks(worlds):
     want = worlds["steps"]["rgb"]
     for res in worlds["ranks"][2]:
-        assert res["steps"]["rgb"].shape == want.shape == (STEP_RES ** 2, 3)
-        np.testing.assert_allclose(res["steps"]["rgb"], want, atol=1e-4)
+        got = res["steps"][(2, 1)]["rgb"]
+        assert got.shape == want.shape == (STEP_RES ** 2, 3)
+        np.testing.assert_allclose(got, want, atol=1e-4)
 
 
 def test_train_step_on_two_ranks(worlds):
     """The loss within 1e-5 relative of the reference's one-device step;
     the params after it by AdamW's first-step rule, equal on both ranks."""
     want = worlds["steps"]
-    got = [res["steps"] for res in worlds["ranks"][2]]
+    got = [res["steps"][(2, 1)] for res in worlds["ranks"][2]]
     for g in got:
         assert abs(g["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
         assert g["step"] == 1
@@ -426,6 +443,106 @@ def test_train_step_on_two_ranks(worlds):
     for k in got[0]["params"]:
         np.testing.assert_array_equal(got[0]["params"][k],
                                       got[1]["params"][k])
+
+
+def _split_runs(worlds, world, shape):
+    return [res["steps"][shape] for res in worlds["ranks"][world]]
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_render_step_matches_the_reference(worlds, world, shape):
+    """The dense params split over "model": every rank returns the
+    reference's one-device image within 1e-4."""
+    want = worlds["steps"]["rgb"]
+    for rank, got in enumerate(_split_runs(worlds, world, shape)):
+        assert got["rgb"].shape == want.shape == (STEP_RES ** 2, 3)
+        np.testing.assert_allclose(got["rgb"], want, atol=1e-4,
+                                   err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_render_step_of_an_encoded_field(worlds, world, shape):
+    """An encoded field (bitmap and COO slices) on a "model" axis stays
+    whole on every rank and renders the reference's image within 1e-4
+    through the gathers' plain versions (on the CPU), each called on
+    every rank."""
+    want = worlds["steps"]["rgb_encoded"]
+    for rank, got in enumerate(_split_runs(worlds, world, shape)):
+        np.testing.assert_allclose(got["rgb_encoded"], want, atol=1e-4,
+                                   err_msg=f"rank {rank}")
+        assert got["gather_calls"]["bitmap_gather_ref"] > 0, rank
+        assert got["gather_calls"]["coo_gather_ref"] > 0, rank
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_train_step_matches_the_reference(worlds, world, shape):
+    """The loss within 1e-5 relative of the reference's one-device step
+    on every rank; the params, made whole from the ranks' shards, by
+    AdamW's first-step rule at 1e-5."""
+    want = worlds["steps"]
+    for got in _split_runs(worlds, world, shape):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        assert got["step"] == 1
+        close_adamw_first_step(got["params"], want["params"], want["m"],
+                               want["lr"], 0.9, 1e-8, 1e-5)
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_leaves_hold_their_channels(worlds, world, shape):
+    """Each plane and line whose R divides the model axis holds R / m
+    channels on dim 1 of every rank, and so do its AdamW moments; every
+    other leaf (on 1 x 4 the sigma head, r_sigma = 2) is whole."""
+    m = shape[1]
+    whole = {k: tuple(np.shape(v)) for k, v in
+             worlds["steps"]["params"].items()}
+    for got in _split_runs(worlds, world, shape):
+        for tree in ("params", "m", "v"):
+            for k, full in whole.items():
+                gshape, lshape, pls = got["placed"][f"{tree}/{k}"]
+                assert gshape == full, (tree, k)
+                split = "planes" in k or "lines" in k
+                if split and full[1] % m == 0:
+                    assert lshape == (full[0], full[1] // m) + full[2:], (
+                        tree, k)
+                    assert pls == ("Replicate()", "Shard(dim=1)"), (tree, k)
+                else:
+                    assert lshape == full, (tree, k)
+                    assert pls == ("Replicate()", "Replicate()"), (tree, k)
+    heads = {k: got["placed"][f"params/{k}"][1][1]
+             for k in ("sigma_planes", "app_planes")}
+    assert heads == {"sigma_planes": CFG.r_sigma // m if CFG.r_sigma % m == 0
+                     else CFG.r_sigma, "app_planes": CFG.r_color // m}
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_leaves_agree_across_ranks(worlds, world, shape):
+    """After the step, every whole leaf is equal bit for bit on every
+    rank, and a split leaf's shard on the ranks that share its model
+    coordinate; the shards of one model group make the whole leaf."""
+    runs = _split_runs(worlds, world, shape)
+    m = shape[1]
+    for k, first in runs[0]["local"].items():
+        for rank, got in enumerate(runs):
+            if first.shape == got["params"][k].shape:
+                np.testing.assert_array_equal(got["local"][k], first,
+                                              err_msg=f"{k} rank {rank}")
+            else:
+                np.testing.assert_array_equal(
+                    got["local"][k], runs[rank % m]["local"][k],
+                    err_msg=f"{k} rank {rank}")
+                np.testing.assert_array_equal(
+                    np.concatenate([r["local"][k] for r in runs[:m]], 1),
+                    got["params"][k], err_msg=k)
+
+
+@pytest.mark.parametrize("world,shape", SPLIT, ids=SPLIT_IDS)
+def test_split_steps_run_no_functional_collective(worlds, world, shape):
+    """The split steps' collectives are gloo's `dist` ones (the sums over
+    "model"), never DTensor's functional collectives."""
+    for got in _split_runs(worlds, world, shape):
+        assert "gloo:all_reduce" in got["collectives"], got["collectives"]
+        assert not [c for c in got["collectives"]
+                    if c.startswith("_c10d_functional::")]
 
 
 def test_launcher_on_two_ranks_prints_one_ranks_psnr(worlds):
